@@ -9,7 +9,7 @@ the kernel-tuning slice.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, Sequence
 
 import numpy as np
 
@@ -24,25 +24,22 @@ GATHER_PENALTY = 4.0  # effective-bandwidth derate for data-dependent gathers
 
 @dataclasses.dataclass
 class TuneReport:
-    """A selection decision: the winning format plus, when resolved, the
-    kernel backend and launch config to run it with."""
+    """A selection decision: the winning format and the time each candidate
+    was predicted (or measured) to take. The kernel backend and launch
+    config that the JAX report may carry come with the kernel-tuning slice."""
 
     best: Format
     times: Dict[Format, float]  # seconds (measured or predicted)
     mode: str
-    backend: Optional[str] = None
-    cfg: Optional[dict] = None
 
     def __repr__(self):
         rows = ", ".join(f"{f.name}={t:.3e}s" for f, t in self.times.items())
-        extra = f", backend={self.backend}, cfg={self.cfg}" if self.backend else ""
-        return f"TuneReport(best={self.best.name}, mode={self.mode}{extra}, {rows})"
+        return f"TuneReport(best={self.best.name}, mode={self.mode}, {rows})"
 
 
-def predicted_bytes(stats: PatternStats, fmt: Format,
-                    gather_penalty: Optional[float] = None) -> float:
+def predicted_bytes(stats: PatternStats, fmt: Format) -> float:
     """Bytes touched by one SpMV in ``fmt`` (matrix + x-access cost model)."""
-    GATHER = gather_penalty if gather_penalty is not None else GATHER_PENALTY
+    GATHER = GATHER_PENALTY
     w, m, n = stats.itemsize, stats.m, stats.n
     ii = 4  # index itemsize
     if fmt == Format.COO:
@@ -87,9 +84,8 @@ def predicted_bytes(stats: PatternStats, fmt: Format,
 
 def analytic_select(stats: PatternStats,
                     candidates: Sequence[Format] = (Format.COO, Format.CSR, Format.DIA,
-                                                    Format.ELL, Format.SELL),
-                    hbm_bw: float = HBM_BW) -> TuneReport:
-    times = {Format(f): predicted_bytes(stats, Format(f)) / hbm_bw
+                                                    Format.ELL, Format.SELL)) -> TuneReport:
+    times = {Format(f): predicted_bytes(stats, Format(f)) / HBM_BW
              for f in candidates}
     best = min(times, key=times.get)
     return TuneReport(best, times, "analytic")
