@@ -10,7 +10,8 @@ Phases, in order (any failure exits nonzero and prints no result line):
    card, at the HPCG 104^3 shapes of the main path and on ragged cases
    (empty rows, rectangular DIA, offsets outside the matrix, CSR capacity
    padding), in float32 and bfloat16; bitwise equality over two runs;
-   median times (CUDA events) of the kernel, the plain version and one
+   median times (CUDA events, after 0.2 s of warm-up) of the kernel, the
+   plain version and one
    library call computing the same product (``torch.mv`` on a
    ``torch.sparse_csr_tensor``, a yardstick only), beside the least time
    the card could take (bytes over the memory rate, operations over the
@@ -66,12 +67,18 @@ def peaks_for(name: str):
     raise SmokeFailure(f"no data-sheet peaks for card {name!r}")
 
 
-def time_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn`` on the current stream (CUDA events)."""
+WARMUP_S = 0.2  # launch-and-sync this long before timing, so clocks settle
+
+
+def time_ms(fn, iters: int) -> float:
+    """Median milliseconds of ``fn`` on the current stream (CUDA events),
+    after at least 3 calls and ``WARMUP_S`` seconds of warm-up."""
     import torch
-    for _ in range(warmup):
+    t0, calls = time.perf_counter(), 0
+    while calls < 3 or time.perf_counter() - t0 < WARMUP_S:
         fn()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        calls += 1
     ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
           for _ in range(iters)]
     for s, e in ev:
@@ -204,10 +211,11 @@ def phase_kernels(torch, np, prob, peak_bw, peak_flops):
         ragged_cases(rng, torch, dtype)
 
         # the least time: bytes each input read once and y written once, or
-        # the multiply-adds these inputs need at the float32 peak
+        # the multiply-adds these inputs need at the float32 peak. DIA reads
+        # only the table entries whose column lies inside the matrix.
         cols = torch.arange(m, device="cuda")[None, :] + dia.offsets.long()[:, None]
         dia_pairs = int(((cols >= 0) & (cols < n)).sum())
-        dia_bytes = dia.ndiag * 4 + dia.ndiag * m * es + n * es + m * es
+        dia_bytes = dia.ndiag * 4 + dia_pairs * es + n * es + m * es
         csr_bytes = (m + 1) * 4 + csr.nnz * (4 + es) + n * es + m * es
         rows = [("dia_spmv", run_dia, plain_dia, dia_bytes, 2 * dia_pairs, err_d,
                  "src/repro_torch/csrc/dia_spmv.cu", "src/repro/kernels/dia_spmv.py:50"),

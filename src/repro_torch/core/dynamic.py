@@ -68,8 +68,8 @@ class DynamicMatrix:
         plan = policy.plan_for(A, x=x, **conv_kwargs)
         return cls(_execute_fn(A, plan))
 
-    def spmv(self, x, backend: Optional[str] = None, cfg=None):
-        return _ops.spmv(self.concrete, x, backend=backend, cfg=cfg)
+    def spmv(self, x, backend: Optional[str] = None):
+        return _ops.spmv(self.concrete, x, backend=backend)
 
     def extract_diagonal(self):
         return _ops.extract_diagonal(self.concrete)
@@ -161,8 +161,8 @@ class SwitchDynamicMatrix:
     def activate_id(self, active_id: int) -> "SwitchDynamicMatrix":
         return SwitchDynamicMatrix(self.variants, active_id)
 
-    def spmv(self, x, backend: Optional[str] = None, cfg=None):
-        return _ops.spmv(self.variants[self.active_id], x, backend=backend, cfg=cfg)
+    def spmv(self, x, backend: Optional[str] = None):
+        return _ops.spmv(self.variants[self.active_id], x, backend=backend)
 
     def __repr__(self):
         return f"SwitchDynamicMatrix<{[f.name for f in self.candidates]}>{self.shape}"

@@ -171,17 +171,17 @@ def resolve_backend(backend: Optional[str], x: torch.Tensor) -> str:
     return backend
 
 
-def spmv(A, x, backend: Optional[str] = None, cfg: Optional[dict] = None):
+def spmv(A, x, backend: Optional[str] = None):
     """y = A @ x.
 
     ``backend=None`` runs the CUDA kernel for a CUDA tensor and the torch
     reference for a CPU tensor; ``"ref"`` forces the reference on either
     device; ``"cuda"`` needs a CUDA tensor. COO and Dense have no kernel in
-    the JAX package either and use the reference. ``cfg`` overrides the
-    kernel's launch geometry (see ``repro_torch.kernels.ops.default_config``).
+    the JAX package either and use the reference. The kernel's launch
+    geometry is ``repro_torch.kernels.ops.default_config``'s.
     """
     if isinstance(A, _DYN_TYPES):
-        return A.spmv(x, backend=backend, cfg=cfg)
+        return A.spmv(x, backend=backend)
     backend = resolve_backend(backend, x)
     if backend == "cuda":
         if type(A) in _NOT_PORTED:
@@ -194,7 +194,7 @@ def spmv(A, x, backend: Optional[str] = None, cfg: Optional[dict] = None):
         from repro_torch.kernels import ops as kops  # lazy: keep core import-light
         fn = kops.SPMV_CUDA.get(type(A))
         if fn is not None:
-            return fn(A, x, cfg=cfg)
+            return fn(A, x)
     return _SPMV[type(A)](A, x)
 
 

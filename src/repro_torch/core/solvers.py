@@ -28,12 +28,12 @@ class CGResult(NamedTuple):
     history: Optional[torch.Tensor] = None
 
 
-def operator(A, backend: Optional[str] = None, cfg=None) -> Callable:
+def operator(A, backend: Optional[str] = None) -> Callable:
     """``apply_A`` closure for the solvers over a concrete container or a
     (Switch)DynamicMatrix. ``backend=None`` runs the CUDA kernels on CUDA
     tensors and the reference on CPU tensors (see ``ops.spmv``). The
     distributed operator comes with the distributed slice."""
-    return lambda v: _ops.spmv(A, v, backend=backend, cfg=cfg)
+    return lambda v: _ops.spmv(A, v, backend=backend)
 
 
 def _floor(v: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,8 @@
 
 namespace {
 
+constexpr int kBlock = 256;  // threads per block: 256 / VEC rows of VEC lanes
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -66,35 +68,45 @@ __global__ void csr_spmv_vector(const int32_t* __restrict__ indptr,
 
 template <typename T, int VEC>
 cudaError_t launch_vec(const void* indptr, const void* indices, const void* data,
-                       const void* x, void* y, int64_t m, int32_t n, int block,
-                       cudaStream_t stream) {
+                       const void* x, void* y, int64_t m, int32_t n, cudaStream_t stream) {
   const int64_t threads = m * VEC;
-  const int64_t grid = (threads + block - 1) / block;
-  csr_spmv_vector<T, VEC><<<static_cast<unsigned>(grid), block, 0, stream>>>(
+  const int64_t grid = (threads + kBlock - 1) / kBlock;
+  csr_spmv_vector<T, VEC><<<static_cast<unsigned>(grid), kBlock, 0, stream>>>(
       static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
       static_cast<const T*>(data), static_cast<const T*>(x), static_cast<T*>(y), m, n);
   return cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* indptr, const void* indices, const void* data, const void* x,
-           void* y, int64_t m, int32_t n, int vec, int block, int device, void* stream) {
-  int cur = -1;
-  cudaError_t err = cudaGetDevice(&cur);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (cur != device && (err = cudaSetDevice(device)) != cudaSuccess) return static_cast<int>(err);
-  if (m == 0) return 0;
-  if (block % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+cudaError_t launch_width(const void* indptr, const void* indices, const void* data,
+                         const void* x, void* y, int64_t m, int32_t n, int vec,
+                         cudaStream_t s) {
   switch (vec) {
-    case 1: return static_cast<int>(launch_vec<T, 1>(indptr, indices, data, x, y, m, n, block, s));
-    case 2: return static_cast<int>(launch_vec<T, 2>(indptr, indices, data, x, y, m, n, block, s));
-    case 4: return static_cast<int>(launch_vec<T, 4>(indptr, indices, data, x, y, m, n, block, s));
-    case 8: return static_cast<int>(launch_vec<T, 8>(indptr, indices, data, x, y, m, n, block, s));
-    case 16: return static_cast<int>(launch_vec<T, 16>(indptr, indices, data, x, y, m, n, block, s));
-    case 32: return static_cast<int>(launch_vec<T, 32>(indptr, indices, data, x, y, m, n, block, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 2: return launch_vec<T, 2>(indptr, indices, data, x, y, m, n, s);
+    case 4: return launch_vec<T, 4>(indptr, indices, data, x, y, m, n, s);
+    case 8: return launch_vec<T, 8>(indptr, indices, data, x, y, m, n, s);
+    case 16: return launch_vec<T, 16>(indptr, indices, data, x, y, m, n, s);
+    case 32: return launch_vec<T, 32>(indptr, indices, data, x, y, m, n, s);
+    default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+int launch(const void* indptr, const void* indices, const void* data, const void* x,
+           void* y, int64_t m, int32_t n, int vec, int device, void* stream) {
+  if (m == 0) return 0;
+  // Launch on `device` and give the caller's thread its own device back.
+  int prev = -1;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess) return static_cast<int>(err);
+  err = launch_width<T>(indptr, indices, data, x, y, m, n, vec,
+                        static_cast<cudaStream_t>(stream));
+  if (prev != device) {
+    const cudaError_t back = cudaSetDevice(prev);
+    if (err == cudaSuccess) err = back;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -104,16 +116,15 @@ extern "C" {
 // Each entry point launches on `stream` without synchronising and returns
 // cudaGetLastError() (0 on success). `vec` is the sub-warp width per row.
 int csr_spmv_f32(const void* indptr, const void* indices, const void* data,
-                 const void* x, void* y, int64_t m, int32_t n, int vec, int block,
-                 int device, void* stream) {
-  return launch<float>(indptr, indices, data, x, y, m, n, vec, block, device, stream);
+                 const void* x, void* y, int64_t m, int32_t n, int vec, int device,
+                 void* stream) {
+  return launch<float>(indptr, indices, data, x, y, m, n, vec, device, stream);
 }
 
 int csr_spmv_bf16(const void* indptr, const void* indices, const void* data,
-                  const void* x, void* y, int64_t m, int32_t n, int vec, int block,
-                  int device, void* stream) {
-  return launch<__nv_bfloat16>(indptr, indices, data, x, y, m, n, vec, block, device,
-                               stream);
+                  const void* x, void* y, int64_t m, int32_t n, int vec, int device,
+                  void* stream) {
+  return launch<__nv_bfloat16>(indptr, indices, data, x, y, m, n, vec, device, stream);
 }
 
 const char* csr_spmv_error_string(int code) {

@@ -67,17 +67,23 @@ __global__ void dia_spmv_kernel(const int32_t* __restrict__ offsets,
 template <typename T>
 int launch(const void* offsets, const void* data, const void* x, void* y,
            int ndiag, int64_t m, int64_t n, int block, int device, void* stream) {
-  int cur = -1;
-  cudaError_t err = cudaGetDevice(&cur);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (cur != device && (err = cudaSetDevice(device)) != cudaSuccess) return static_cast<int>(err);
   if (m == 0) return 0;
+  // Launch on `device` and give the caller's thread its own device back.
+  int prev = -1;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess) return static_cast<int>(err);
   const int64_t grid = (m + block - 1) / block;
   dia_spmv_kernel<T><<<static_cast<unsigned>(grid), block, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(offsets), static_cast<const T*>(data),
       static_cast<const T*>(x), static_cast<T*>(y), ndiag, m, n);
-  return static_cast<int>(cudaGetLastError());
+  err = cudaGetLastError();
+  if (prev != device) {
+    const cudaError_t back = cudaSetDevice(prev);
+    if (err == cudaSuccess) err = back;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace

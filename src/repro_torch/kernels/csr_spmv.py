@@ -14,16 +14,15 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import csr_spmv_ref
-from repro_torch.obs import metrics as _metrics
 
 NAME = "csr_spmv"
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-VEC_WIDTHS = (1, 2, 4, 8, 16, 32)
+VEC_WIDTHS = (2, 4, 8, 16, 32)
 launches = 0
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -31,7 +30,7 @@ def _fn(dtype: torch.dtype):
     return _build.entry_point(NAME, f"{NAME}_{DTYPES[dtype]}", _ARGTYPES)
 
 
-def _check(indptr, indices, data, x, m, vec, block):
+def _check(indptr, indices, data, x, m, vec):
     dev = x.device
     for name, t in (("indptr", indptr), ("indices", indices), ("data", data)):
         if t.device != dev:
@@ -53,12 +52,10 @@ def _check(indptr, indices, data, x, m, vec, block):
                          f"got {data.dtype} and {x.dtype}")
     if vec not in VEC_WIDTHS:
         raise ValueError(f"vec must be one of {VEC_WIDTHS}, got {vec}")
-    if block <= 0 or block > 1024 or block % 32:
-        raise ValueError(f"block must be a multiple of 32 in [32, 1024], got {block}")
 
 
 def csr_spmv(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
-             x: torch.Tensor, m: int, vec: int, block: int = 256) -> torch.Tensor:
+             x: torch.Tensor, m: int, vec: int) -> torch.Tensor:
     """y = A @ x for CSR A given as (indptr[M+1], indices[cap], data[cap]);
     ``vec`` lanes reduce each row (``kernels.ops.default_config`` picks it).
     f32 accumulation; y in x's dtype."""
@@ -67,7 +64,7 @@ def csr_spmv(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
         return csr_spmv_ref(indptr, indices, data, x, m)
     if x.device.type != "cuda":
         raise ValueError(f"csr_spmv runs on cuda or cpu tensors, got {x.device}")
-    _check(indptr, indices, data, x, m, vec, block)
+    _check(indptr, indices, data, x, m, vec)
     n = x.shape[0]
     if m == 0 or n == 0:  # nothing to launch: every row (if any) sums nothing
         return torch.zeros((m,), dtype=x.dtype, device=x.device)
@@ -75,9 +72,8 @@ def csr_spmv(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
     fn, err_str = _fn(x.dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(), x.data_ptr(),
-             y.data_ptr(), m, n, vec, block, x.device.index, stream)
+             y.data_ptr(), m, n, vec, x.device.index, stream)
     if err:
         raise RuntimeError(f"csr_spmv launch failed: {err_str(err).decode()} ({err})")
     launches += 1
-    _metrics.inc(f"kernel.launch.{NAME}")
     return y

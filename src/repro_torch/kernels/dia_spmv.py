@@ -14,7 +14,6 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import dia_spmv_ref
-from repro_torch.obs import metrics as _metrics
 
 NAME = "dia_spmv"
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -71,5 +70,4 @@ def dia_spmv(offsets: torch.Tensor, data: torch.Tensor, x: torch.Tensor, n: int,
     if err:
         raise RuntimeError(f"dia_spmv launch failed: {err_str(err).decode()} ({err})")
     launches += 1
-    _metrics.inc(f"kernel.launch.{NAME}")
     return y

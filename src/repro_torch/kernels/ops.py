@@ -1,8 +1,7 @@
 """Bind the hand-written CUDA kernels to the core containers.
 
-``SPMV_CUDA`` maps a container type to its kernel entry point; every entry
-point takes ``cfg=`` (a launch-geometry dict). Explicit ``cfg`` entries win
-over :func:`default_config`.
+``SPMV_CUDA`` maps a container type to its kernel entry point, which
+launches with the geometry :func:`default_config` picks for the container.
 
 Unlike the JAX package, there are no residency fallbacks here: the TPU
 wrappers send a matrix whose x exceeds a VMEM budget to the reference path,
@@ -10,8 +9,6 @@ a TPU limit with no Hopper counterpart. A CUDA tensor runs its kernel or the
 call raises; nothing falls back to the plain version.
 """
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 
@@ -40,29 +37,24 @@ def default_config(A) -> dict:
     DIA: ``block`` threads per block, one row per thread. CSR: ``vec``
     lanes per row, the smallest power of two with at most
     ``CSR_ENTRIES_PER_LANE`` entries of an average row per lane, clamped to
-    [2, 32]; ``block`` threads per block.
+    [2, 32] (the block is fixed at 256 threads in ``csrc/csr_spmv.cu``).
     """
     if isinstance(A, DIA):
         return {"block": 256}
     if isinstance(A, CSR):
         avg = max(1, int(A.nnz)) / max(1, A.shape[0])
-        return {"vec": _pow2_clamp(avg / CSR_ENTRIES_PER_LANE, 2, 32), "block": 256}
+        return {"vec": _pow2_clamp(avg / CSR_ENTRIES_PER_LANE, 2, 32)}
     return {}
 
 
-def _cfg(A, cfg: Optional[dict]) -> dict:
-    return {**default_config(A), **(cfg or {})}
+def dia_spmv(A: DIA, x: torch.Tensor) -> torch.Tensor:
+    return _dia.dia_spmv(A.offsets, A.data, x, A.shape[1],
+                         block=default_config(A)["block"])
 
 
-def dia_spmv(A: DIA, x: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
-    c = _cfg(A, cfg)
-    return _dia.dia_spmv(A.offsets, A.data, x, A.shape[1], block=int(c["block"]))
-
-
-def csr_spmv(A: CSR, x: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
-    c = _cfg(A, cfg)
+def csr_spmv(A: CSR, x: torch.Tensor) -> torch.Tensor:
     return _csr.csr_spmv(A.indptr, A.indices, A.data, x, A.shape[0],
-                         vec=int(c["vec"]), block=int(c["block"]))
+                         vec=default_config(A)["vec"])
 
 
 SPMV_CUDA = {CSR: csr_spmv, DIA: dia_spmv}

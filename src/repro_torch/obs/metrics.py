@@ -4,8 +4,9 @@ Counters are host-side dict updates under a lock. Standard names:
 
     planned_pulls               sanctioned symbolic-phase device->host syncs
                                 (``repro_torch.core.convert._planned_pull``)
-    kernel.launch.<name>        launches of a hand-written CUDA kernel
-                                (``repro_torch.kernels.*``)
+
+Kernel launches are counted by each kernel module's ``launches`` integer
+(``repro_torch.kernels.ops.launch_counts``), not here.
 
 ``scope()`` gives order-independent deltas, so a test's assertion does not
 depend on what ran earlier in the process.

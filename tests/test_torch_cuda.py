@@ -24,7 +24,6 @@ from repro_torch.kernels import csr_spmv as kc
 from repro_torch.kernels import dia_spmv as kd
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import csr_spmv_ref, dia_spmv_ref
-from repro_torch.obs import metrics
 from repro_torch.tuning import PatternFeatures
 
 pytestmark = pytest.mark.cuda
@@ -57,11 +56,10 @@ def test_dia_kernel_matches_plain(card, dtype_name):
     for m, n, offs in DIA_CASES:
         o = torch.tensor(offs, dtype=torch.int32, device=card)
         d, x = _rand(rng, (len(offs), m), dt, card), _rand(rng, n, dt, card)
-        before, counted = kd.launches, metrics.get("kernel.launch.dia_spmv")
+        before = kd.launches
         y1, y2 = kd.dia_spmv(o, d, x, n), kd.dia_spmv(o, d, x, n)
         torch.cuda.synchronize()
         assert kd.launches == before + 2 and y1.dtype == dt and y1.shape == (m,)
-        assert metrics.get("kernel.launch.dia_spmv") == counted + 2
         torch.testing.assert_close(y1.float(), dia_spmv_ref(o, d, x, n).float(),
                                    **TOL[dtype_name])
         assert torch.equal(y1, y2)  # one summation order: bitwise stable

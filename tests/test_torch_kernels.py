@@ -156,15 +156,15 @@ def test_wrapper_argument_checks():
     ip = torch.tensor([0, 2, 3], dtype=torch.int32)
     ix = torch.tensor([0, 4, 1], dtype=torch.int32)
     v = torch.ones(3)
-    kc._check(ip, ix, v, x, 2, 8, 256)
+    kc._check(ip, ix, v, x, 2, 8)
     with pytest.raises(ValueError, match="m\\+1"):
-        kc._check(ip, ix, v, x, 3, 8, 256)
+        kc._check(ip, ix, v, x, 3, 8)
     with pytest.raises(ValueError, match="differ"):
-        kc._check(ip, ix, torch.ones(4), x, 2, 8, 256)
+        kc._check(ip, ix, torch.ones(4), x, 2, 8)
     with pytest.raises(ValueError, match="vec"):
-        kc._check(ip, ix, v, x, 2, 3, 256)
+        kc._check(ip, ix, v, x, 2, 3)
     with pytest.raises(ValueError, match="share dtype"):
-        kc._check(ip, ix, v.bfloat16(), x, 2, 8, 256)
+        kc._check(ip, ix, v.bfloat16(), x, 2, 8)
 
 
 def test_default_config_follows_row_length():
@@ -177,7 +177,6 @@ def test_default_config_follows_row_length():
     assert kops.default_config(csr(10, 10 ** 5))["vec"] == 32
     dia = tf.DIA(torch.zeros(1, dtype=torch.int32), torch.zeros(1, 4), (4, 4), 4)
     assert kops.default_config(dia) == {"block": 256}
-    assert kops._cfg(dia, {"block": 128}) == {"block": 128}
 
 
 def test_sources_name_the_tpu_kernel_they_replace():
@@ -242,7 +241,7 @@ _SIGNATURES = {
                  "void* stream"],
     "csr_spmv": ["const void* indptr", "const void* indices", "const void* data",
                  "const void* x", "void* y", "int64_t m", "int32_t n", "int vec",
-                 "int block", "int device", "void* stream"],
+                 "int device", "void* stream"],
 }
 
 
