@@ -6,7 +6,9 @@ Public API:
     plan_switch, convert_execute, convert, SwitchPlan    format conversion
     DynamicMatrix, SwitchDynamicMatrix                   dynamic abstractions
     spmv, dot, waxpby, axpy, norm2                       algorithms
+    autotune                                             per-matrix format tuner
 """
+from repro_torch.core.autotune import autotune
 from repro_torch.core.convert import (SwitchPlan, convert, convert_execute,
                                       plan_switch, to_coo)
 from repro_torch.core.dynamic import (DEFAULT_CANDIDATES, DynamicMatrix,
@@ -25,5 +27,5 @@ __all__ = [
     "SwitchPlan", "plan_switch", "convert_execute", "convert", "to_coo",
     "DynamicMatrix", "SwitchDynamicMatrix", "DEFAULT_CANDIDATES",
     "spmv", "dot", "waxpby", "axpy", "norm2", "extract_diagonal",
-    "update_diagonal",
+    "update_diagonal", "autotune",
 ]

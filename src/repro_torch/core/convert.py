@@ -34,9 +34,10 @@ from repro_torch.core.formats import (BSR, COO, CSR, DIA, ELL, Dense, Format,
 from repro_torch.core.ops import csr_row_ids, segment_sum, take_clip
 from repro_torch.obs import metrics as _metrics
 
-# Sentinel pushed past every valid diagonal offset / block id during the
-# device-side ``unique`` sweeps.
+# Sentinels pushed past every valid diagonal offset (int32) / block id
+# (int64) during the device-side ``unique`` sweeps.
 _SENTINEL = int(np.iinfo(np.int32).max)
+_SENTINEL64 = int(np.iinfo(np.int64).max)
 
 
 def planned_pull_count() -> int:
@@ -369,11 +370,11 @@ def plan_switch(A, fmt: Format, *, k: Optional[int] = None,
         if m % bs or n % bs:
             raise ValueError(f"shape {C.shape} not a multiple of block size {bs}")
         nbr, nbc = m // bs, n // bs
-        if nbr * nbc >= np.iinfo(np.int32).max:
-            raise ValueError("block grid too large for int32 block ids")
+        # block ids are int64 here: the JAX package's int32 ids refuse a
+        # block grid of 2^31 blocks or more (HPCG 104^3 at bs=8 has 1.98e10)
         gid = (C.row.long() // bs) * nbc + (C.col.long() // bs)
-        gid = torch.where(live, gid, torch.full_like(gid, _SENTINEL))
-        blk = _unique_small(gid).astype(np.int64)
+        gid = torch.where(live, gid, torch.full_like(gid, _SENTINEL64))
+        blk = _unique_small(gid, _SENTINEL64).astype(np.int64)
         if blk.size == 0:
             blk = np.zeros(1, np.int64)  # single inert zero block at (0, 0)
         pbr, pbc = blk // nbc, blk % nbc

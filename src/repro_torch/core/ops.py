@@ -2,8 +2,8 @@
 
 Port of ``repro.core.ops``. The ``_spmv_*`` functions are the plain torch
 reference path for every format (the CPU path, and the ``ref`` backend on
-the card); ``repro_torch.kernels`` holds the hand-written CUDA kernels for
-the hot formats, selected with ``backend=``.
+the card); ``repro_torch.kernels`` holds the hand-written CUDA kernels of
+every format but COO and Dense, selected with ``backend=``.
 
 Reference semantics carried over from JAX:
   * ``jnp.take(..., mode="clip")`` clamps an index into range — torch's
@@ -149,15 +149,6 @@ _SPMV = {COO: _spmv_coo, CSR: _spmv_csr, DIA: _spmv_dia, ELL: _spmv_ell,
          BSR: _spmv_bsr, Dense: _spmv_dense, HYB: _spmv_hyb,
          SELL: _spmv_sell}
 
-# Formats whose Pallas kernel has no CUDA counterpart yet.
-_NOT_PORTED = {
-    ELL: "ROADMAP Queue 2 row 3 (ell_spmv)",
-    SELL: "ROADMAP Queue 2 row 4 (sell_spmv)",
-    HYB: "ROADMAP Queue 2 row 3 (HYB composes ell_spmv with the CSR tail)",
-    BSR: "ROADMAP Queue 2 row 5 (bsr_spmm; bsr_spmv composes it)",
-}
-
-
 def resolve_backend(backend: Optional[str], x: torch.Tensor) -> str:
     """``None`` -> ``"cuda"`` for a CUDA tensor, ``"ref"`` for a CPU one."""
     if backend is None:
@@ -184,10 +175,6 @@ def spmv(A, x, backend: Optional[str] = None):
         return A.spmv(x, backend=backend)
     backend = resolve_backend(backend, x)
     if backend == "cuda":
-        if type(A) in _NOT_PORTED:
-            raise NotImplementedError(
-                f"no CUDA kernel for {type(A).__name__} SpMV yet: "
-                f"{_NOT_PORTED[type(A)]}; use backend='ref'")
         if not x.is_cuda:
             raise ValueError("backend='cuda' needs CUDA tensors; "
                              "use backend='ref' on the CPU")

@@ -1,8 +1,9 @@
 """Single-device HPCG solve on the port: the paper's workflow end to end.
 
   1. problem setup    — 27-point-stencil Poisson system on a 3D grid
-  2. optimization     — COO container, format picked by the ``ml`` policy
-                        (or named), plan + conversion on the device
+  2. optimization     — COO container, format picked by a FormatPolicy
+                        (``--tune ml|analytic|profile``) or named, plan +
+                        conversion on the device
   3. timed solve      — CG, one SpMV per iteration through DynamicMatrix
   4. validation       — the solution must be the all-ones vector
 
@@ -10,7 +11,9 @@ The single-device counterpart of ``examples/hpcg_solve.py`` (which always
 builds a distributed matrix). Run:
 
   python -m repro_torch.hpcg_solve --grid 104 104 104
-  python -m repro_torch.hpcg_solve --grid 16 16 16 --format CSR --device cpu
+  python -m repro_torch.hpcg_solve --grid 104 104 104 --tune profile
+  python -m repro_torch.hpcg_solve --grid 16 16 16 --format HYB --ell-k 18 --device cpu
+  python -m repro_torch.hpcg_solve --grid 16 16 16 --format BSR --block-size 8 --device cpu
 """
 from __future__ import annotations
 
@@ -25,8 +28,11 @@ from repro_torch.core.dynamic import DynamicMatrix
 from repro_torch.core.formats import Format
 from repro_torch.core.solvers import cg, operator
 from repro_torch.device import resolve_device
+from repro_torch.tuning.policy import FormatPolicy
 
 TOL_X = 1e-3  # validation: max |x - 1|, as examples/hpcg_solve.py
+FORMATS = ("auto", "DIA", "CSR", "ELL", "SELL", "HYB", "BSR")
+TUNE_MODES = ("ml", "analytic", "profile")
 
 
 def _sync(dev: torch.device) -> None:
@@ -34,9 +40,22 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def plan_hints(fmt: Format, ell_k=None, block_size=None) -> dict:
+    """The ``plan_switch`` hints that apply to ``fmt``: ``k`` for ELL and
+    HYB (HYB's split), ``block_size`` for BSR."""
+    if fmt in (Format.ELL, Format.HYB) and ell_k is not None:
+        return {"k": int(ell_k)}
+    if fmt == Format.BSR and block_size is not None:
+        return {"block_size": int(block_size)}
+    return {}
+
+
 def run(grid, fmt: str = "auto", device=None, tol: float = 1e-7,
-        maxiter: int = 500) -> dict:
-    """Build, select/convert and solve; returns the numbers ``main`` prints."""
+        maxiter: int = 500, tune: str = "ml", ell_k=None, block_size=None) -> dict:
+    """Build, select/convert and solve; returns the numbers ``main`` prints.
+
+    ``fmt="auto"`` takes the pick of ``FormatPolicy(tune)``; the hints
+    ``ell_k`` and ``block_size`` reach the plan of the format that uses them."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     prob = hpcg.generate_problem(*grid)
@@ -46,10 +65,9 @@ def run(grid, fmt: str = "auto", device=None, tol: float = 1e-7,
     t_setup = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    if fmt == "auto":
-        M = DynamicMatrix.auto(A, "ml")
-    else:
-        M = DynamicMatrix(A).activate(Format[fmt])
+    D = DynamicMatrix(A)
+    target = FormatPolicy(tune).select(A).best if fmt == "auto" else Format[fmt]
+    M = D.activate(target, plan=D.plan(target, **plan_hints(target, ell_k, block_size)))
     _sync(dev)
     t_opt = time.perf_counter() - t0
 
@@ -69,19 +87,26 @@ def run(grid, fmt: str = "auto", device=None, tol: float = 1e-7,
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--grid", type=int, nargs=3, default=[104, 104, 104])
-    p.add_argument("--format", default="auto",
-                   choices=["auto", Format.DIA.name, Format.CSR.name],
-                   help="auto = the ml FormatPolicy's pick")
+    p.add_argument("--format", default="auto", choices=FORMATS,
+                   help="auto = the pick of the --tune FormatPolicy")
+    p.add_argument("--tune", default="ml", choices=TUNE_MODES,
+                   help="selection policy behind --format auto")
+    p.add_argument("--ell-k", type=int, default=None,
+                   help="ELL width / HYB split (default: max / median row length)")
+    p.add_argument("--block-size", type=int, default=None,
+                   help="BSR block edge (default: plan_switch's 128)")
     p.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="default: cuda (raises without a card)")
     p.add_argument("--tol", type=float, default=1e-7)
     p.add_argument("--maxiter", type=int, default=500)
     args = p.parse_args(argv)
 
-    r = run(args.grid, args.format, args.device, args.tol, args.maxiter)
+    r = run(args.grid, args.format, args.device, args.tol, args.maxiter, tune=args.tune,
+            ell_k=args.ell_k, block_size=args.block_size)
     print(f"device: {r['device']}, grid: {args.grid}, n={r['n']} nnz={r['nnz']} "
           f"(setup {r['setup_s']:.2f}s)")
-    print(f"format: {r['format']} ({'ml pick' if args.format == 'auto' else 'named'}, "
+    how = f"{args.tune} pick" if args.format == "auto" else "named"
+    print(f"format: {r['format']} ({how}, "
           f"{r['optimize_s']:.3f}s)")
     gflops = 2 * r["nnz"] * r["iters"] / max(r["solve_s"], 1e-12) / 1e9
     print(f"solve: {r['iters']} iters, {r['solve_s'] * 1e3:.1f} ms, "

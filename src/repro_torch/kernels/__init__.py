@@ -1,7 +1,10 @@
 """repro_torch.kernels — hand-written CUDA kernels for Hopper (sm_90a).
 
 Sources live in ``repro_torch/csrc/``; :mod:`._build` compiles them with
-``nvcc`` at first use. Ported so far: CSR SpMV (:mod:`.csr_spmv`) and DIA
-SpMV (:mod:`.dia_spmv`); :mod:`.ops` binds them to the containers and
-:mod:`.ref` holds their plain torch versions.
+``nvcc`` at first use. Ported so far: the SpMV kernels of every format with
+a Pallas kernel in the JAX package — CSR (:mod:`.csr_spmv`), DIA
+(:mod:`.dia_spmv`), ELL (:mod:`.ell_spmv`), SELL-C-sigma (:mod:`.sell_spmv`)
+and block-CSR SpMM (:mod:`.bsr_spmm`, which BSR SpMV calls with one
+column); HYB composes the ELL and CSR kernels. :mod:`.ops` binds them to
+the containers and :mod:`.ref` holds their plain torch versions.
 """

@@ -12,9 +12,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.formats import CSR, DIA
+from repro_torch.core.formats import BSR, COO, CSR, DIA, ELL, HYB, SELL
+from repro_torch.kernels import bsr_spmm as _bsr
 from repro_torch.kernels import csr_spmv as _csr
 from repro_torch.kernels import dia_spmv as _dia
+from repro_torch.kernels import ell_spmv as _ell
+from repro_torch.kernels import sell_spmv as _sell
 
 
 def _pow2_clamp(v: float, lo: int, hi: int) -> int:
@@ -31,6 +34,11 @@ def _pow2_clamp(v: float, lo: int, hi: int) -> int:
 CSR_ENTRIES_PER_LANE = 8
 
 
+def _csr_vec(nnz: int, m: int) -> int:
+    avg = max(1, int(nnz)) / max(1, m)
+    return _pow2_clamp(avg / CSR_ENTRIES_PER_LANE, 2, 32)
+
+
 def default_config(A) -> dict:
     """Launch geometry for ``A``'s kernel.
 
@@ -38,12 +46,16 @@ def default_config(A) -> dict:
     lanes per row, the smallest power of two with at most
     ``CSR_ENTRIES_PER_LANE`` entries of an average row per lane, clamped to
     [2, 32] (the block is fixed at 256 threads in ``csrc/csr_spmv.cu``).
+    HYB: ``{"ell": ..., "csr": {"vec": ...}}``, the CSR width from the
+    tail's average row. ELL, SELL and BSR take no launch knob (their tiles
+    are constants of their sources): ``{}``.
     """
     if isinstance(A, DIA):
         return {"block": 256}
     if isinstance(A, CSR):
-        avg = max(1, int(A.nnz)) / max(1, A.shape[0])
-        return {"vec": _pow2_clamp(avg / CSR_ENTRIES_PER_LANE, 2, 32)}
+        return {"vec": _csr_vec(A.nnz, A.shape[0])}
+    if isinstance(A, HYB):
+        return {"ell": default_config(A.ell), "csr": {"vec": _csr_vec(A.coo.nnz, A.shape[0])}}
     return {}
 
 
@@ -57,10 +69,49 @@ def csr_spmv(A: CSR, x: torch.Tensor) -> torch.Tensor:
                          vec=default_config(A)["vec"])
 
 
-SPMV_CUDA = {CSR: csr_spmv, DIA: dia_spmv}
+def ell_spmv(A: ELL, x: torch.Tensor) -> torch.Tensor:
+    return _ell.ell_spmv(A.cols, A.data, x)
+
+
+def sell_spmv(A: SELL, x: torch.Tensor) -> torch.Tensor:
+    return _sell.sell_spmv(A.slice_ptrs, A.cols, A.data, A.perm, x, A.shape[0], A.c)
+
+
+def tail_csr(coo: COO, m: int):
+    """The HYB overflow as CSR ``(indptr, indices, data)``, built on the
+    device with no device->host sync: a stable sort by row, then row
+    pointers by ``searchsorted`` over the sorted row ids (a CUDA
+    ``bincount`` would read its maximum back to the host). Entries with a
+    row id outside [0, m) fall outside ``indptr[0]..indptr[m]`` and are
+    never read."""
+    rows, order = torch.sort(coo.row, stable=True)
+    bounds = torch.arange(m + 1, dtype=rows.dtype, device=rows.device)
+    indptr = torch.searchsorted(rows, bounds, out_int32=True)
+    return indptr, coo.col.index_select(0, order), coo.data.index_select(0, order)
+
+
+def hyb_spmv(A: HYB, x: torch.Tensor) -> torch.Tensor:
+    """The ELL kernel over the regular planes plus the CSR kernel over the
+    COO tail, as the JAX package composes them."""
+    indptr, indices, data = tail_csr(A.coo, A.shape[0])
+    tail = _csr.csr_spmv(indptr, indices, data, x, A.shape[0],
+                         vec=default_config(A)["csr"]["vec"])
+    return ell_spmv(A.ell, x) + tail
+
+
+def bsr_spmm(A: BSR, B: torch.Tensor) -> torch.Tensor:
+    return _bsr.bsr_spmm(A.indptr, A.indices, A.data, B, A.shape[0])
+
+
+def bsr_spmv(A: BSR, x: torch.Tensor) -> torch.Tensor:
+    return bsr_spmm(A, x[:, None])[:, 0]
+
+
+SPMV_CUDA = {CSR: csr_spmv, DIA: dia_spmv, ELL: ell_spmv, SELL: sell_spmv,
+             HYB: hyb_spmv, BSR: bsr_spmv}
 
 # The kernel modules, by kernel name, for launch counting.
-KERNELS = {_dia.NAME: _dia, _csr.NAME: _csr}
+KERNELS = {m.NAME: m for m in (_dia, _csr, _ell, _sell, _bsr)}
 
 
 def reset_launches() -> None:

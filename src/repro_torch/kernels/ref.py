@@ -35,3 +35,44 @@ def csr_spmv_ref(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor
     contrib = data.float() * take_clip(x, indices).float()
     contrib = torch.where(live, contrib, torch.zeros((), device=data.device))
     return segment_sum(contrib, rows.clamp(0, m - 1), m).to(x.dtype)
+
+
+def ell_spmv_ref(cols: torch.Tensor, data: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y[i] = sum_k data[i, k] * x[cols[i, k]]; columns clamp into [0, n)
+    (padding slots col=-1/val=0 read x[0] and add nothing); K = 0 gives
+    zeros."""
+    acc = (data.float() * take_clip(x, cols).float()).sum(dim=1)
+    return acc.to(x.dtype)
+
+
+def sell_spmv_ref(slice_ptrs: torch.Tensor, cols: torch.Tensor, data: torch.Tensor,
+                  perm: torch.Tensor, x: torch.Tensor, m: int, c: int) -> torch.Tensor:
+    """SELL-C-sigma: each width plane of a slice is C lanes, one sorted row
+    per lane; the sorted sums scatter to ``y[perm]`` and ghost lanes
+    (``perm`` outside [0, m)) are dropped. Port of
+    ``repro.core.ops._spmv_sell`` with float32 accumulation."""
+    nslices = slice_ptrs.shape[0] - 1
+    t = data.shape[0] // c
+    q = torch.arange(t, dtype=slice_ptrs.dtype, device=data.device) * c
+    plane = torch.searchsorted(slice_ptrs, q, right=True).to(torch.int32) - 1
+    contrib = data.float().reshape(t, c) * take_clip(x, cols.reshape(t, c)).float()
+    y_sorted = segment_sum(contrib, plane.clamp(0, nslices - 1), nslices).reshape(-1)
+    return segment_sum(y_sorted, perm, m).to(x.dtype)
+
+
+def bsr_spmm_ref(indptr: torch.Tensor, indices: torch.Tensor, blocks: torch.Tensor,
+                 B: torch.Tensor, m: int) -> torch.Tensor:
+    """Y = A @ B for block-CSR A with (bs, bs) blocks; B is (N, K). Block
+    columns clamp into range; blocks past ``indptr[-1]`` (capacity padding)
+    are inert, as the kernel never reads them. Port of
+    ``repro.kernels.ref.bsr_spmm_ref``."""
+    nblk, bs, _ = blocks.shape
+    kb = B.shape[1]
+    Bb = B.reshape(B.shape[0] // bs, bs, kb)
+    prod = torch.einsum("nij,njk->nik", blocks.float(), take_clip(Bb, indices).float())
+    k = torch.arange(nblk, dtype=indptr.dtype, device=blocks.device)
+    brow = torch.searchsorted(indptr, k, right=True).to(torch.int32) - 1
+    live = (k < indptr[-1]).reshape(nblk, 1, 1)
+    prod = torch.where(live, prod, torch.zeros((), device=blocks.device))
+    yb = segment_sum(prod, brow.clamp(0, max(m // bs - 1, 0)), m // bs)
+    return yb.reshape(m, kb).to(B.dtype)

@@ -1,19 +1,29 @@
-"""Selection engines: the analytic byte model (port of part of
-``repro.tuning.engines``).
+"""Selection engines (port of ``repro.tuning.engines``).
 
-SpMV is memory-bandwidth bound, so predicted time = bytes touched / HBM
-bandwidth, with a penalty on gathered x accesses. The profiling tuner
-(``profile_select``, ``time_fn``) and the measured gather penalty come with
-the kernel-tuning slice.
+  * the analytic byte model: SpMV is memory-bandwidth bound, so predicted
+    time = bytes touched / HBM bandwidth, with a penalty on gathered x
+    accesses;
+  * the paper's profiling tuner: :func:`profile_select` converts ``A`` into
+    each candidate format, times one SpMV with :func:`time_fn` (CUDA events
+    on the card, the host clock on the CPU) and picks the fastest.
+
+The measured gather penalty (``calibrate_gather_penalty``) comes with the
+kernel-tuning slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence
+import time
+from typing import Dict, Optional, Sequence
 
 import numpy as np
+import torch
 
+from repro_torch.core import ops as _ops
+from repro_torch.core.convert import convert_execute, plan_switch
+from repro_torch.core.dynamic import DynamicMatrix
 from repro_torch.core.formats import Format
+from repro_torch.kernels import ops as kops
 from repro_torch.tuning.features import PatternStats
 
 # H100 SXM data-sheet HBM bandwidth. The ranking of formats does not depend
@@ -24,17 +34,21 @@ GATHER_PENALTY = 4.0  # effective-bandwidth derate for data-dependent gathers
 
 @dataclasses.dataclass
 class TuneReport:
-    """A selection decision: the winning format and the time each candidate
-    was predicted (or measured) to take. The kernel backend and launch
-    config that the JAX report may carry come with the kernel-tuning slice."""
+    """A selection decision: the winning format, the time each candidate
+    was predicted (or measured) to take and, when :func:`profile_select`
+    searched more than one backend, the backend that won. The kernel launch
+    config that the JAX report may carry comes with the kernel-tuning
+    slice."""
 
     best: Format
     times: Dict[Format, float]  # seconds (measured or predicted)
     mode: str
+    backend: Optional[str] = None  # "ref" | "cuda" | None (not searched)
 
     def __repr__(self):
         rows = ", ".join(f"{f.name}={t:.3e}s" for f, t in self.times.items())
-        return f"TuneReport(best={self.best.name}, mode={self.mode}, {rows})"
+        extra = f", backend={self.backend}" if self.backend else ""
+        return f"TuneReport(best={self.best.name}, mode={self.mode}{extra}, {rows})"
 
 
 def predicted_bytes(stats: PatternStats, fmt: Format) -> float:
@@ -89,3 +103,88 @@ def analytic_select(stats: PatternStats,
              for f in candidates}
     best = min(times, key=times.get)
     return TuneReport(best, times, "analytic")
+
+
+def time_fn(fn, *args, iters: int = 10, warmup: int = 2, inner: int = 1) -> float:
+    """Best-of-``iters`` seconds of one call ``fn(*args)``.
+
+    A call whose result lies on the card is timed with CUDA events on the
+    current stream; on the CPU with the host clock. ``inner`` > 1 times a
+    block of back-to-back calls and divides, which amortises the per-call
+    dispatch jitter that rivals a microsecond-scale op.
+    """
+    out = None
+    for _ in range(max(1, warmup)):
+        out = fn(*args)
+    if isinstance(out, torch.Tensor) and out.is_cuda:
+        torch.cuda.synchronize(out.device)
+        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(iters)]
+        for start, end in pairs:
+            start.record()
+            for _ in range(inner):
+                fn(*args)
+            end.record()
+        torch.cuda.synchronize(out.device)
+        return min(s.elapsed_time(e) for s, e in pairs) / 1e3 / inner
+    best = float("inf")
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn(*args)
+        best = min(best, (time.perf_counter() - t0) / inner)
+    return best
+
+
+# Conversion failures that skip a candidate instead of failing the tuner
+# (e.g. BSR on a shape that is no multiple of the block size, or a
+# container that does not fit the card).
+_SKIP = (ValueError, MemoryError, torch.cuda.OutOfMemoryError)
+
+
+def profile_select(A, x,
+                   candidates: Sequence[Format] = (Format.COO, Format.CSR, Format.DIA,
+                                                   Format.ELL, Format.SELL),
+                   iters: int = 10, conv_kwargs: Optional[dict] = None,
+                   inner: int = 4,
+                   backends: Optional[Sequence[str]] = None) -> TuneReport:
+    """The paper's profiling auto-tuner: convert, time, pick the fastest.
+
+    Each candidate is planned (one small sync) and converted on the device
+    of ``A``, then one ``spmv(Af, x, backend=...)`` is timed with
+    :func:`time_fn`, through the route ``spmv(backend=None)`` takes on that
+    device: the CUDA kernel on the card, the torch reference on the CPU.
+    ``backends`` extends the search to (format, backend) pairs, e.g.
+    ``("ref", "cuda")``; ``times`` then holds each format's best time and
+    the report's ``backend`` names the winning pair's backend. ``"cuda"`` is
+    timed only for formats that have a kernel (COO and Dense would time the
+    reference under the kernel's name). Each candidate is freed before the
+    next one is built, so peak memory is ``A`` plus one candidate.
+    """
+    A = A.concrete if isinstance(A, DynamicMatrix) else A
+    conv_kwargs = conv_kwargs or {}
+    searched = tuple(backends) if backends is not None else (None,)
+    times: Dict[Format, float] = {}
+    winner: Dict[Format, Optional[str]] = {}
+    skipped: Dict[str, str] = {}
+    for fmt in candidates:
+        fmt = Format(fmt)
+        try:
+            Af = convert_execute(A, plan_switch(A, fmt, **conv_kwargs.get(fmt, {})))
+        except _SKIP as e:
+            skipped[fmt.name] = f"{type(e).__name__}: {e}"
+            continue
+        for b in searched:
+            if b == "cuda" and type(Af) not in kops.SPMV_CUDA:
+                continue
+            t = time_fn(lambda a, v, b=b: _ops.spmv(a, v, backend=b), Af, x,
+                        iters=iters, inner=inner)
+            if fmt not in times or t < times[fmt]:
+                times[fmt], winner[fmt] = t, b
+        del Af  # free this candidate before the next conversion
+    if not times:
+        raise ValueError(
+            f"profile_select: every candidate format failed conversion for "
+            f"matrix of shape {tuple(A.shape)}; skipped candidates: {skipped}")
+    best = min(times, key=times.get)
+    return TuneReport(best, times, "profile", backend=winner[best])

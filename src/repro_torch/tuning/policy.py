@@ -1,48 +1,56 @@
 """FormatPolicy — the format-selection front-end (port of ``repro.tuning.policy``).
 
+    mode="profile"   convert to every candidate, time one SpMV of each on
+                     the device of the matrix, pick the fastest (the
+                     paper's tuner; setup phase only).
     mode="ml"        pre-trained decision tree over pattern features; falls
                      back to analytic when no tree is available or it
                      predicts outside the candidate set.
     mode="analytic"  bytes-touched / bandwidth model; zero measurements.
 
-``cached`` and ``profile`` need the selection cache, ``time_fn`` and the
-kernel tuner; they raise until that slice is ported.
+``cached`` needs the selection cache and the kernel tuner (``kernel_tune``);
+it raises until that slice is ported.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence, Union
 
+import torch
+
 from repro_torch.core.convert import SwitchPlan, plan_switch as _plan_switch
 from repro_torch.core.convert import to_coo as _to_coo_fn
 from repro_torch.core.dynamic import DEFAULT_CANDIDATES, DynamicMatrix
 from repro_torch.core.formats import Format
-from repro_torch.tuning.engines import TuneReport, analytic_select
+from repro_torch.tuning.engines import TuneReport, analytic_select, profile_select
 from repro_torch.tuning.features import PatternFeatures
 from repro_torch.tuning.tree import DecisionTree, load_default_tree
 
 MODES = ("ml", "analytic", "cached", "profile")
-_NOT_PORTED = ("mode {!r} needs the selection cache (cache.py), time_fn and "
+_NOT_PORTED = ("mode 'cached' needs the selection cache (cache.py) and "
                "kernel_tune: ROADMAP Queue 1 item 7, not ported yet")
 
 
 class FormatPolicy:
-    """Format selector with mode ``"ml" | "analytic"``.
+    """Format selector with mode ``"ml" | "analytic" | "profile"``.
 
     ``tree``: a ``DecisionTree``, a path to a serialized one, or None for
     the packaged default tree. ``candidates``: formats considered; the pick
-    is always one of these.
+    is always one of these. ``profile_iters``: timing repetitions in
+    profile mode.
     """
 
     def __init__(self, mode: str = "ml",
                  candidates: Sequence[Format] = DEFAULT_CANDIDATES,
-                 tree: Union[DecisionTree, str, None] = None):
+                 tree: Union[DecisionTree, str, None] = None,
+                 profile_iters: int = 6):
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} not in {MODES}")
-        if mode in ("cached", "profile"):
-            raise NotImplementedError(_NOT_PORTED.format(mode))
+        if mode == "cached":
+            raise NotImplementedError(_NOT_PORTED)
         self.mode = mode
         self.candidates = tuple(Format(c) for c in candidates)
         self._tree = DecisionTree.load(tree) if isinstance(tree, str) else tree
+        self.profile_iters = profile_iters
 
     @property
     def tree(self) -> Optional[DecisionTree]:
@@ -50,8 +58,14 @@ class FormatPolicy:
 
     def select(self, A, x=None) -> TuneReport:
         """Pick a format for ``A`` (a concrete container or DynamicMatrix);
-        features are computed on the device of ``A``."""
+        features are computed, and profile runs timed, on the device of
+        ``A``. ``x`` is used by profile mode only (ones when absent)."""
         A = A.concrete if isinstance(A, DynamicMatrix) else A
+        if self.mode == "profile":
+            if x is None:
+                x = torch.ones((A.shape[1],), dtype=A.dtype, device=A.device)
+            return profile_select(A, x, candidates=self.candidates,
+                                  iters=self.profile_iters)
         feats = PatternFeatures.from_coo(_to_coo_fn(A))
         if self.mode == "analytic":
             return analytic_select(feats.to_stats(), candidates=self.candidates)

@@ -18,13 +18,17 @@ from repro_torch import hpcg_solve
 from repro_torch.core import hpcg
 from repro_torch.core.convert import convert
 from repro_torch.core.dynamic import DynamicMatrix
-from repro_torch.core.formats import Format, to_numpy
+from repro_torch.core.formats import COO, HYB, Format, coo_from_dense_np, to_numpy
 from repro_torch.core.ops import spmv
+from repro_torch.kernels import bsr_spmm as kb
 from repro_torch.kernels import csr_spmv as kc
 from repro_torch.kernels import dia_spmv as kd
+from repro_torch.kernels import ell_spmv as ke
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import csr_spmv_ref, dia_spmv_ref
-from repro_torch.tuning import PatternFeatures
+from repro_torch.kernels import sell_spmv as ks
+from repro_torch.kernels.ref import (bsr_spmm_ref, csr_spmv_ref, dia_spmv_ref,
+                                     ell_spmv_ref, sell_spmv_ref)
+from repro_torch.tuning import FormatPolicy, PatternFeatures
 
 pytestmark = pytest.mark.cuda
 
@@ -102,22 +106,26 @@ def test_wrappers_check_their_inputs(card):
 
 
 def test_main_path_formats_run_their_kernels(card):
-    """spmv(backend=None) on a CUDA tensor launches the format's kernel, once
-    per call, and agrees with backend='ref' on the card; ELL has no kernel
-    yet and raises instead of falling back."""
+    """spmv(backend=None) on a CUDA tensor launches the format's kernel once
+    per call (HYB: the ELL kernel once and the CSR kernel once) and agrees
+    with backend='ref' on the card; COO keeps the reference path."""
     prob = hpcg.generate_problem(8, 8, 8)
     A = hpcg.to_coo(prob, device=card)
     x = torch.from_numpy(np.random.default_rng(2).standard_normal(A.shape[1])
                          .astype(np.float32)).to(card)
-    for fmt, kernel in ((Format.DIA, "dia_spmv"), (Format.CSR, "csr_spmv")):
-        M = DynamicMatrix(A).activate(fmt)
-        before = kops.launch_counts()[kernel]
+    cases = ((Format.DIA, {}, ["dia_spmv"]), (Format.CSR, {}, ["csr_spmv"]),
+             (Format.ELL, {}, ["ell_spmv"]), (Format.SELL, {}, ["sell_spmv"]),
+             (Format.HYB, {"k": 18}, ["ell_spmv", "csr_spmv"]),
+             (Format.BSR, {"block_size": 8}, ["bsr_spmm"]), (Format.COO, {}, []))
+    for fmt, hints, kernels in cases:
+        M = DynamicMatrix(A).activate(fmt, **hints)
+        before = kops.launch_counts()
         y = spmv(M, x)
         torch.cuda.synchronize()
-        assert kops.launch_counts()[kernel] == before + 1
+        after = kops.launch_counts()
+        assert {k: after[k] - before[k] for k in after} == \
+            {k: int(k in kernels) for k in after}, fmt.name
         torch.testing.assert_close(y, spmv(M, x, backend="ref"), **TOL["float32"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spmv(DynamicMatrix(A).activate(Format.ELL), x)
 
 
 def _flat(fields, prefix=""):
@@ -147,3 +155,175 @@ def test_solve_on_card_matches_cpu(card, fmt):
     assert g["format"] == c["format"] == ("DIA" if fmt == "auto" else "CSR")
     assert abs(g["iters"] - c["iters"]) <= 1  # f32 reductions in another order
     assert g["passed"] and c["passed"]
+
+
+# ELL (M, N, K): K = 0, one chunk, several chunks of the shared-memory tile,
+# a tile boundary that is not a multiple of the 128-row tile.
+ELL_CASES = [(300, 250, 0), (300, 250, 27), (257, 90, 70), (1, 1, 1)]
+
+
+def _ell_inputs(rng, m, n, k, dt, dev):
+    """Columns past both edges (clamped), rows of padding only (col -1,
+    val 0: empty rows)."""
+    cols = rng.integers(-3, n + 3, (m, k)).astype(np.int32)
+    vals = rng.standard_normal((m, k)).astype(np.float32)
+    cols[::7], vals[::7] = -1, 0.0
+    return (torch.from_numpy(cols).to(dev),
+            torch.from_numpy(vals).to(dev, dt), _rand(rng, n, dt, dev))
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+def test_ell_kernel_matches_plain(card, dtype_name):
+    rng = np.random.default_rng(3)
+    dt = DTYPES[dtype_name]
+    for m, n, k in ELL_CASES:
+        cols, vals, x = _ell_inputs(rng, m, n, k, dt, card)
+        before = ke.launches
+        y1, y2 = ke.ell_spmv(cols, vals, x), ke.ell_spmv(cols, vals, x)
+        torch.cuda.synchronize()
+        assert ke.launches == before + (2 if k else 0)  # K = 0 launches nothing
+        assert y1.dtype == dt and y1.shape == (m,)
+        torch.testing.assert_close(y1.float(), ell_spmv_ref(cols, vals, x).float(),
+                                   **TOL[dtype_name])
+        assert torch.equal(y1, y2)
+
+
+def _ragged_dense(rng, m, n):
+    """Random rows of 0..3n/4 entries, every fifth row empty."""
+    a = np.zeros((m, n), np.float32)
+    for i in range(m):
+        if i % 5:
+            ln = int(rng.integers(1, 3 * n // 4))
+            a[i, rng.choice(n, ln, replace=False)] = rng.standard_normal(ln)
+    return a
+
+
+def _sell_with_nan_ghosts(a, c, sigma, dt, dev):
+    """A SELL container whose ghost lanes (perm == M) hold NaN values."""
+    S = convert(coo_from_dense_np(a, device="cpu"), Format.SELL, c=c, sigma=sigma)
+    data = S.data.clone()
+    ptrs, perm = S.slice_ptrs.tolist(), S.perm.tolist()
+    for lane, row in enumerate(perm):
+        if row >= a.shape[0]:
+            s, r = divmod(lane, c)
+            data[ptrs[s] + r:ptrs[s + 1]:c] = float("nan")
+    return [t.to(dev) for t in (S.slice_ptrs, S.cols, data.to(dt), S.perm)]
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("c,sigma", [(32, 256), (8, 16), (5, 5)])
+def test_sell_kernel_matches_plain(card, dtype_name, c, sigma):
+    """Empty rows, ghost lanes holding NaN (must be dropped), C != 32."""
+    rng = np.random.default_rng(4)
+    dt = DTYPES[dtype_name]
+    m, n = 301, 120
+    ptrs, cols, data, perm = _sell_with_nan_ghosts(_ragged_dense(rng, m, n), c, sigma,
+                                                   dt, card)
+    assert int(perm.max()) == m  # the case has ghost lanes
+    x = _rand(rng, n, dt, card)
+    before = ks.launches
+    y1 = ks.sell_spmv(ptrs, cols, data, perm, x, m, c)
+    y2 = ks.sell_spmv(ptrs, cols, data, perm, x, m, c)
+    torch.cuda.synchronize()
+    assert ks.launches == before + 2 and bool(torch.isfinite(y1).all())
+    torch.testing.assert_close(y1.float(), sell_spmv_ref(ptrs, cols, data, perm, x, m,
+                                                         c).float(), **TOL[dtype_name])
+    assert torch.equal(y1, y2)
+
+
+def _bsr_inputs(rng, bs, ncols, dt, dev):
+    """Block rows of 0..4 blocks (first and last empty), one block column
+    past the edge (clamped), 3 capacity blocks of NaN past indptr[-1]."""
+    mb, nbc = 9, 6
+    lens = [0] + [int(v) for v in rng.integers(0, 5, mb - 2)] + [0]
+    nblk = sum(lens)
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    bcol = rng.integers(0, nbc, nblk + 3).astype(np.int32)
+    if nblk:
+        bcol[0] = nbc + 2
+    blocks = rng.standard_normal((nblk + 3, bs, bs)).astype(np.float32)
+    blocks[nblk:] = np.nan
+    B = rng.standard_normal((nbc * bs, ncols)).astype(np.float32)
+    return (torch.from_numpy(indptr).to(dev), torch.from_numpy(bcol).to(dev),
+            torch.from_numpy(blocks).to(dev, dt), torch.from_numpy(B).to(dev, dt),
+            mb * bs)
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("bs", [2, 8, 16])
+@pytest.mark.parametrize("ncols", [1, 8])
+def test_bsr_kernel_matches_plain(card, dtype_name, bs, ncols):
+    rng = np.random.default_rng(5)
+    dt = DTYPES[dtype_name]
+    indptr, bcol, blocks, B, m = _bsr_inputs(rng, bs, ncols, dt, card)
+    before = kb.launches
+    y1 = kb.bsr_spmm(indptr, bcol, blocks, B, m)
+    y2 = kb.bsr_spmm(indptr, bcol, blocks, B, m)
+    torch.cuda.synchronize()
+    assert kb.launches == before + 2 and y1.shape == (m, ncols)
+    assert bool(torch.isfinite(y1).all()) and not bool(y1[:bs].any())  # empty row 0
+    torch.testing.assert_close(y1.float(), bsr_spmm_ref(indptr, bcol, blocks, B, m).float(),
+                               **TOL[dtype_name])
+    assert torch.equal(y1, y2)
+
+
+def test_bsr_with_an_empty_block_row_still_launches(card):
+    """No host look at indptr and no fallback: the kernel runs and writes
+    zeros for the empty block row."""
+    a = np.zeros((16, 16), np.float32)
+    a[:4, :4] = 1.0
+    a[12:, 8:] = 2.0  # block rows 1 and 2 (bs = 4) are empty
+    Bm = convert(coo_from_dense_np(a, device=card), Format.BSR, block_size=4)
+    x = torch.ones(16, device=card)
+    before = kb.launches
+    y = spmv(Bm, x)
+    torch.cuda.synchronize()
+    assert kb.launches == before + 1
+    torch.testing.assert_close(y, torch.from_numpy(a.sum(axis=1)).to(card))
+
+
+def test_hyb_tail_padding_is_never_read(card):
+    """Tail padding with row id M and NaN values sorts past indptr[M]."""
+    a = _ragged_dense(np.random.default_rng(6), 64, 40)
+    H = convert(coo_from_dense_np(a, device=card), Format.HYB, k=3)
+    pad = 5
+    tail = H.coo
+    coo = COO(torch.cat([tail.row, torch.full((pad,), 64, dtype=torch.int32, device=card)]),
+              torch.cat([tail.col, torch.zeros(pad, dtype=torch.int32, device=card)]),
+              torch.cat([tail.data, torch.full((pad,), float("nan"), device=card)]),
+              tail.shape, tail.nnz + pad)
+    Hp = HYB(H.ell, coo, H.shape, H.nnz)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(40).astype(np.float32))
+    y = spmv(Hp, x.to(card))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+    np.testing.assert_allclose(y.cpu().numpy(), a @ x.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_menu_spmv_makes_no_host_sync(card):
+    """SELL, HYB (tail sort and row pointers) and BSR SpMV under
+    ``set_sync_debug_mode("error")``: any device->host sync raises."""
+    prob = hpcg.generate_problem(8, 8, 8)
+    A = hpcg.to_coo(prob, device=card)
+    x = torch.ones(A.shape[1], device=card)
+    mats = [convert(A, Format.SELL), convert(A, Format.HYB, k=18),
+            convert(A, Format.BSR, block_size=8)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ys = [spmv(M, x) for M in mats]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for y in ys:
+        torch.testing.assert_close(y, torch.from_numpy(hpcg.rhs_for_ones(prob)).to(card),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_profile_policy_picks_from_the_menu_on_card(card):
+    """The profile tuner times every candidate through its kernel."""
+    A = hpcg.to_coo(hpcg.generate_problem(16, 16, 16), device=card)
+    kops.reset_launches()
+    rep = FormatPolicy("profile", profile_iters=2).select(A)
+    assert rep.best in rep.times and set(rep.times) == set(FormatPolicy().candidates)
+    counts = kops.launch_counts()
+    assert all(counts[k] > 0 for k in ("csr_spmv", "dia_spmv", "ell_spmv", "sell_spmv"))

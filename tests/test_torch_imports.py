@@ -44,10 +44,14 @@ def test_importing_the_port_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
+        "print(' '.join(sorted(n for n in sys.modules if n.startswith('repro_torch'))))\n"
     )
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     p = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
                        timeout=120)
     assert p.returncode == 0, p.stderr
-    assert int(p.stdout.strip()) >= 20  # every module of the port was imported
+    loaded = set(p.stdout.split())
+    assert len(loaded) >= 20  # every module of the port was imported
+    assert {"repro_torch.core.autotune", "repro_torch.kernels.ell_spmv",
+            "repro_torch.kernels.sell_spmv", "repro_torch.kernels.bsr_spmm",
+            "repro_torch.tuning.engines"} <= loaded

@@ -1,4 +1,5 @@
-"""The port's CSR and DIA SpMV: plain versions, wrappers, build and kernels.
+"""The port's CSR and DIA SpMV: plain versions, wrappers, build and kernels
+(the ELL, SELL, BSR and HYB menu is in tests/test_torch_menu_kernels.py).
 
 On the CPU the plain torch versions (``repro_torch.kernels.ref``) are held
 against the JAX package's ``repro.kernels.ref`` and a dense float64 oracle
@@ -36,6 +37,7 @@ DIA_CASES = [
     (30, 110, [-29, -1, 0, 1, 50, 109, 110]),
     (1, 1, [0]),
 ]
+ALL_KERNELS = ("dia_spmv", "csr_spmv", "ell_spmv", "sell_spmv", "bsr_spmm")
 # CSR row lengths: empty first/middle/last rows, one long row.
 CSR_LENS = [[0, 3, 0, 0, 70, 1, 27, 0, 64, 0], [5], [0, 0, 2]]
 
@@ -133,7 +135,7 @@ def test_wrappers_on_cpu_run_the_plain_version_uncounted():
                        dia_spmv_ref(D.offsets, D.data, x, D.shape[1]))
     np.testing.assert_allclose(kops.SPMV_CUDA[tf.CSR](C, x).numpy(), a @ x.numpy(),
                                **tol("float32"))
-    assert kops.launch_counts() == {"dia_spmv": 0, "csr_spmv": 0}
+    assert kops.launch_counts() == dict.fromkeys(ALL_KERNELS, 0)
     with pytest.raises(ValueError, match="cuda or cpu"):
         kd.dia_spmv(D.offsets.to("meta"), D.data.to("meta"), x.to("meta"), D.shape[1])
 
@@ -181,7 +183,7 @@ def test_default_config_follows_row_length():
 
 def test_sources_name_the_tpu_kernel_they_replace():
     srcs = _build.sources()
-    assert set(srcs) == {"csr_spmv", "dia_spmv"} == set(kops.KERNELS)
+    assert set(srcs) == set(ALL_KERNELS) == set(kops.KERNELS)
     for name, path in srcs.items():
         text = path.read_text()
         assert f"repro/kernels/{name}.py::{name}" in text
@@ -207,7 +209,7 @@ def test_build_runs_one_compiler_per_source(tmp_path, monkeypatch):
     monkeypatch.setenv(_build.BUILD_ENV, str(tmp_path / "out"))
     assert _build.nvcc_path() == str(nvcc)
     logs = _build.build_all()
-    assert set(logs) == {"csr_spmv", "dia_spmv"}
+    assert set(logs) == set(ALL_KERNELS)
     assert all("Used 32 registers" in log for log in logs.values())
     for name in logs:
         lib = _build._lib_path(name)
@@ -230,7 +232,7 @@ def test_build_failure_names_the_source(tmp_path, monkeypatch):
 # would be cut to 32 bits).
 _STANDIN = """
 #include <stdint.h>
-static int64_t seen[11];
+static int64_t seen[12];
 int64_t {name}_seen(int i) {{ return seen[i]; }}
 const char* {name}_error_string(int code) {{ return code ? "stand-in error" : "ok"; }}
 int {name}_f32({params}) {{ {record} return 7; }}
@@ -242,6 +244,14 @@ _SIGNATURES = {
     "csr_spmv": ["const void* indptr", "const void* indices", "const void* data",
                  "const void* x", "void* y", "int64_t m", "int32_t n", "int vec",
                  "int device", "void* stream"],
+    "ell_spmv": ["const void* cols", "const void* data", "const void* x", "void* y",
+                 "int64_t m", "int32_t n", "int32_t k", "int device", "void* stream"],
+    "sell_spmv": ["const void* ptrs", "const void* cols", "const void* data",
+                  "const void* perm", "const void* x", "void* y", "int64_t lanes",
+                  "int32_t c", "int64_t m", "int32_t n", "int device", "void* stream"],
+    "bsr_spmm": ["const void* indptr", "const void* bcol", "const void* blocks",
+                 "const void* b", "void* y", "int64_t m", "int64_t ncols", "int32_t bs",
+                 "int64_t nbcols", "int device", "void* stream"],
 }
 
 
@@ -260,7 +270,7 @@ def test_ctypes_bindings_pass_arguments_at_full_width(name, tmp_path, monkeypatc
     lib.parent.mkdir(parents=True)
     subprocess.run(["gcc", "-shared", "-fPIC", "-o", str(lib), str(src)], check=True)
     monkeypatch.setattr(_build, "_LIBS", {})
-    module = kd if name == "dia_spmv" else kc
+    module = kops.KERNELS[name]
     module._fn.cache_clear()
     try:
         fn, err_str = module._fn(torch.float32)

@@ -16,6 +16,7 @@ import repro.core.formats as jf
 import repro.core.ops as jops
 import repro_torch.core.formats as tf
 import repro_torch.core.ops as tops
+from repro_torch.kernels import ops as kops
 from repro.core import Format as JFormat
 from torch_parity import CAP, PATTERNS, jconv, port_from_jax, tol
 
@@ -81,6 +82,9 @@ def test_spmv_rectangular_dia_offsets_outside():
 
 
 def test_backend_resolution():
+    """Every SpMV format but COO and Dense has a CUDA kernel now: on a CPU
+    tensor ``backend="cuda"`` refuses (it never falls back to the
+    reference), and ``"ref"`` runs the reference."""
     _, _, Bt = _containers("stencil", "CSR")
     x = torch.ones(Bt.shape[1])
     assert tops.resolve_backend(None, x) == "ref"
@@ -90,9 +94,10 @@ def test_backend_resolution():
         tops.spmv(Bt, x, backend="auto")
     with pytest.raises(ValueError, match="unknown backend"):
         tops.spmv(Bt, x, backend="pallas")
-    for fmt, row in (("ELL", "row 3"), ("SELL", "row 4"), ("HYB", "row 3"), ("BSR", "row 5")):
+    assert set(kops.SPMV_CUDA) == {tf.CSR, tf.DIA, tf.ELL, tf.SELL, tf.HYB, tf.BSR}
+    for fmt in ("ELL", "SELL", "HYB", "BSR"):
         _, _, Ct = _containers("stencil", fmt)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 2 {row}"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
             tops.spmv(Ct, x, backend="cuda")
         assert tops.spmv(Ct, x, backend="ref").shape == (Bt.shape[0],)
 

@@ -8,6 +8,7 @@ another order), the decision paths through the tree are equal, and the
 """
 import numpy as np
 import pytest
+import torch
 
 from repro.core import Format as JFormat
 from repro.tuning import FormatPolicy as JPolicy
@@ -17,6 +18,7 @@ from repro.tuning import tree as jtree
 from repro_torch.core.convert import planned_pulls_scope
 from repro_torch.core.dynamic import DynamicMatrix, SwitchDynamicMatrix
 from repro_torch.core.formats import Format
+from repro_torch.core.ops import spmv
 from repro_torch.tuning import (DEFAULT_TREE_PATH, DecisionTree, FormatPolicy,
                                 PatternFeatures, PatternStats, analytic_select,
                                 load_default_tree, predicted_bytes)
@@ -116,9 +118,14 @@ def test_tree_round_trips_and_predicts_like_jax(tmp_path):
 
 
 def test_unported_modes_raise():
-    for mode in ("cached", "profile"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-            FormatPolicy(mode)
+    """``cached`` and ``backend="auto"`` wait for the selection cache and
+    ``kernel_tune``; ``profile`` is ported (tests/test_torch_profile.py)."""
+    with pytest.raises(NotImplementedError, match="kernel_tune: ROADMAP Queue 1 item 7"):
+        FormatPolicy("cached")
+    assert FormatPolicy("profile", profile_iters=3).profile_iters == 3
+    _, At = coo_pair(PATTERNS["stencil"]())
+    with pytest.raises(NotImplementedError, match="kernel_tune"):
+        spmv(At, torch.ones(At.shape[1]), backend="auto")
     with pytest.raises(ValueError, match="not in"):
         FormatPolicy("fastest")
 
