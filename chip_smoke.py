@@ -18,6 +18,15 @@ Phases, in order (any failure exits nonzero and prints no result line):
    ``torch.sparse_csr_tensor``, a yardstick only), beside the least time
    the card could take (bytes over the memory rate, operations over the
    float32 peak); a HYB line (the ELL and CSR kernels composed);
+   then the four SpMM kernels (``csr_spmm``, ``csr_spmm_t``, ``ell_spmm_t``,
+   ``sell_spmm_t``) against their plain versions at minitron-8b MLP width
+   (the up and down weights, 4096 <-> 16384 at density 0.25, pruned from
+   numpy seed 0) at T = 1 and T = 256 and on ragged cases (empty rows, NaN
+   capacity padding and ghost lanes, ELL K = 0 and clamped columns, C != 32,
+   T in {1, 3, 256}, an X too wide for a shared-memory tile), in float32
+   and bfloat16, bitwise reruns, with their times, bounds, plain times and
+   two yardsticks (``torch.sparse_csr_tensor`` times X^T, and the dense
+   X @ W in float32 without TF32), and a token-tile sweep;
 3. reference check: the port's solve at 16^3 on the card (CUDA kernels)
    against the same solve on the CPU (plain torch path), in every format;
 4. main paths at HPCG's default 104^3 grid, each driven with the launch
@@ -29,6 +38,13 @@ Phases, in order (any failure exits nonzero and prints no result line):
    c. cg in ELL, SELL, HYB (k=18) and BSR (block_size=8), then one SpMV of
       SELL, HYB and BSR under ``torch.cuda.set_sync_debug_mode("error")``.
    Each solve's kernel launches must equal the SpMVs it issued.
+   d. sparse-weight serving at minitron-8b MLP width: LinearSparse.from_dense
+      with the ml pick and with the profile pick at ncols 1 and 256 (every
+      candidate's time printed), layer(x) and down(up(x)) at T = 1 and 256
+      against float64, every weight format (CSR, ELL, SELL, HYB, COO) with
+      launches == kernel calls, agreement and no device->host sync, the
+      spmm(W, x.T).T form through csr_spmm, retune(ncols=256) with its
+      counters, and spmm(ELL, backend="cuda") raising NotImplementedError.
 
 The last three lines of standard output are the kernels' JSON record, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
@@ -48,6 +64,20 @@ GRID = (104, 104, 104)  # HPCG's shipped hpcg.dat default local grid
 SMALL_GRID = (16, 16, 16)
 SEED = 0
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# The SpMM checks, against the plain version's sum of |products| (``scale``):
+# |y_k - y_p| <= atol + sum_rtol * scale + out_rtol * |y_p|. Kernel and plain
+# version both multiply exactly in f32 and sum in f32, in other orders:
+# sum_rtol covers that reordering (the largest sound reading is far below
+# it); out_rtol covers each side's one rounding to the output type: none in
+# f32 (2^-24 lies inside sum_rtol), one bf16 ulp (at most 2^-7 |y|) in bf16.
+SPMM_TOL = {"float32": dict(atol=1e-4, sum_rtol=1e-4, out_rtol=0.0),
+            "bfloat16": dict(atol=0.0, sum_rtol=1e-4, out_rtol=2.0 ** -7)}
+# Planted fault of the SpMM checks: the plain version with every FAULT_EVERY-th
+# stored entry dropped must read above the limit.
+FAULT_EVERY = 64
+# Largest reading (|y_k - y_p| / limit) of a sound kernel and smallest of a
+# planted fault at the weight shapes, by dtype.
+READINGS = {"sound": {}, "fault": {}}
 CG_TOL, CG_MAXITER = 1e-7, 500
 X_TOL = 1e-3  # max |x - 1|: the reference's own validation threshold
 # The four formats of path (c), with the plan hints that make them real work
@@ -103,17 +133,44 @@ def time_ms(fn, iters: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def compare(name, y_k, y_k2, y_p, dtype_name):
-    """Kernel vs plain within the stated tolerance, and bitwise stability."""
+def spmm_reading(y, y_p, scale, dtype_name) -> float:
+    """max |y - y_p| / limit under ``SPMM_TOL``: at most 1 passes."""
+    tol = SPMM_TOL[dtype_name]
+    diff = (y.float() - y_p.float()).abs()
+    limit = tol["atol"] + tol["sum_rtol"] * scale.float() + tol["out_rtol"] * y_p.float().abs()
+    return float((diff / limit.clamp_min(1e-30)).max()) if y.numel() else 0.0
+
+
+def compare(name, y_k, y_k2, y_p, dtype_name, scale=None, record=False):
+    """Kernel vs plain within the stated tolerance, and bitwise stability.
+
+    With ``scale`` (the plain version on |values| and |rhs|: each output's
+    sum of |products|) the SpMM rule ``SPMM_TOL`` holds: two float32 sums of
+    the same k products in different orders differ by up to about
+    k * 2^-24 * scale, so for the 1024- and 4096-term rows of the sparse
+    weights an output near zero is compared at the scale of its terms, and
+    a bf16 output at one rounding of its own size. ``record`` keeps the
+    reading for the summary of the weight-shape checks."""
     import torch
-    tol = TOL[dtype_name]
     torch.cuda.synchronize()
     check(y_k.shape == y_p.shape and bool(torch.isfinite(y_k).all()),
           f"{name} {dtype_name}: finite, shape {tuple(y_k.shape)}")
     err = float((y_k.float() - y_p.float()).abs().max()) if y_k.numel() else 0.0
-    ok = bool(torch.allclose(y_k.float(), y_p.float(), **tol))
-    check(ok, f"{name} {dtype_name}: max_abs_err={err:.3e} vs plain "
-              f"(rtol={tol['rtol']}, atol={tol['atol']})")
+    if scale is None:
+        tol = TOL[dtype_name]
+        ok = bool(torch.allclose(y_k.float(), y_p.float(), **tol))
+        how = f"(rtol={tol['rtol']}, atol={tol['atol']})"
+    else:
+        tol = SPMM_TOL[dtype_name]
+        reading = spmm_reading(y_k, y_p, scale, dtype_name)
+        ok = reading <= 1.0
+        how = (f"reading {reading:.3e} of the limit atol={tol['atol']} + "
+               f"{tol['sum_rtol']} * sum|products| (up to {float(scale.max()):.1f}) + "
+               f"{tol['out_rtol']:.4g} * |y|")
+        if record:
+            READINGS["sound"][dtype_name] = max(READINGS["sound"].get(dtype_name, 0.0),
+                                                reading)
+    check(ok, f"{name} {dtype_name}: max_abs_err={err:.3e} vs plain, {how}")
     check(torch.equal(y_k, y_k2), f"{name} {dtype_name}: bitwise equal over two runs")
     return err
 
@@ -329,9 +386,6 @@ def phase_kernels(torch, np, prob, peak_bw, peak_flops):
     print(f"  library torch.sparse_bsr_tensor @ x f32: "
           f"{f'{bsr_lib_ms:.4f} ms' if bsr_lib_ms is not None else '— (' + bsr_lib_err + ')'}",
           flush=True)
-    cols = torch.arange(m, device="cuda")[None, :] + dia.offsets.long()[:, None]
-    dia_pairs = int(((cols >= 0) & (cols < n)).sum())
-    del cols
     records = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = "float32" if dtype == torch.float32 else "bfloat16"
@@ -385,28 +439,26 @@ def phase_kernels(torch, np, prob, peak_bw, peak_flops):
         ragged_cases(rng, torch, dtype)
 
         # the least time: bytes each input read once and y written once, or
-        # the multiply-adds these inputs need at the float32 peak. DIA reads
-        # only the table entries whose column lies inside the matrix; ELL,
-        # SELL and BSR read every stored slot (padding included).
+        # the multiply-adds these inputs need at the float32 peak. Only the
+        # nnz live entries count (a value each, and a column index where the
+        # format keeps one per entry), with the format's row, slice or block
+        # index arrays: the padding of DIA, ELL and SELL and BSR's fill are
+        # the format's cost, not the product's.
         xy = n * es + m * es
-        slots_ell = m * ell.k
+        nnz = csr.nnz
         rows = [
-            ("dia_spmv", run_dia, plain_dia, dia.ndiag * 4 + dia_pairs * es + xy,
-             2 * dia_pairs, "src/repro_torch/csrc/dia_spmv.cu",
-             "src/repro/kernels/dia_spmv.py:50"),
-            ("csr_spmv", run_csr, plain_csr, (m + 1) * 4 + csr.nnz * (4 + es) + xy,
-             2 * csr.nnz, "src/repro_torch/csrc/csr_spmv.cu",
-             "src/repro/kernels/csr_spmv.py:103"),
-            ("ell_spmv", run_ell, plain_ell, slots_ell * (4 + es) + xy, 2 * slots_ell,
+            ("dia_spmv", run_dia, plain_dia, dia.ndiag * 4 + nnz * es + xy, 2 * nnz,
+             "src/repro_torch/csrc/dia_spmv.cu", "src/repro/kernels/dia_spmv.py:50"),
+            ("csr_spmv", run_csr, plain_csr, (m + 1) * 4 + nnz * (4 + es) + xy, 2 * nnz,
+             "src/repro_torch/csrc/csr_spmv.cu", "src/repro/kernels/csr_spmv.py:103"),
+            ("ell_spmv", run_ell, plain_ell, nnz * (4 + es) + xy, 2 * nnz,
              "src/repro_torch/csrc/ell_spmv.cu", "src/repro/kernels/ell_spmv.py:65"),
             ("sell_spmv", run_sell, plain_sell,
-             sell.capacity * (4 + es) + sell.perm.numel() * 4 + (sell.nslices + 1) * 4 + xy,
-             2 * sell.capacity, "src/repro_torch/csrc/sell_spmv.cu",
-             "src/repro/kernels/sell_spmv.py:77"),
+             nnz * (4 + es) + sell.perm.numel() * 4 + (sell.nslices + 1) * 4 + xy, 2 * nnz,
+             "src/repro_torch/csrc/sell_spmv.cu", "src/repro/kernels/sell_spmv.py:77"),
             ("bsr_spmm", run_bsr, plain_bsr,
-             bsr.nblocks * (bs * bs * es + 4) + (m // bs + 1) * 4 + xy,
-             2 * bsr.nblocks * bs * bs, "src/repro_torch/csrc/bsr_spmm.cu",
-             "src/repro/kernels/bsr_spmm.py:52"),
+             nnz * es + bsr.nblocks * 4 + (m // bs + 1) * 4 + xy, 2 * nnz,
+             "src/repro_torch/csrc/bsr_spmm.cu", "src/repro/kernels/bsr_spmm.py:52"),
         ]
         for kname, run, plain, nbytes, nops, src, repl in rows:
             ms = time_ms(run, 100)
@@ -451,13 +503,13 @@ def hyb_line(torch, hyb, x, es, m, peak_bw, name):
              "tail sort+indptr": lambda: kops.tail_csr(H.coo, m),
              "csr tail": lambda: kops._csr.csr_spmv(*tail, x, m, vec=vec)}
     times = {k: time_ms(fn, 50) for k, fn in parts.items()}
-    ell_b = m * hyb.k * (4 + es)
+    ell_b = (hyb.nnz - hyb.coo.nnz) * (4 + es)
     tail_b = hyb.coo.nnz * (4 + es) + (m + 1) * 4
     bound = (ell_b + tail_b + 3 * m * es) / peak_bw * 1e3
     print(f"  hyb {name} (k={hyb.k}, tail {hyb.coo.nnz} entries): "
           + ", ".join(f"{k} {t:.4f} ms" for k, t in times.items())
-          + f"; two-kernel bound {bound:.4f} ms "
-            f"(ELL {ell_b / 1e6:.1f} MB + tail {tail_b / 1e6:.1f} MB + x, y)", flush=True)
+          + f"; two-kernel bound {bound:.4f} ms (live entries: ELL part "
+            f"{ell_b / 1e6:.1f} MB + tail {tail_b / 1e6:.1f} MB + x, y)", flush=True)
 
 
 def phase_reference(torch):
@@ -650,6 +702,408 @@ def phase_new_formats(torch, A, b):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Sparse-weight serving: the SpMM kernels and path (d)
+# ---------------------------------------------------------------------------
+
+# minitron-8b's MLP linears, (d_in, d_out): d_model 4096, d_ff 16384
+# (src/repro/configs/minitron_8b.py), magnitude-pruned to density 0.25.
+MINITRON_MLP = {"up": (4096, 16384), "down": (16384, 4096)}
+DENSITY = 0.25
+DECODE, PREFILL = 1, 256
+LAYER_FORMATS = ("CSR", "ELL", "SELL", "HYB", "COO")
+SPMM_T_KERNELS_OF = {"CSR": ("csr_spmm_t",), "ELL": ("ell_spmm_t",), "SELL": ("sell_spmm_t",),
+                     "HYB": ("ell_spmm_t", "csr_spmm_t"), "COO": ()}
+SPMM_KERNELS = ("csr_spmm", "csr_spmm_t", "ell_spmm_t", "sell_spmm_t")
+ORACLE_RTOL = 1e-4  # max |y - oracle| / max |oracle|, float32 against float64
+
+
+def make_weights(np):
+    """Both MLP weights and biases, from numpy seed SEED (host, once)."""
+    from repro_torch.models import prune_magnitude
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for name, (d_in, d_out) in MINITRON_MLP.items():
+        w = prune_magnitude(rng.standard_normal((d_in, d_out)).astype(np.float32), DENSITY)
+        out[name] = (w, rng.standard_normal(d_out).astype(np.float32))
+    return out
+
+
+def ragged_spmm_cases(rng, torch, dtype, name):
+    """The four SpMM kernels at the edges of their contracts: empty rows, CSR
+    capacity padding of NaN, ELL K = 0 and clamped columns, SELL ghost lanes
+    holding NaN and C != 32, T in {1, 3, 256}, and a 70000-wide X."""
+    import numpy as np
+    from repro_torch.core.convert import convert
+    from repro_torch.core.formats import Format, coo_from_dense_np
+    from repro_torch.kernels import csr_spmm as kcm, ell_spmm as kem, sell_spmm as ksm
+    from repro_torch.kernels.ref import (csr_spmm_ref, csr_spmm_t_ref, ell_spmm_t_ref,
+                                         sell_spmm_t_ref)
+    lens = [0, 3, 0, 0, 700, 1, 27, 0, 64, 0, 1030]
+    m, nnz = len(lens), sum(lens)
+    for n in (900, 70000):
+        indptr = torch.tensor([0] + list(itertools.accumulate(lens)), dtype=torch.int32,
+                              device="cuda")
+        idx = torch.from_numpy(rng.integers(-2, n + 2, nnz + 37).astype("int32")).cuda()
+        val = _rand(rng, torch, nnz + 37, dtype)
+        val[nnz:] = float("nan")
+        for t in (1, 3, 256):
+            X = _rand(rng, torch, (t, n), dtype)
+            y_p = csr_spmm_t_ref(indptr, idx, val, X, m)
+            scale = csr_spmm_t_ref(indptr, idx, val.abs(), X.abs(), m)
+            for vec, tt in ((4, 1), (32, 8), (8, 2), (16, 4)):
+                compare(f"csr_spmm_t ragged m={m} n={n} T={t} vec={vec} tt={tt}",
+                        kcm.csr_spmm_t(indptr, idx, val, X, m, vec=vec, tt=tt),
+                        kcm.csr_spmm_t(indptr, idx, val, X, m, vec=vec, tt=tt),
+                        y_p, name, scale=scale)
+        if n == 900:
+            for k in (1, 3, 256):
+                B = _rand(rng, torch, (n, k), dtype)
+                y1 = kcm.csr_spmm(indptr, idx, val, B, m, vec=8)
+                compare(f"csr_spmm ragged m={m} K={k}", y1,
+                        kcm.csr_spmm(indptr, idx, val, B, m, vec=8),
+                        csr_spmm_ref(indptr, idx, val, B, m), name,
+                        scale=csr_spmm_ref(indptr, idx, val.abs(), B.abs(), m))
+                check(not bool(y1[0].any()), f"csr_spmm K={k}: an empty row writes zeros")
+    for m, n, k in ((300, 250, 0), (300, 250, 27), (257, 90, 70)):
+        cols = rng.integers(-3, n + 3, (m, k)).astype(np.int32)
+        vals = rng.standard_normal((m, k)).astype(np.float32)
+        cols[::7], vals[::7] = -1, 0.0
+        c_t, v_t = torch.from_numpy(cols).cuda(), torch.from_numpy(vals).to("cuda", dtype)
+        for t in (1, 3, 256):
+            X = _rand(rng, torch, (t, n), dtype)
+            before = kem.launches
+            y1 = kem.ell_spmm_t(c_t, v_t, X, vec=8)
+            y2 = kem.ell_spmm_t(c_t, v_t, X, vec=8)
+            check(kem.launches - before == (2 if k else 0),
+                  f"ell_spmm_t K={k}: {kem.launches - before} launches for 2 calls")
+            compare(f"ell_spmm_t ragged {m}x{n} K={k} T={t}", y1, y2,
+                    ell_spmm_t_ref(c_t, v_t, X), name,
+                    scale=ell_spmm_t_ref(c_t, v_t.abs(), X.abs()))
+    m, n = 301, 120
+    a = _ragged_dense(rng, m, n)
+    for c, sigma in ((32, 256), (8, 16), (5, 5)):
+        S = convert(coo_from_dense_np(a, device="cpu"), Format.SELL, c=c, sigma=sigma)
+        data = S.data.clone()
+        ptrs, perm = S.slice_ptrs.tolist(), S.perm.tolist()
+        for lane, row in enumerate(perm):
+            if row >= m:
+                s, r = divmod(lane, c)
+                data[ptrs[s] + r:ptrs[s + 1]:c] = float("nan")
+        args = [t.cuda() for t in (S.slice_ptrs, S.cols, data.to(dtype), S.perm)]
+        for t in (1, 3, 256):
+            X = _rand(rng, torch, (t, n), dtype)
+            s_abs = [args[0], args[1], args[2].abs(), args[3]]  # ghost lanes: dropped
+            compare(f"sell_spmm_t ragged m={m} C={c} T={t} (NaN ghost lanes)",
+                    ksm.sell_spmm_t(*args, X, m, c), ksm.sell_spmm_t(*args, X, m, c),
+                    sell_spmm_t_ref(*args, X, m, c), name,
+                    scale=sell_spmm_t_ref(*s_abs, X.abs(), m, c))
+
+
+def weight_containers(torch, w):
+    """The stored (d_out, d_in) weight on the card as CSR, ELL and SELL."""
+    from repro_torch.core.convert import convert
+    from repro_torch.core.formats import Format, coo_from_dense_np
+    coo = coo_from_dense_np(w.T, device="cuda")
+    return {f: convert(coo, Format[f]) for f in ("CSR", "ELL", "SELL")}
+
+
+def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
+    """The four SpMM kernels against their plain versions at the slice's
+    shapes (both MLP weights, T = 1 and 256) and on ragged cases; returns
+    their JSON records (the up projection's numbers)."""
+    from repro_torch.kernels import csr_spmm as kcm, ell_spmm as kem, sell_spmm as ksm
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import (csr_spmm_ref, csr_spmm_t_ref, ell_spmm_t_ref,
+                                         sell_spmm_t_ref)
+
+    print("== SpMM kernels at minitron-8b MLP width (density 0.25) and ragged shapes",
+          flush=True)
+    rng = np.random.default_rng(SEED + 1)
+    records = {}
+    for lname, (w, _) in weights.items():
+        mats = weight_containers(torch, w)
+        csr, ell, sell = mats["CSR"], mats["ELL"], mats["SELL"]
+        m, n = csr.shape
+        print(f"  {lname} weight stored {m}x{n}: nnz={csr.nnz}, ELL K={ell.k}, "
+              f"SELL C={sell.c} capacity={sell.capacity}", flush=True)
+        lib = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data, size=csr.shape)
+        w_dense = torch.from_numpy(w).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "float32" if dtype == torch.float32 else "bfloat16"
+            es = torch.empty((), dtype=dtype).element_size()
+            cd, ed, sd = (c.data.to(dtype) for c in (csr, ell, sell))
+            for t in (DECODE, PREFILL):
+                X = _rand(rng, torch, (t, n), dtype)
+                B = X.T.contiguous()
+                cfg_c, cfg_e = kops.spmm_t_config(csr), kops.spmm_t_config(ell)
+                cfg_v = kops.default_config(csr)["vec"]
+                Xa, Ba = X.abs(), B.abs()
+                runs = {
+                    "csr_spmm": (lambda: kcm.csr_spmm(csr.indptr, csr.indices, cd, B, m,
+                                                      vec=cfg_v),
+                                 lambda: csr_spmm_ref(csr.indptr, csr.indices, cd, B, m),
+                                 lambda: csr_spmm_ref(csr.indptr, csr.indices, cd.abs(), Ba, m),
+                                 lambda: lib @ B, f"K={t}"),
+                    "csr_spmm_t": (lambda: kcm.csr_spmm_t(csr.indptr, csr.indices, cd, X, m,
+                                                          **cfg_c),
+                                   lambda: csr_spmm_t_ref(csr.indptr, csr.indices, cd, X, m),
+                                   lambda: csr_spmm_t_ref(csr.indptr, csr.indices, cd.abs(),
+                                                          Xa, m),
+                                   lambda: lib @ X.T, f"T={t} {cfg_c}"),
+                    "ell_spmm_t": (lambda: kem.ell_spmm_t(ell.cols, ed, X, **cfg_e),
+                                   lambda: ell_spmm_t_ref(ell.cols, ed, X),
+                                   lambda: ell_spmm_t_ref(ell.cols, ed.abs(), Xa),
+                                   lambda: lib @ X.T, f"T={t} {cfg_e}"),
+                    "sell_spmm_t": (lambda: ksm.sell_spmm_t(sell.slice_ptrs, sell.cols, sd,
+                                                            sell.perm, X, m, sell.c),
+                                    lambda: sell_spmm_t_ref(sell.slice_ptrs, sell.cols, sd,
+                                                            sell.perm, X, m, sell.c),
+                                    lambda: sell_spmm_t_ref(sell.slice_ptrs, sell.cols,
+                                                            sd.abs(), sell.perm, Xa, m, sell.c),
+                                    lambda: lib @ X.T, f"T={t}"),
+                }
+                for kname, (run, plain, plain_abs, library, what) in runs.items():
+                    y_p, scale = plain(), plain_abs()
+                    err = compare(f"{kname} {lname} {what}", run(), run(), y_p, name,
+                                  scale=scale, record=True)
+                    if kname == "csr_spmm_t":
+                        planted_fault(torch, csr, cd, X, y_p, scale, f"{lname} T={t}", name)
+                    del y_p, scale
+                    # the least time: each input read once, Y written once;
+                    # the live entries (a column index and a value each) and
+                    # the format's row or slice arrays, 2 flops per live entry
+                    # and token (ELL's and SELL's padding slots not counted)
+                    extra = {"csr_spmm": (m + 1) * 4, "csr_spmm_t": (m + 1) * 4,
+                             "ell_spmm_t": 0,
+                             "sell_spmm_t": sell.perm.numel() * 4 + (sell.nslices + 1) * 4}
+                    nbytes = csr.nnz * (4 + es) + extra[kname] + t * n * es + t * m * es
+                    nops = 2 * csr.nnz * t
+                    t_bytes, t_ops = nbytes / peak_bw * 1e3, nops / peak_flops * 1e3
+                    bound = max(t_bytes, t_ops)
+                    ms = time_ms(run, 20)
+                    full = lname == "up" and dtype == torch.float32
+                    plain_ms = time_ms(plain, 3) if full else None
+                    lib_ms = time_ms(library, 10) if full else None
+                    dense_ms = time_ms(lambda: X @ w_dense, 20) if full else None
+                    print(f"  {kname} {lname} {name} {what}: kernel {ms:.4f} ms, bound "
+                          f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} Gop, "
+                          f"{'bytes' if t_bytes >= t_ops else 'operations'}) -> "
+                          f"{bound / ms:.1%} of bound"
+                          + (f"; plain {plain_ms:.4f} ms, library sparse_csr @ "
+                             f"{lib_ms:.4f} ms, dense X @ W f32 {dense_ms:.4f} ms"
+                             if full else ""), flush=True)
+                    if full:
+                        sfx = "" if t == PREFILL else "_t1"
+                        rec = records.setdefault(kname, {
+                            "name": kname, "route": "cuda",
+                            "source": {"csr_spmm": "src/repro_torch/csrc/csr_spmm.cu",
+                                       "csr_spmm_t": "src/repro_torch/csrc/csr_spmm.cu",
+                                       "ell_spmm_t": "src/repro_torch/csrc/ell_spmm.cu",
+                                       "sell_spmm_t": "src/repro_torch/csrc/sell_spmm.cu"}[kname],
+                            "replaces": {"csr_spmm": "src/repro/kernels/csr_spmm.py:158",
+                                         "csr_spmm_t": "src/repro/kernels/csr_spmm.py:209",
+                                         "ell_spmm_t": "src/repro/kernels/ell_spmv.py:194",
+                                         "sell_spmm_t": "src/repro/kernels/sell_spmv.py:190"
+                                         }[kname],
+                            "launches": 0, "shape": f"{m}x{n} nnz={csr.nnz}"})
+                        rec.update({f"max_abs_err{sfx}": err, f"ms{sfx}": ms,
+                                    f"plain_ms{sfx}": plain_ms, f"bound_ms{sfx}": bound,
+                                    f"bound_by{sfx}": "bytes" if t_bytes >= t_ops
+                                    else "operations",
+                                    f"library_ms{sfx}": lib_ms, f"dense_ms{sfx}": dense_ms})
+                    elif lname == "up":
+                        records[kname][f"max_abs_err_bf16{'' if t == PREFILL else '_t1'}"] = err
+                if dtype == torch.float32 and t == PREFILL:
+                    sweep_token_tiles(lname, csr, sell, cd, sd, X, cfg_c["vec"])
+                if dtype == torch.float32 and t == DECODE:
+                    from repro_torch.kernels import csr_spmv as kc
+                    x1 = X[0].contiguous()
+                    vec = kops.default_config(csr)["vec"]
+                    print(f"  {lname} T=1 beside SpMV at the same nnz: csr_spmv "
+                          f"{time_ms(lambda: kc.csr_spmv(csr.indptr, csr.indices, cd, x1, m, vec=vec), 20):.4f} ms",
+                          flush=True)
+        del mats, csr, ell, sell, lib, w_dense
+        torch.cuda.empty_cache()
+    print("  weight-shape readings (|y_k - y_p| / limit; at most 1 passes): largest sound "
+          + ", ".join(f"{k} {v:.3e}" for k, v in READINGS["sound"].items())
+          + f"; smallest planted fault (every {FAULT_EVERY}th entry dropped) "
+          + ", ".join(f"{k} {v:.3e}" for k, v in READINGS["fault"].items()), flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        ragged_spmm_cases(rng, torch, dtype, "float32" if dtype == torch.float32 else "bfloat16")
+    return records
+
+
+def planted_fault(torch, csr, cd, X, y_p, scale, what, dtype_name):
+    """The SpMM check must catch a kernel that skips entries: the plain
+    version with every ``FAULT_EVERY``-th stored entry dropped reads above
+    the limit against the sound plain version."""
+    from repro_torch.kernels.ref import csr_spmm_t_ref
+    dropped = cd.clone()
+    dropped[::FAULT_EVERY] = 0
+    y_f = csr_spmm_t_ref(csr.indptr, csr.indices, dropped, X, csr.shape[0])
+    reading = spmm_reading(y_f, y_p, scale, dtype_name)
+    READINGS["fault"][dtype_name] = min(READINGS["fault"].get(dtype_name, float("inf")),
+                                        reading)
+    check(reading > 1.0, f"planted fault {what} {dtype_name}: every {FAULT_EVERY}th entry "
+                         f"dropped reads {reading:.3e} > 1 (the check catches it)")
+
+
+def sweep_token_tiles(lname, csr, sell, cd, sd, X, vec):
+    """Median times over the token tile at T = 256 (information for tuning;
+    the main path takes ``csr_spmm.token_tile`` of T). The SELL kernel copies
+    its tile into shared memory where it fits."""
+    from repro_torch.kernels import csr_spmm as kcm, sell_spmm as ksm
+    m = csr.shape[0]
+    runs = {"csr_spmm_t": lambda tt: kcm.csr_spmm_t(csr.indptr, csr.indices, cd, X, m,
+                                                    vec=vec, tt=tt),
+            "sell_spmm_t": lambda tt: ksm.sell_spmm_t(sell.slice_ptrs, sell.cols, sd,
+                                                      sell.perm, X, m, sell.c, tt=tt)}
+    for kname, run in runs.items():
+        times = ", ".join(f"tt={tt} {time_ms(lambda tt=tt: run(tt), 10):.4f}"
+                          for tt in kcm.TOKEN_TILES)
+        print(f"  {kname} {lname} float32 T={X.shape[0]} token-tile sweep (ms): {times}",
+              flush=True)
+
+
+def recorded_policy(mode):
+    """A FormatPolicy over the weight candidates that keeps its last report
+    (the candidates' times of a ``from_dense(tune=...)`` build)."""
+    from repro_torch.models import WEIGHT_CANDIDATES
+    from repro_torch.tuning import FormatPolicy
+
+    class Recorded(FormatPolicy):
+        def select(self, A, x=None, op="spmv", ncols=None):
+            self.report = super().select(A, x=x, op=op, ncols=ncols)
+            return self.report
+    return Recorded(mode, candidates=WEIGHT_CANDIDATES, profile_iters=3)
+
+
+def _rel_err(torch, y, ref):
+    return float((y.double() - ref).abs().max() / ref.abs().max())
+
+
+def phase_serving(torch, np, weights):
+    """Path (d): LinearSparse at minitron-8b MLP width on the card."""
+    from repro_torch.core.formats import Format
+    from repro_torch.core.ops import spmm
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import LinearSparse
+    from repro_torch.obs import metrics
+
+    print("== main path (d): sparse-weight serving, LinearSparse at minitron-8b MLP "
+          f"width {MINITRON_MLP} density {DENSITY}", flush=True)
+    start_path(torch)
+    dev_w = {k: (torch.from_numpy(w).cuda().double(), torch.from_numpy(b).cuda().double())
+             for k, (w, b) in weights.items()}
+    layers = {}
+    for lname, (w, b) in weights.items():
+        t0 = time.perf_counter()
+        ml = LinearSparse.from_dense(w, tune="ml", bias=b)
+        torch.cuda.synchronize()
+        print(f"  {lname}: from_dense(tune='ml') -> {ml.format.name} in "
+              f"{time.perf_counter() - t0:.2f} s (host COO build included)", flush=True)
+        layers[lname] = {"ml": ml}
+        for width in (DECODE, PREFILL):
+            pol = recorded_policy("profile")
+            t0 = time.perf_counter()
+            layer = LinearSparse.from_dense(w, tune=pol, ncols=width, bias=b)
+            torch.cuda.synchronize()
+            rep = pol.report
+            print(f"  {lname}: from_dense(tune='profile', ncols={width}) in "
+                  f"{time.perf_counter() - t0:.2f} s: "
+                  + ", ".join(f"{f.name} {t * 1e3:.4f} ms" for f, t in rep.times.items())
+                  + f" -> pick {rep.best.name}", flush=True)
+            check(set(rep.times) == set(Format[f] for f in LAYER_FORMATS),
+                  f"{lname} profile at ncols={width} timed every weight candidate")
+            layers[lname][width] = layer
+    # the layers, alone and chained, against float64 at both widths
+    rng = np.random.default_rng(SEED + 2)
+    for width in (DECODE, PREFILL):
+        x = _rand(rng, torch, (width, MINITRON_MLP["up"][0]), torch.float32)
+        up, down = layers["up"][width], layers["down"][width]
+        (wu, bu), (wd, bd) = dev_w["up"], dev_w["down"]
+        ref_up = x.double() @ wu + bu
+        ref_chain = ref_up @ wd + bd
+        h = up(x)
+        y = down(h)
+        torch.cuda.synchronize()
+        for label, got, ref in (("up", h, ref_up), ("down(up(x))", y, ref_chain)):
+            e = _rel_err(torch, got, ref)
+            check(got.shape == ref.shape and bool(torch.isfinite(got).all())
+                  and e <= ORACLE_RTOL,
+                  f"T={width} {label} in {up.format.name}/{down.format.name}: "
+                  f"max|y - f64| / max|f64| = {e:.2e} <= {ORACLE_RTOL}")
+        xd = _rand(rng, torch, (width, MINITRON_MLP["down"][0]), torch.float32)
+        e = _rel_err(torch, down(xd), xd.double() @ wd + bd)
+        check(e <= ORACLE_RTOL, f"T={width} down alone: {e:.2e} <= {ORACLE_RTOL}")
+    # every weight format at both widths: launches == kernel calls, no sync
+    for lname, (d_in, _) in MINITRON_MLP.items():
+        base = layers[lname]["ml"]
+        w64, b64 = dev_w[lname]
+        for width in (DECODE, PREFILL):
+            x = _rand(rng, torch, (width, d_in), torch.float32)
+            ref = x.double() @ w64 + b64
+            outs, times = {}, {}
+            for fmt in LAYER_FORMATS:
+                L = base.activate(Format[fmt])
+                before = kops.launch_counts()
+                outs[fmt] = L(x)
+                torch.cuda.synchronize()
+                after = kops.launch_counts()
+                launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+                check(launched == {k: 1 for k in SPMM_T_KERNELS_OF[fmt]},
+                      f"{lname} T={width} {fmt}: launches {launched} == kernel calls")
+                e = _rel_err(torch, outs[fmt], ref)
+                check(e <= ORACLE_RTOL, f"{lname} T={width} {fmt} vs f64: {e:.2e}")
+                if SPMM_T_KERNELS_OF[fmt]:
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        L(x)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                times[fmt] = time_ms(lambda L=L: L(x), 3 if fmt == "COO" else 20)
+                if fmt == "CSR":
+                    before = kops.launch_counts()["csr_spmm"]
+                    y_old = spmm(L.weight, x.T.contiguous()).T + L.bias
+                    torch.cuda.synchronize()
+                    check(kops.launch_counts()["csr_spmm"] == before + 1
+                          and _rel_err(torch, y_old, ref) <= ORACLE_RTOL,
+                          f"{lname} T={width} CSR: spmm(W, x.T).T (csr_spmm) == layer(x)")
+                del L
+            agree = max(float((outs[f] - outs["CSR"]).abs().max()) for f in LAYER_FORMATS)
+            scale = float(ref.abs().max())
+            check(agree <= ORACLE_RTOL * scale,
+                  f"{lname} T={width}: all formats agree (max diff {agree:.3e}, "
+                  f"scale {scale:.1f}); no sync in any kernel format's call")
+            print(f"  {lname} T={width} ms per call: "
+                  + ", ".join(f"{f} {t:.4f}" for f, t in times.items()), flush=True)
+    # retune the decode build for prefill
+    for lname in MINITRON_MLP:
+        dec = layers[lname][DECODE]
+        with metrics.scope() as s:
+            t0 = time.perf_counter()
+            pre = dec.retune(ncols=PREFILL, tune="profile")
+            torch.cuda.synchronize()
+            switched = pre.format != dec.format
+            print(f"  {lname}: retune(ncols={PREFILL}) {dec.format.name} -> "
+                  f"{pre.format.name} in {time.perf_counter() - t0:.2f} s", flush=True)
+            check(s.delta("serve.retune") == 1
+                  and s.delta("serve.format_switch") == int(switched),
+                  f"{lname}: serve.retune +1, serve.format_switch +{int(switched)}")
+    # ELL SpMM (Y = A @ B) has no ported kernel: the card route raises
+    E = layers["up"]["ml"].activate(Format.ELL).weight.concrete
+    try:
+        spmm(E, torch.ones(E.shape[1], 2, device="cuda"), backend="cuda")
+        raised = ""
+    except NotImplementedError as e:
+        raised = str(e)
+    check("rows 8 and 10" in raised, f"spmm(ELL, backend='cuda') raises NotImplementedError "
+                                     f"({raised[:60]}...)")
+    del layers, dev_w, E
+    return read_path(torch, "(d)", SPMM_KERNELS)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -678,14 +1132,23 @@ def main() -> int:
     prob = hpcg.generate_problem(*GRID)
     t_gen = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    weights = make_weights(np)
+    print(f"== minitron-8b MLP weights pruned on the host in {time.perf_counter() - t0:.2f} s",
+          flush=True)
     records = phase_kernels(torch, np, prob, peak_bw, peak_flops)
+    torch.cuda.empty_cache()
+    records.update(phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops))
     torch.cuda.empty_cache()
     phase_reference(torch)
     A, b, counts_a = phase_main(torch, prob, t_gen)
     counts_b, _ = phase_profile(torch, A, b)
     counts_c = phase_new_formats(torch, A, b)
+    del A, b
+    torch.cuda.empty_cache()
+    counts_d = phase_serving(torch, np, weights)
     for name, rec in records.items():
-        rec["launches"] = counts_a[name] + counts_b[name] + counts_c[name]
+        rec["launches"] = sum(c[name] for c in (counts_a, counts_b, counts_c, counts_d))
     print(f"== total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

@@ -5,7 +5,7 @@ Public API:
     from_numpy, to_numpy                                 JAX <-> port crossing
     plan_switch, convert_execute, convert, SwitchPlan    format conversion
     DynamicMatrix, SwitchDynamicMatrix                   dynamic abstractions
-    spmv, dot, waxpby, axpy, norm2                       algorithms
+    spmv, spmm, spmm_t, dot, waxpby, axpy, norm2         algorithms
     autotune                                             per-matrix format tuner
 """
 from repro_torch.core.autotune import autotune
@@ -17,8 +17,8 @@ from repro_torch.core.formats import (BSR, COO, CSR, DIA, ELL, SELL, Dense,
                                       Format, HYB, banded_coo, coo_from_arrays,
                                       coo_from_dense_np, dense_from_array,
                                       from_numpy, to_dense_np, to_numpy)
-from repro_torch.core.ops import (axpy, dot, extract_diagonal, norm2, spmv,
-                                  update_diagonal, waxpby)
+from repro_torch.core.ops import (axpy, dot, extract_diagonal, norm2, spmm,
+                                  spmm_t, spmv, update_diagonal, waxpby)
 
 __all__ = [
     "Format", "COO", "CSR", "DIA", "ELL", "BSR", "Dense", "HYB", "SELL",
@@ -26,6 +26,6 @@ __all__ = [
     "dense_from_array", "banded_coo", "to_dense_np",
     "SwitchPlan", "plan_switch", "convert_execute", "convert", "to_coo",
     "DynamicMatrix", "SwitchDynamicMatrix", "DEFAULT_CANDIDATES",
-    "spmv", "dot", "waxpby", "axpy", "norm2", "extract_diagonal",
+    "spmv", "spmm", "spmm_t", "dot", "waxpby", "axpy", "norm2", "extract_diagonal",
     "update_diagonal", "autotune",
 ]

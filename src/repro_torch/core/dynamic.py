@@ -71,6 +71,12 @@ class DynamicMatrix:
     def spmv(self, x, backend: Optional[str] = None):
         return _ops.spmv(self.concrete, x, backend=backend)
 
+    def spmm(self, B, backend: Optional[str] = None):
+        return _ops.spmm(self.concrete, B, backend=backend)
+
+    def spmm_t(self, X, backend: Optional[str] = None):
+        return _ops.spmm_t(self.concrete, X, backend=backend)
+
     def extract_diagonal(self):
         return _ops.extract_diagonal(self.concrete)
 
@@ -163,6 +169,12 @@ class SwitchDynamicMatrix:
 
     def spmv(self, x, backend: Optional[str] = None):
         return _ops.spmv(self.variants[self.active_id], x, backend=backend)
+
+    def spmm(self, B, backend: Optional[str] = None):
+        return _ops.spmm(self.variants[self.active_id], B, backend=backend)
+
+    def spmm_t(self, X, backend: Optional[str] = None):
+        return _ops.spmm_t(self.variants[self.active_id], X, backend=backend)
 
     def __repr__(self):
         return f"SwitchDynamicMatrix<{[f.name for f in self.candidates]}>{self.shape}"

@@ -1,9 +1,9 @@
 """Algorithms over sparse containers (the paper's §III-D algorithm layer).
 
-Port of ``repro.core.ops``. The ``_spmv_*`` functions are the plain torch
-reference path for every format (the CPU path, and the ``ref`` backend on
-the card); ``repro_torch.kernels`` holds the hand-written CUDA kernels of
-every format but COO and Dense, selected with ``backend=``.
+Port of ``repro.core.ops``. The ``_spmv_*`` and ``_spmm_*`` functions are
+the plain torch reference path for every format (the CPU path, and the
+``ref`` backend on the card); ``repro_torch.kernels`` holds the hand-written
+CUDA kernels, selected with ``backend=``.
 
 Reference semantics carried over from JAX:
   * ``jnp.take(..., mode="clip")`` clamps an index into range — torch's
@@ -174,15 +174,163 @@ def spmv(A, x, backend: Optional[str] = None):
     if isinstance(A, _DYN_TYPES):
         return A.spmv(x, backend=backend)
     backend = resolve_backend(backend, x)
+    _cuda_only(backend, x)
     if backend == "cuda":
-        if not x.is_cuda:
-            raise ValueError("backend='cuda' needs CUDA tensors; "
-                             "use backend='ref' on the CPU")
         from repro_torch.kernels import ops as kops  # lazy: keep core import-light
         fn = kops.SPMV_CUDA.get(type(A))
         if fn is not None:
             return fn(A, x)
     return _SPMV[type(A)](A, x)
+
+
+# ---------------------------------------------------------------------------
+# SpMM: Y = A @ B (B dense (N, K)) and Y = X @ A^T (X dense (T, N))
+# ---------------------------------------------------------------------------
+
+# Elements of the per-entry product a reference SpMM builds at once. COO and
+# CSR build an (nnz, K) product: 17.2 GB in f32 for a 16.7M-entry weight at
+# K = 256. Above this budget the rhs is walked in column chunks; each output
+# element's sum is the same, since a column of Y depends on that column of B
+# alone.
+REF_CHUNK_ELEMS = 1 << 27
+
+
+def by_columns(fn, B: torch.Tensor, per_col: int) -> torch.Tensor:
+    """``fn(B)`` for a column-separable ``fn``, over column chunks of ``B``
+    (N, K) whose per-entry product holds at most ``REF_CHUNK_ELEMS``
+    elements when one column costs ``per_col``."""
+    k = B.shape[1]
+    step = max(1, REF_CHUNK_ELEMS // max(1, per_col))
+    if k <= step:
+        return fn(B)
+    return torch.cat([fn(B[:, j:j + step]) for j in range(0, k, step)], dim=1)
+
+
+def _spmm_coo(A: COO, B):
+    def part(Bc):
+        contrib = A.data[:, None] * take_clip(Bc, A.col)
+        return segment_sum(contrib, A.row, A.shape[0])
+    return by_columns(part, B, A.capacity)
+
+
+def _spmm_csr(A: CSR, B):
+    rows = csr_row_ids(A.indptr, A.capacity, A.shape[0])
+
+    def part(Bc):
+        contrib = A.data[:, None] * take_clip(Bc, A.indices)
+        return segment_sum(contrib, rows, A.shape[0])
+    return by_columns(part, B, A.capacity)
+
+
+def _spmm_dia(A: DIA, B):
+    m, n = A.shape
+    i = torch.arange(m, dtype=torch.int32, device=B.device)[None, :]
+    cols = i + A.offsets.to(torch.int32)[:, None]
+    valid = ((cols >= 0) & (cols < n))[..., None]
+
+    def part(Bc):
+        bv = take_clip(Bc, cols.clamp(0, n - 1))  # (nd, M, Kc)
+        prod = A.data[..., None] * bv
+        return torch.where(valid, prod, torch.zeros((), dtype=prod.dtype,
+                                                    device=prod.device)).sum(dim=0)
+    return by_columns(part, B, A.ndiag * m)
+
+
+def _spmm_ell(A: ELL, B):
+    def part(Bc):
+        bv = take_clip(Bc, A.cols)  # (M, K, Kc)
+        return (A.data[..., None] * bv).sum(dim=1)
+    return by_columns(part, B, A.cols.numel())
+
+
+def _spmm_bsr(A: BSR, B):
+    bs = A.block_size
+    m, n = A.shape
+    brow = _bsr_block_rows(A)
+
+    def part(Bc):
+        kb = Bc.shape[1]
+        Bb = Bc.reshape(n // bs, bs, kb)
+        gathered = take_clip(Bb, A.indices)  # (nblk, bs, Kc)
+        prod = torch.einsum("nij,njk->nik", A.data, gathered)
+        return segment_sum(prod, brow, m // bs).reshape(m, kb)
+    return by_columns(part, B, A.data.numel())
+
+
+def _spmm_dense(A: Dense, B):
+    return A.data @ B
+
+
+def _spmm_hyb(A: HYB, B):
+    return _spmm_ell(A.ell, B) + _spmm_coo(A.coo, B)
+
+
+def _spmm_sell(A: SELL, B):
+    m = A.shape[0]
+    c = A.c
+    t = A.capacity // c
+    planes = _sell_plane_ids(A)
+
+    def part(Bc):
+        kb = Bc.shape[1]
+        bv = take_clip(Bc, A.cols.reshape(t, c))  # (t, c, Kc)
+        contrib = A.data.reshape(t, c)[..., None] * bv
+        y_sorted = segment_sum(contrib, planes, A.nslices).reshape(A.nslices * c, kb)
+        # ghost lanes carry perm == m: masked out of the scatter
+        return segment_sum(y_sorted, A.perm, m)
+    return by_columns(part, B, A.capacity)
+
+
+_SPMM = {COO: _spmm_coo, CSR: _spmm_csr, DIA: _spmm_dia, ELL: _spmm_ell,
+         BSR: _spmm_bsr, Dense: _spmm_dense, HYB: _spmm_hyb,
+         SELL: _spmm_sell}
+
+
+def _cuda_only(backend: str, t: torch.Tensor) -> None:
+    if backend == "cuda" and not t.is_cuda:
+        raise ValueError("backend='cuda' needs CUDA tensors; use backend='ref' on the CPU")
+
+
+def spmm(A, B, backend: Optional[str] = None):
+    """Y = A @ B with dense B of shape (N, K); returns (M, K).
+
+    ``backend`` as in :func:`spmv`. On the card CSR and BSR run their
+    kernels; ELL, SELL and HYB raise ``NotImplementedError`` until their
+    SpMM kernels are ported (ROADMAP Queue 2 rows 8 and 10), and never run
+    the reference there; COO, DIA and Dense use the reference, as the JAX
+    package has no kernel for them either.
+    """
+    if isinstance(A, _DYN_TYPES):
+        return A.spmm(B, backend=backend)
+    backend = resolve_backend(backend, B)
+    _cuda_only(backend, B)
+    if backend == "cuda":
+        from repro_torch.kernels import ops as kops
+        fn = kops.spmm_cuda_route(A)
+        if fn is not None:
+            return fn(A, B)
+    return _SPMM[type(A)](A, B)
+
+
+def spmm_t(A, X, backend: Optional[str] = None):
+    """Y = X @ A^T for activations X of shape (T, N); returns (T, M).
+
+    The serving orientation (``LinearSparse`` stores its weight as
+    (d_out, d_in) and keeps activations row-major). On the card CSR, ELL,
+    SELL, HYB and BSR run their kernels; COO, DIA and Dense use the
+    reference. The reference is the double transpose
+    ``_SPMM[type(A)](A, X.T).T``, as in the JAX package.
+    """
+    if isinstance(A, _DYN_TYPES):
+        return A.spmm_t(X, backend=backend)
+    backend = resolve_backend(backend, X)
+    _cuda_only(backend, X)
+    if backend == "cuda":
+        from repro_torch.kernels import ops as kops
+        fn = kops.SPMM_T_CUDA.get(type(A))
+        if fn is not None:
+            return fn(A, X)
+    return _SPMM[type(A)](A, X.T).T
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,9 @@ Each ``<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), loaded with ``ctypes``. Builds happen at first use, into
 ``build/repro_torch_kernels/<hash>/`` at the root of the checkout (or
-``$REPRO_TORCH_BUILD_DIR``), keyed by a hash of the sources and flags, so
-an edited source is rebuilt and an unchanged one is not.
+``$REPRO_TORCH_BUILD_DIR``), keyed by a hash of the source, the shared
+``*.cuh`` headers and the flags, so an edited source is rebuilt and an
+unchanged one is not.
 :func:`build_all` starts one ``nvcc`` per source at once.
 
 Nothing here runs at import time: the CPU tests import every module.
@@ -58,12 +59,20 @@ def build_dir() -> Path:
     return Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 
+def headers() -> Dict[str, Path]:
+    """Header name -> source: the ``*.cuh`` files the sources include."""
+    return {p.name: p for p in sorted(CSRC.glob("*.cuh"))}
+
+
 def _key(names: Sequence[str]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     srcs = sources()
     for name in sorted(names):
         h.update(name.encode())
         h.update(srcs[name].read_bytes())
+    for name, path in headers().items():  # an edited header rebuilds every source
+        h.update(name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 

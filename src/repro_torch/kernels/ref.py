@@ -3,13 +3,15 @@
 Each function is the specification its kernel reproduces, ported from the
 JAX package's ``repro.kernels.ref``: accumulate in float32, return in x's
 dtype. The CPU path runs these; ``chip_smoke.py`` holds each kernel against
-its plain version on the card.
+its plain version on the card. The SpMM versions walk the rhs in column
+chunks (``repro_torch.core.ops.by_columns``) so that their per-entry
+product stays small at serving widths; each output's sum is unchanged.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.ops import segment_sum, take_clip
+from repro_torch.core.ops import by_columns, segment_sum, take_clip
 
 
 def dia_spmv_ref(offsets: torch.Tensor, data: torch.Tensor, x: torch.Tensor,
@@ -76,3 +78,55 @@ def bsr_spmm_ref(indptr: torch.Tensor, indices: torch.Tensor, blocks: torch.Tens
     prod = torch.where(live, prod, torch.zeros((), device=blocks.device))
     yb = segment_sum(prod, brow.clamp(0, max(m // bs - 1, 0)), m // bs)
     return yb.reshape(m, kb).to(B.dtype)
+
+
+def csr_spmm_ref(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
+                 B: torch.Tensor, m: int) -> torch.Tensor:
+    """Y[i, :] = sum_{p in [indptr[i], indptr[i+1])} data[p] * B[indices[p], :]
+    for B (N, K); capacity padding past indptr[-1] is inert, columns clamp."""
+    cap = data.shape[0]
+    k = torch.arange(cap, dtype=indptr.dtype, device=data.device)
+    rows = torch.searchsorted(indptr, k, right=True).to(torch.int32) - 1
+    live = ((rows >= 0) & (k < indptr[-1]))[:, None]
+    rows = rows.clamp(0, max(m - 1, 0))
+
+    def part(Bc):
+        contrib = data.float()[:, None] * take_clip(Bc, indices).float()
+        contrib = torch.where(live, contrib, torch.zeros((), device=data.device))
+        return segment_sum(contrib, rows, m)
+    return by_columns(part, B, cap).to(B.dtype)
+
+
+def csr_spmm_t_ref(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
+                   X: torch.Tensor, m: int) -> torch.Tensor:
+    """Y = X @ A^T for activations X (T, N): Y[t, i] = sum_p data[p] *
+    X[t, indices[p]] over row i's entries; (T, M) in X's dtype."""
+    return csr_spmm_ref(indptr, indices, data, X.T, m).T
+
+
+def ell_spmm_t_ref(cols: torch.Tensor, data: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Y[t, i] = sum_k data[i, k] * X[t, cols[i, k]]; columns clamp into
+    [0, N) (padding slots col=-1/val=0 read column 0 and add nothing);
+    K = 0 gives zeros. (T, M) in X's dtype."""
+    def part(Bc):
+        return (data.float()[..., None] * take_clip(Bc, cols).float()).sum(dim=1)
+    return by_columns(part, X.T, cols.numel()).T.to(X.dtype)
+
+
+def sell_spmm_t_ref(slice_ptrs: torch.Tensor, cols: torch.Tensor, data: torch.Tensor,
+                    perm: torch.Tensor, X: torch.Tensor, m: int, c: int) -> torch.Tensor:
+    """Y = X @ A^T for SELL-C-sigma A and activations X (T, N): each sorted
+    lane's sums scatter to column ``perm[lane]`` of Y; ghost lanes (``perm``
+    outside [0, m)) are dropped. (T, M) in X's dtype."""
+    nslices = slice_ptrs.shape[0] - 1
+    t = data.shape[0] // c
+    q = torch.arange(t, dtype=slice_ptrs.dtype, device=data.device) * c
+    plane = (torch.searchsorted(slice_ptrs, q, right=True).to(torch.int32) - 1)
+    plane = plane.clamp(0, nslices - 1)
+
+    def part(Bc):
+        contrib = data.float().reshape(t, c)[..., None] * take_clip(
+            Bc, cols.reshape(t, c)).float()
+        y_sorted = segment_sum(contrib, plane, nslices).reshape(nslices * c, -1)
+        return segment_sum(y_sorted, perm, m)
+    return by_columns(part, X.T, data.shape[0]).T.to(X.dtype)

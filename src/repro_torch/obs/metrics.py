@@ -4,6 +4,10 @@ Counters are host-side dict updates under a lock. Standard names:
 
     planned_pulls               sanctioned symbolic-phase device->host syncs
                                 (``repro_torch.core.convert._planned_pull``)
+    serve.retune                ``LinearSparse.retune`` calls: every
+                                width-aware re-selection of a weight format
+    serve.format_switch         the retunes that changed the weight's format
+                                (``repro_torch.models.linear_sparse``)
 
 Kernel launches are counted by each kernel module's ``launches`` integer
 (``repro_torch.kernels.ops.launch_counts``), not here.

@@ -4,8 +4,9 @@
     time = bytes touched / HBM bandwidth, with a penalty on gathered x
     accesses;
   * the paper's profiling tuner: :func:`profile_select` converts ``A`` into
-    each candidate format, times one SpMV with :func:`time_fn` (CUDA events
-    on the card, the host clock on the CPU) and picks the fastest.
+    each candidate format, times one SpMV, SpMM or SpMM_T with
+    :func:`time_fn` (CUDA events on the card, the host clock on the CPU)
+    and picks the fastest.
 
 The measured gather penalty (``calibrate_gather_penalty``) comes with the
 kernel-tuning slice.
@@ -142,28 +143,40 @@ def time_fn(fn, *args, iters: int = 10, warmup: int = 2, inner: int = 1) -> floa
 _SKIP = (ValueError, MemoryError, torch.cuda.OutOfMemoryError)
 
 
+_OPS = {"spmv": _ops.spmv, "spmm": _ops.spmm, "spmm_t": _ops.spmm_t}
+
+
 def profile_select(A, x,
                    candidates: Sequence[Format] = (Format.COO, Format.CSR, Format.DIA,
                                                    Format.ELL, Format.SELL),
                    iters: int = 10, conv_kwargs: Optional[dict] = None,
                    inner: int = 4,
-                   backends: Optional[Sequence[str]] = None) -> TuneReport:
+                   backends: Optional[Sequence[str]] = None,
+                   op: str = "spmv") -> TuneReport:
     """The paper's profiling auto-tuner: convert, time, pick the fastest.
 
-    Each candidate is planned (one small sync) and converted on the device
-    of ``A``, then one ``spmv(Af, x, backend=...)`` is timed with
-    :func:`time_fn`, through the route ``spmv(backend=None)`` takes on that
-    device: the CUDA kernel on the card, the torch reference on the CPU.
-    ``backends`` extends the search to (format, backend) pairs, e.g.
-    ``("ref", "cuda")``; ``times`` then holds each format's best time and
-    the report's ``backend`` names the winning pair's backend. ``"cuda"`` is
-    timed only for formats that have a kernel (COO and Dense would time the
-    reference under the kernel's name). Each candidate is freed before the
-    next one is built, so peak memory is ``A`` plus one candidate.
+    ``op`` is the computation timed: ``"spmv"`` with a vector ``x``,
+    ``"spmm"`` with a rhs ``x`` of shape (N, K), or ``"spmm_t"`` with
+    activations ``x`` of shape (T, N); the rhs width comes from ``x``, so
+    the pick is made at the width the caller will run. Each candidate is
+    planned (one small sync) and converted on the device of ``A``, then one
+    ``op(Af, x, backend=...)`` is timed with :func:`time_fn`, through the
+    route ``backend=None`` takes on that device: the CUDA kernel on the
+    card, the torch reference on the CPU. A format whose kernel for ``op``
+    is still to be ported (SpMM of ELL, SELL and HYB) has no route on the
+    card and is skipped there. ``backends`` extends the search to (format,
+    backend) pairs, e.g. ``("ref", "cuda")``; ``times`` then holds each
+    format's best time and the report's ``backend`` names the winning pair's
+    backend. ``"cuda"`` is timed only for formats with a kernel in the op's
+    registry (COO and Dense would time the reference under the kernel's
+    name). Each candidate is freed before the next one is built, so peak
+    memory is ``A`` plus one candidate.
     """
     A = A.concrete if isinstance(A, DynamicMatrix) else A
     conv_kwargs = conv_kwargs or {}
     searched = tuple(backends) if backends is not None else (None,)
+    op_fn = _OPS[op]
+    registry = kops.cuda_registry(op)
     times: Dict[Format, float] = {}
     winner: Dict[Format, Optional[str]] = {}
     skipped: Dict[str, str] = {}
@@ -175,9 +188,11 @@ def profile_select(A, x,
             skipped[fmt.name] = f"{type(e).__name__}: {e}"
             continue
         for b in searched:
-            if b == "cuda" and type(Af) not in kops.SPMV_CUDA:
+            if b == "cuda" and type(Af) not in registry:
                 continue
-            t = time_fn(lambda a, v, b=b: _ops.spmv(a, v, backend=b), Af, x,
+            if b is None and x.is_cuda and op == "spmm" and isinstance(Af, kops.SPMM_PENDING):
+                continue  # no route on the card until its kernel is ported
+            t = time_fn(lambda a, v, b=b: op_fn(a, v, backend=b), Af, x,
                         iters=iters, inner=inner)
             if fmt not in times or t < times[fmt]:
                 times[fmt], winner[fmt] = t, b

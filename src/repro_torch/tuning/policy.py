@@ -1,8 +1,9 @@
 """FormatPolicy — the format-selection front-end (port of ``repro.tuning.policy``).
 
-    mode="profile"   convert to every candidate, time one SpMV of each on
-                     the device of the matrix, pick the fastest (the
-                     paper's tuner; setup phase only).
+    mode="profile"   convert to every candidate, time one SpMV (or SpMM /
+                     SpMM_T at a stated width) of each on the device of the
+                     matrix, pick the fastest (the paper's tuner; setup
+                     phase only).
     mode="ml"        pre-trained decision tree over pattern features; falls
                      back to analytic when no tree is available or it
                      predicts outside the candidate set.
@@ -56,16 +57,24 @@ class FormatPolicy:
     def tree(self) -> Optional[DecisionTree]:
         return self._tree if self._tree is not None else load_default_tree()
 
-    def select(self, A, x=None) -> TuneReport:
+    def select(self, A, x=None, op: str = "spmv",
+               ncols: Optional[int] = None) -> TuneReport:
         """Pick a format for ``A`` (a concrete container or DynamicMatrix);
         features are computed, and profile runs timed, on the device of
-        ``A``. ``x`` is used by profile mode only (ones when absent)."""
+        ``A``. ``op``/``ncols`` state the computation the pick is for:
+        ``"spmv"``, ``"spmm"`` with a rhs of ``ncols`` columns, or
+        ``"spmm_t"`` with ``ncols`` tokens; profile mode times that op at
+        that width. ``x`` is used by profile mode only; when absent it is
+        ones of shape (N,), (N, ncols) or (ncols, N). ``ml`` and
+        ``analytic`` read the pattern only, as in the JAX package."""
         A = A.concrete if isinstance(A, DynamicMatrix) else A
         if self.mode == "profile":
             if x is None:
-                x = torch.ones((A.shape[1],), dtype=A.dtype, device=A.device)
+                n, w = A.shape[1], ncols or 1
+                shape = {"spmv": (n,), "spmm": (n, w), "spmm_t": (w, n)}[op]
+                x = torch.ones(shape, dtype=A.dtype, device=A.device)
             return profile_select(A, x, candidates=self.candidates,
-                                  iters=self.profile_iters)
+                                  iters=self.profile_iters, op=op)
         feats = PatternFeatures.from_coo(_to_coo_fn(A))
         if self.mode == "analytic":
             return analytic_select(feats.to_stats(), candidates=self.candidates)
@@ -73,13 +82,14 @@ class FormatPolicy:
 
     __call__ = select
 
-    def plan_for(self, A, fmt=None, x=None, **hints) -> SwitchPlan:
+    def plan_for(self, A, fmt=None, x=None, op: str = "spmv",
+                 ncols: Optional[int] = None, **hints) -> SwitchPlan:
         """Select a format for ``A`` (unless ``fmt`` is given) and return the
-        :class:`SwitchPlan` the numeric phase needs. ``hints`` forward to
-        ``plan_switch``."""
+        :class:`SwitchPlan` the numeric phase needs. ``op``/``ncols`` as in
+        :meth:`select`; ``hints`` forward to ``plan_switch``."""
         A = A.concrete if isinstance(A, DynamicMatrix) else A
         if fmt is None:
-            fmt = self.select(A, x=x).best
+            fmt = self.select(A, x=x, op=op, ncols=ncols).best
         return _plan_switch(A, Format(fmt), **hints)
 
     def _select_ml(self, feats: PatternFeatures) -> TuneReport:

@@ -1,5 +1,6 @@
-"""The port on the card: each CUDA kernel against its plain version, and the
-main path's CUDA route against the CPU route.
+"""The port on the card: each CUDA kernel against its plain version, the
+main path's CUDA route against the CPU route, and the sparse-weight layer
+(``LinearSparse``) on the card against the same layer on the CPU.
 
 Every test here needs an NVIDIA GPU and ``nvcc``; each carries the ``cuda``
 marker and skips where ``torch.cuda.is_available()`` is false. This file
@@ -19,15 +20,20 @@ from repro_torch.core import hpcg
 from repro_torch.core.convert import convert
 from repro_torch.core.dynamic import DynamicMatrix
 from repro_torch.core.formats import COO, HYB, Format, coo_from_dense_np, to_numpy
-from repro_torch.core.ops import spmv
+from repro_torch.core.ops import spmm, spmm_t, spmv
 from repro_torch.kernels import bsr_spmm as kb
+from repro_torch.kernels import csr_spmm as kcm
 from repro_torch.kernels import csr_spmv as kc
 from repro_torch.kernels import dia_spmv as kd
+from repro_torch.kernels import ell_spmm as kem
 from repro_torch.kernels import ell_spmv as ke
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import sell_spmm as ksm
 from repro_torch.kernels import sell_spmv as ks
-from repro_torch.kernels.ref import (bsr_spmm_ref, csr_spmv_ref, dia_spmv_ref,
-                                     ell_spmv_ref, sell_spmv_ref)
+from repro_torch.kernels.ref import (bsr_spmm_ref, csr_spmm_ref, csr_spmm_t_ref,
+                                     csr_spmv_ref, dia_spmv_ref, ell_spmm_t_ref,
+                                     ell_spmv_ref, sell_spmm_t_ref, sell_spmv_ref)
+from repro_torch.models import LinearSparse, prune_magnitude
 from repro_torch.tuning import FormatPolicy, PatternFeatures
 
 pytestmark = pytest.mark.cuda
@@ -327,3 +333,188 @@ def test_profile_policy_picks_from_the_menu_on_card(card):
     assert rep.best in rep.times and set(rep.times) == set(FormatPolicy().candidates)
     counts = kops.launch_counts()
     assert all(counts[k] > 0 for k in ("csr_spmv", "dia_spmv", "ell_spmv", "sell_spmv"))
+
+
+# ---------------------------------------------------------------------------
+# SpMM and SpMM_T kernels, and the sparse-weight layer
+# ---------------------------------------------------------------------------
+
+# Token counts: one (decode), a ragged tile, several tiles.
+TOKENS = (1, 3, 20)
+# CSR row lengths for SpMM: empty first/middle/last rows, one row longer
+# than a warp's stride.
+SPMM_LENS = [0, 3, 0, 0, 300, 1, 27, 0, 64, 0, 33]
+
+
+def _csr_ragged(rng, lens, n, dt, dev):
+    """CSR with capacity padding past indptr[-1] holding NaN (never read)
+    and columns past both edges (clamped)."""
+    m, nnz = len(lens), sum(lens)
+    ip = torch.tensor([0] + list(itertools.accumulate(lens)), dtype=torch.int32, device=dev)
+    ix = torch.from_numpy(rng.integers(-2, n + 2, nnz + 37).astype(np.int32)).to(dev)
+    v = _rand(rng, nnz + 37, dt, dev)
+    v[nnz:] = float("nan")
+    return ip, ix, v, m
+
+
+def _same(y1, y2, y_p, dtype_name):
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y1).all()) and y1.shape == y_p.shape
+    torch.testing.assert_close(y1.float(), y_p.float(), **TOL[dtype_name])
+    assert torch.equal(y1, y2)  # one summation order: bitwise stable
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+def test_csr_spmm_kernel_matches_plain(card, dtype_name):
+    rng = np.random.default_rng(10)
+    dt = DTYPES[dtype_name]
+    n = 500
+    ip, ix, v, m = _csr_ragged(rng, SPMM_LENS, n, dt, card)
+    for k in (1, 3, 8, 9, 40, 256, 300):
+        B = _rand(rng, (n, k), dt, card)
+        y_p = csr_spmm_ref(ip, ix, v, B, m)
+        for vec in (kcm.VEC_WIDTHS if k <= 8 else (4,)):  # vec reads K <= 8 only
+            before = kcm.launches
+            y1 = kcm.csr_spmm(ip, ix, v, B, m, vec=vec)
+            y2 = kcm.csr_spmm(ip, ix, v, B, m, vec=vec)
+            assert kcm.launches == before + 2
+            _same(y1, y2, y_p, dtype_name)
+            assert not bool(y1[0].any())  # an empty row writes zeros
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("n", [500, 70000])
+def test_csr_spmm_t_kernel_matches_plain(card, dtype_name, n):
+    rng = np.random.default_rng(11)
+    dt = DTYPES[dtype_name]
+    ip, ix, v, m = _csr_ragged(rng, SPMM_LENS, n, dt, card)
+    for t in TOKENS:
+        X = _rand(rng, (t, n), dt, card)
+        y_p = csr_spmm_t_ref(ip, ix, v, X, m)
+        for vec, tt in itertools.product(kcm.VEC_WIDTHS, kcm.TOKEN_TILES):
+            before = kcm.launches_t
+            y1 = kcm.csr_spmm_t(ip, ix, v, X, m, vec=vec, tt=tt)
+            y2 = kcm.csr_spmm_t(ip, ix, v, X, m, vec=vec, tt=tt)
+            assert kcm.launches_t == before + 2
+            _same(y1, y2, y_p, dtype_name)
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+def test_ell_spmm_t_kernel_matches_plain(card, dtype_name):
+    rng = np.random.default_rng(12)
+    dt = DTYPES[dtype_name]
+    for m, n, k in ELL_CASES:
+        cols, vals, _ = _ell_inputs(rng, m, n, k, dt, card)
+        for t in TOKENS:
+            X = _rand(rng, (t, n), dt, card)
+            y_p = ell_spmm_t_ref(cols, vals, X)
+            for vec, tt in ((2, 1), (8, 4), (32, 8), (4, 2), (16, None)):
+                before = kem.launches
+                y1 = kem.ell_spmm_t(cols, vals, X, vec=vec, tt=tt)
+                y2 = kem.ell_spmm_t(cols, vals, X, vec=vec, tt=tt)
+                assert kem.launches == before + (2 if k else 0)  # K = 0 launches nothing
+                _same(y1, y2, y_p, dtype_name)
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("c,sigma", [(32, 256), (8, 16), (5, 5)])
+def test_sell_spmm_t_kernel_matches_plain(card, dtype_name, c, sigma):
+    """Ghost lanes hold NaN (never written to Y), empty rows, C != 32."""
+    rng = np.random.default_rng(13)
+    dt = DTYPES[dtype_name]
+    m, n = 301, 120
+    args = _sell_with_nan_ghosts(_ragged_dense(rng, m, n), c, sigma, dt, card)
+    for t in TOKENS:
+        X = _rand(rng, (t, n), dt, card)
+        y_p = sell_spmm_t_ref(*args, X, m, c)
+        for tt in kcm.TOKEN_TILES + (None,):
+            before = ksm.launches
+            y1 = ksm.sell_spmm_t(*args, X, m, c, tt=tt)
+            y2 = ksm.sell_spmm_t(*args, X, m, c, tt=tt)
+            assert ksm.launches == before + 2
+            _same(y1, y2, y_p, dtype_name)
+
+
+def test_spmm_on_formats_without_a_ported_kernel_raises(card):
+    """On the card ELL, SELL and HYB SpMM raise (their kernels are still to
+    be ported) instead of running the reference; CSR and BSR launch their
+    kernels; COO runs the reference, as in the JAX package."""
+    a = _ragged_dense(np.random.default_rng(14), 64, 48)
+    A = coo_from_dense_np(a, device=card)
+    B = torch.ones(48, 5, device=card)
+    for fmt in (Format.ELL, Format.SELL, Format.HYB):
+        with pytest.raises(NotImplementedError, match="rows 8 and 10"):
+            spmm(convert(A, fmt), B)
+        with pytest.raises(NotImplementedError, match="rows 8 and 10"):
+            spmm(convert(A, fmt), B, backend="cuda")
+    for fmt, kernel in ((Format.CSR, "csr_spmm"), (Format.BSR, "bsr_spmm"), (Format.COO, None)):
+        M = convert(A, fmt, **({"block_size": 16} if fmt == Format.BSR else {}))
+        before = kops.launch_counts()
+        y = spmm(M, B)
+        torch.cuda.synchronize()
+        after = kops.launch_counts()
+        assert {k: after[k] - before[k] for k in after} == {k: int(k == kernel) for k in after}
+        np.testing.assert_allclose(y.cpu().numpy(), a @ np.ones((48, 5), np.float32),
+                                   rtol=1e-4, atol=1e-4)
+
+
+# Kernels each weight format's SpMM_T launches once per call.
+LAYER_KERNELS = {Format.CSR: ["csr_spmm_t"], Format.ELL: ["ell_spmm_t"],
+                 Format.SELL: ["sell_spmm_t"], Format.HYB: ["ell_spmm_t", "csr_spmm_t"],
+                 Format.COO: []}
+
+
+@pytest.mark.parametrize("fmt", list(LAYER_KERNELS), ids=lambda f: f.name)
+def test_linear_sparse_on_card_matches_cpu(card, fmt):
+    rng = np.random.default_rng(15)
+    w = prune_magnitude(rng.standard_normal((96, 160)).astype(np.float32), 0.25)
+    b = rng.standard_normal(160).astype(np.float32)
+    gpu = LinearSparse.from_dense(w, fmt=fmt, bias=b)
+    cpu = LinearSparse.from_dense(w, fmt=fmt, bias=b, device="cpu")
+    assert gpu.weight.concrete.device.type == "cuda"
+    for t in (1, 3, 20):
+        x = rng.standard_normal((t, 96)).astype(np.float32)
+        before = kops.launch_counts()
+        y = gpu(torch.from_numpy(x).to(card))
+        torch.cuda.synchronize()
+        after = kops.launch_counts()
+        assert {k: after[k] - before[k] for k in after} == \
+            {k: int(k in LAYER_KERNELS[fmt]) for k in after}
+        torch.testing.assert_close(y.cpu(), cpu(torch.from_numpy(x)), **TOL["float32"])
+        np.testing.assert_allclose(y.cpu().numpy(), x.astype(np.float64) @ w + b,
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_linear_sparse_call_makes_no_host_sync(card):
+    rng = np.random.default_rng(16)
+    w = prune_magnitude(rng.standard_normal((64, 96)).astype(np.float32), 0.3)
+    layers = [LinearSparse.from_dense(w, fmt=f) for f in (Format.CSR, Format.ELL,
+                                                           Format.SELL, Format.HYB)]
+    x = torch.ones(8, 64, device=card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ys = [layer(x) for layer in layers]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for y in ys:
+        np.testing.assert_allclose(y.cpu().numpy(), np.ones((8, 64), np.float32) @ w,
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_profile_spmm_t_on_card_skips_nothing_and_launches_kernels(card):
+    """FormatPolicy('profile') at op='spmm_t' times every weight candidate
+    on the card, each kernel format through its kernel."""
+    rng = np.random.default_rng(17)
+    w = prune_magnitude(rng.standard_normal((128, 96)).astype(np.float32), 0.25)
+    A = coo_from_dense_np(w.T, device=card)
+    kops.reset_launches()
+    candidates = list(LAYER_KERNELS)
+    rep = FormatPolicy("profile", candidates=candidates, profile_iters=2).select(
+        A, op="spmm_t", ncols=16)
+    assert set(rep.times) == set(candidates)
+    counts = kops.launch_counts()
+    assert all(counts[k] > 0 for k in ("csr_spmm_t", "ell_spmm_t", "sell_spmm_t"))
+    rep = FormatPolicy("profile", candidates=candidates, profile_iters=2).select(
+        A, op="spmm", ncols=16)
+    assert set(rep.times) == {Format.CSR, Format.COO}  # ELL, SELL, HYB: no kernel yet

@@ -54,4 +54,6 @@ def test_importing_the_port_loads_no_jax():
     assert len(loaded) >= 20  # every module of the port was imported
     assert {"repro_torch.core.autotune", "repro_torch.kernels.ell_spmv",
             "repro_torch.kernels.sell_spmv", "repro_torch.kernels.bsr_spmm",
-            "repro_torch.tuning.engines"} <= loaded
+            "repro_torch.tuning.engines", "repro_torch.kernels.csr_spmm",
+            "repro_torch.kernels.ell_spmm", "repro_torch.kernels.sell_spmm",
+            "repro_torch.models", "repro_torch.models.linear_sparse"} <= loaded

@@ -37,7 +37,14 @@ DIA_CASES = [
     (30, 110, [-29, -1, 0, 1, 50, 109, 110]),
     (1, 1, [0]),
 ]
-ALL_KERNELS = ("dia_spmv", "csr_spmv", "ell_spmv", "sell_spmv", "bsr_spmm")
+ALL_KERNELS = ("dia_spmv", "csr_spmv", "ell_spmv", "sell_spmv", "bsr_spmm", "csr_spmm",
+               "csr_spmm_t", "ell_spmm_t", "sell_spmm_t")
+# Source (library) -> the Pallas functions its kernels replace.
+REPLACES = {"dia_spmv": ("dia_spmv.py::dia_spmv",), "csr_spmv": ("csr_spmv.py::csr_spmv",),
+            "ell_spmv": ("ell_spmv.py::ell_spmv",), "sell_spmv": ("sell_spmv.py::sell_spmv",),
+            "bsr_spmm": ("bsr_spmm.py::bsr_spmm",),
+            "csr_spmm": ("csr_spmm.py::csr_spmm", "csr_spmm.py::csr_spmm_t"),
+            "ell_spmm": ("ell_spmv.py::ell_spmm_t",), "sell_spmm": ("sell_spmv.py::sell_spmm_t",)}
 # CSR row lengths: empty first/middle/last rows, one long row.
 CSR_LENS = [[0, 3, 0, 0, 70, 1, 27, 0, 64, 0], [5], [0, 0, 2]]
 
@@ -183,10 +190,12 @@ def test_default_config_follows_row_length():
 
 def test_sources_name_the_tpu_kernel_they_replace():
     srcs = _build.sources()
-    assert set(srcs) == set(ALL_KERNELS) == set(kops.KERNELS)
+    assert set(srcs) == set(REPLACES) == set(kops.KERNELS)
+    assert set(kops.LAUNCH_COUNTERS) == set(ALL_KERNELS)
     for name, path in srcs.items():
         text = path.read_text()
-        assert f"repro/kernels/{name}.py::{name}" in text
+        for pallas in REPLACES[name]:
+            assert f"repro/kernels/{pallas}" in text
         assert "What bounds it on an H100: bytes" in text
         assert "atomic" not in text.replace("no atomics", "")
 
@@ -209,7 +218,7 @@ def test_build_runs_one_compiler_per_source(tmp_path, monkeypatch):
     monkeypatch.setenv(_build.BUILD_ENV, str(tmp_path / "out"))
     assert _build.nvcc_path() == str(nvcc)
     logs = _build.build_all()
-    assert set(logs) == set(ALL_KERNELS)
+    assert set(logs) == set(REPLACES)
     assert all("Used 32 registers" in log for log in logs.values())
     for name in logs:
         lib = _build._lib_path(name)

@@ -201,3 +201,75 @@ def test_hpcg_solve_tune_profile(capsys, fake_times):
         assert hpcg_solve.main(["--grid", "8", "8", "8", "--device", "cpu", *flags]) == 0
         out = capsys.readouterr().out
         assert f"format: {fmt} (named" in out and "-> PASS" in out
+
+
+# Width-aware selection (op="spmm" / "spmm_t"): the times depend on the op
+# and the rhs width, so the pick is made for the computation that will run.
+WEIGHT_CANDS = (Format.CSR, Format.ELL, Format.HYB, Format.SELL, Format.COO)
+OP_TIMES = {"csr": {"CSR": 1.0, "ELL": 2.0, "HYB": 3.0, "SELL": 4.0, "COO": 5.0},
+            "hyb": {"CSR": 4.0, "ELL": 3.0, "HYB": 1.0, "SELL": 2.0, "COO": 5.0}}
+
+
+def _op_timer(table, seen):
+    """A ``time_fn`` stand-in that runs the timed op once (so the route and
+    the shapes are real) and returns the candidate's time from ``table``."""
+    def fake(fn, A, x, **kwargs):
+        seen.append((Format(int(A.format)), tuple(x.shape), tuple(fn(A, x).shape)))
+        return table[Format(int(A.format)).name]
+    return fake
+
+
+@pytest.mark.parametrize("op", ["spmm_t", "spmm"])
+@pytest.mark.parametrize("winner", sorted(OP_TIMES))
+def test_profile_op_pick_matches_jax_given_the_same_times(op, winner, monkeypatch):
+    seen = []
+    monkeypatch.setattr(engines, "time_fn", _op_timer(OP_TIMES[winner], seen))
+    monkeypatch.setattr(jeng, "time_fn", _op_timer(OP_TIMES[winner], []))
+    Aj, At = coo_pair(PATTERNS["powerlaw"]())
+    m, n = At.shape
+    xn = np.ones((5, n) if op == "spmm_t" else (n, 5), np.float32)
+    jc = [JFormat(int(f)) for f in WEIGHT_CANDS]
+    rj = jeng.profile_select(Aj, jnp.asarray(xn), candidates=jc, op=op)
+    rt = profile_select(At, torch.from_numpy(xn), candidates=WEIGHT_CANDS, op=op)
+    assert rt.best.name == rj.best.name == winner.upper()
+    assert {f.name: t for f, t in rt.times.items()} == \
+        {JFormat(f).name: t for f, t in rj.times.items()}
+    out = (5, m) if op == "spmm_t" else (m, 5)
+    assert {f for f, _, _ in seen} == set(WEIGHT_CANDS)
+    assert all(xs == xn.shape and ys == out for _, xs, ys in seen)
+    pj = JPolicy("profile", candidates=jc).select(Aj, op=op, ncols=5)
+    pt = FormatPolicy("profile", candidates=WEIGHT_CANDS).select(At, op=op, ncols=5)
+    assert pt.best.name == pj.best.name == winner.upper()
+
+
+@pytest.mark.parametrize("op,shape", [("spmv", (64,)), ("spmm", (64, 7)),
+                                      ("spmm_t", (7, 64)), ("spmm_t", (1, 64))])
+def test_profile_policy_makes_ones_of_the_op_shape(op, shape, monkeypatch):
+    seen = []
+    monkeypatch.setattr(engines, "time_fn", _op_timer(OP_TIMES["csr"], seen))
+    _, At = coo_pair(PATTERNS["stencil"]())
+    ncols = shape[1] if op == "spmm" else (shape[0] if op == "spmm_t" else None)
+    rep = FormatPolicy("profile", candidates=WEIGHT_CANDS).select(At, op=op, ncols=ncols)
+    assert rep.best == Format.CSR
+    assert seen and all(xs == shape for _, xs, _ in seen)
+    plan = FormatPolicy("profile", candidates=WEIGHT_CANDS).plan_for(At, op=op, ncols=ncols)
+    assert Format(plan.target) == Format.CSR
+
+
+def test_profile_spmm_t_times_real_runs_on_the_cpu():
+    """Real host timings: every weight candidate gets a time, through the
+    reference route of a CPU tensor; "cuda" refuses CPU tensors."""
+    _, At = coo_pair(PATTERNS["random"]())
+    X = torch.ones(4, At.shape[1])
+    rep = profile_select(At, X, candidates=WEIGHT_CANDS, iters=2, inner=1, op="spmm_t")
+    assert set(rep.times) == set(WEIGHT_CANDS) and all(t > 0 for t in rep.times.values())
+    rep = profile_select(At, X.T.contiguous(), candidates=(Format.COO,), iters=1,
+                         backends=("ref", "cuda"), op="spmm")
+    assert rep.best == Format.COO and rep.backend == "ref"
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        profile_select(At, X, candidates=(Format.ELL,), iters=1, backends=("ref", "cuda"),
+                       op="spmm_t")
+    # no SpMM kernel for ELL yet: "cuda" is not timed for it, so nothing raises
+    rep = profile_select(At, X.T.contiguous(), candidates=(Format.ELL,), iters=1,
+                         backends=("ref", "cuda"), op="spmm")
+    assert rep.best == Format.ELL and rep.backend == "ref"

@@ -136,3 +136,20 @@ def test_empty_matrix_features_match_jax():
                                   jfeat.PatternFeatures.from_coo(Aj).vector())
     st, sj = PatternStats.from_coo(At), jfeat.PatternStats.from_coo(Aj)
     assert (st.nnz, st.max_row_nnz, st.ndiag) == (sj.nnz, sj.max_row_nnz, sj.ndiag)
+
+
+@pytest.mark.parametrize("op,ncols", [("spmm_t", 1), ("spmm_t", 256), ("spmm", 8)])
+@pytest.mark.parametrize("mode", ["ml", "analytic"])
+def test_pattern_only_modes_ignore_the_op_as_jax_does(mode, op, ncols):
+    """``ml`` and ``analytic`` read the pattern only: the pick for an SpMM
+    of any width is the SpMV pick, in both packages."""
+    cands = (Format.CSR, Format.ELL, Format.HYB, Format.SELL, Format.COO)
+    for pattern in ("powerlaw", "random"):
+        Aj, At = coo_pair(PATTERNS[pattern]())
+        pj = JPolicy(mode, candidates=[JFormat(int(c)) for c in cands]).select(
+            Aj, op=op, ncols=ncols).best
+        rep = FormatPolicy(mode, candidates=cands).select(At, op=op, ncols=ncols)
+        assert int(rep.best) == int(pj) and rep.best == FormatPolicy(
+            mode, candidates=cands).select(At).best
+        assert FormatPolicy(mode, candidates=cands).plan_for(At, op=op, ncols=ncols).to_json() \
+            == FormatPolicy(mode, candidates=cands).plan_for(At).to_json()
