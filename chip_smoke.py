@@ -18,15 +18,18 @@ Phases, in order (any failure exits nonzero and prints no result line):
    ``torch.sparse_csr_tensor``, a yardstick only), beside the least time
    the card could take (bytes over the memory rate, operations over the
    float32 peak); a HYB line (the ELL and CSR kernels composed);
-   then the four SpMM kernels (``csr_spmm``, ``csr_spmm_t``, ``ell_spmm_t``,
-   ``sell_spmm_t``) against their plain versions at minitron-8b MLP width
-   (the up and down weights, 4096 <-> 16384 at density 0.25, pruned from
-   numpy seed 0) at T = 1 and T = 256 and on ragged cases (empty rows, NaN
-   capacity padding and ghost lanes, ELL K = 0 and clamped columns, C != 32,
-   T in {1, 3, 256}, an X too wide for a shared-memory tile), in float32
-   and bfloat16, bitwise reruns, with their times, bounds, plain times and
-   two yardsticks (``torch.sparse_csr_tensor`` times X^T, and the dense
-   X @ W in float32 without TF32), and a token-tile sweep;
+   then the six SpMM kernels (``csr_spmm``, ``csr_spmm_t``, ``ell_spmm``,
+   ``ell_spmm_t``, ``sell_spmm``, ``sell_spmm_t``) against their plain
+   versions at minitron-8b MLP width (the up and down weights, 4096 <->
+   16384 at density 0.25, pruned from numpy seed 0) at T (or K) = 1 and 256
+   and on ragged cases (empty rows, NaN capacity padding and ghost lanes,
+   ELL K = 0 and clamped columns, C != 32, T in {1, 3, 256}, K in {1, 3, 9,
+   256, 300}, an X too wide for a shared-memory tile, a B too wide for one
+   256-column tile), in float32 and bfloat16, bitwise reruns, a planted
+   fault the check must catch, with their times, bounds, plain times and two
+   yardsticks (``torch.sparse_csr_tensor`` times X^T or B, and the dense
+   X @ W in float32 without TF32), a HYB SpMM line (ell_spmm + csr_spmm)
+   and a token-tile sweep;
 3. reference check: the port's solve at 16^3 on the card (CUDA kernels)
    against the same solve on the CPU (plain torch path), in every format;
 4. main paths at HPCG's default 104^3 grid, each driven with the launch
@@ -44,10 +47,23 @@ Phases, in order (any failure exits nonzero and prints no result line):
       against float64, every weight format (CSR, ELL, SELL, HYB, COO) with
       launches == kernel calls, agreement and no device->host sync, the
       spmm(W, x.T).T form through csr_spmm, retune(ncols=256) with its
-      counters, and spmm(ELL, backend="cuda") raising NotImplementedError.
+      counters, and spmm(W, B, backend="cuda") in ELL, SELL and HYB through
+      their kernels.
+   e. the measured route, on a fresh store (``REPRO_TUNING_CACHE``):
+      kernel_tune records (iters 3, inner 2) for spmm on the up weight in
+      ELL, SELL and HYB, spmm_t on both weights in CSR, ELL and SELL, at
+      widths 1 and 256, and spmv at 104^3 in DIA and CSR; each record
+      round-trips, routes ``auto`` to its kernel exactly where it beat the
+      reference (bitwise equal to backend="cuda" with its cfg), a width-1
+      record never answers width 256, and a planted losing record routes the
+      reference; the T = 1 layer call with a cold and a warm store;
+      FormatPolicy("cached") miss-then-hit at both widths; LinearSparse built
+      by it with backend="auto"; hpcg_solve --tune cached (131 iterations);
+      the SpMM profile pick through every kernel.
 
-The last three lines of standard output are the kernels' JSON record, the
-``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
+The last three lines of standard output are the kernels' JSON record (all
+eleven kernels, launches summed over paths (a)-(e)), the ``nvidia-smi``
+name/power-limit line, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
@@ -714,7 +730,13 @@ DECODE, PREFILL = 1, 256
 LAYER_FORMATS = ("CSR", "ELL", "SELL", "HYB", "COO")
 SPMM_T_KERNELS_OF = {"CSR": ("csr_spmm_t",), "ELL": ("ell_spmm_t",), "SELL": ("sell_spmm_t",),
                      "HYB": ("ell_spmm_t", "csr_spmm_t"), "COO": ()}
-SPMM_KERNELS = ("csr_spmm", "csr_spmm_t", "ell_spmm_t", "sell_spmm_t")
+SPMM_KERNELS = ("csr_spmm", "csr_spmm_t", "ell_spmm", "ell_spmm_t", "sell_spmm", "sell_spmm_t")
+SPMM_REPLACES = {"csr_spmm": "src/repro/kernels/csr_spmm.py:158",
+                 "csr_spmm_t": "src/repro/kernels/csr_spmm.py:209",
+                 "ell_spmm": "src/repro/kernels/ell_spmv.py:156",
+                 "ell_spmm_t": "src/repro/kernels/ell_spmv.py:194",
+                 "sell_spmm": "src/repro/kernels/sell_spmv.py:133",
+                 "sell_spmm_t": "src/repro/kernels/sell_spmv.py:190"}
 ORACLE_RTOL = 1e-4  # max |y - oracle| / max |oracle|, float32 against float64
 
 
@@ -730,15 +752,18 @@ def make_weights(np):
 
 
 def ragged_spmm_cases(rng, torch, dtype, name):
-    """The four SpMM kernels at the edges of their contracts: empty rows, CSR
+    """The SpMM kernels at the edges of their contracts: empty rows, CSR
     capacity padding of NaN, ELL K = 0 and clamped columns, SELL ghost lanes
-    holding NaN and C != 32, T in {1, 3, 256}, and a 70000-wide X."""
+    holding NaN and C != 32, T in {1, 3, 256}, a 70000-wide X, B widths
+    K in {1, 3, 9, 256, 300} (300: past one 256-column tile), and a HYB
+    whose tail padding holds NaN."""
     import numpy as np
     from repro_torch.core.convert import convert
-    from repro_torch.core.formats import Format, coo_from_dense_np
+    from repro_torch.core.formats import COO, HYB, Format, coo_from_dense_np
     from repro_torch.kernels import csr_spmm as kcm, ell_spmm as kem, sell_spmm as ksm
-    from repro_torch.kernels.ref import (csr_spmm_ref, csr_spmm_t_ref, ell_spmm_t_ref,
-                                         sell_spmm_t_ref)
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import (csr_spmm_ref, csr_spmm_t_ref, ell_spmm_ref,
+                                         ell_spmm_t_ref, sell_spmm_ref, sell_spmm_t_ref)
     lens = [0, 3, 0, 0, 700, 1, 27, 0, 64, 0, 1030]
     m, nnz = len(lens), sum(lens)
     for n in (900, 70000):
@@ -772,14 +797,24 @@ def ragged_spmm_cases(rng, torch, dtype, name):
         c_t, v_t = torch.from_numpy(cols).cuda(), torch.from_numpy(vals).to("cuda", dtype)
         for t in (1, 3, 256):
             X = _rand(rng, torch, (t, n), dtype)
-            before = kem.launches
+            before = kem.launches_t
             y1 = kem.ell_spmm_t(c_t, v_t, X, vec=8)
             y2 = kem.ell_spmm_t(c_t, v_t, X, vec=8)
-            check(kem.launches - before == (2 if k else 0),
-                  f"ell_spmm_t K={k}: {kem.launches - before} launches for 2 calls")
+            check(kem.launches_t - before == (2 if k else 0),
+                  f"ell_spmm_t K={k}: {kem.launches_t - before} launches for 2 calls")
             compare(f"ell_spmm_t ragged {m}x{n} K={k} T={t}", y1, y2,
                     ell_spmm_t_ref(c_t, v_t, X), name,
                     scale=ell_spmm_t_ref(c_t, v_t.abs(), X.abs()))
+        for kb, vec in ((1, 2), (3, 8), (9, 8), (256, 8), (300, 8)):
+            B = _rand(rng, torch, (n, kb), dtype)
+            before = kem.launches
+            y1 = kem.ell_spmm(c_t, v_t, B, vec=vec)
+            y2 = kem.ell_spmm(c_t, v_t, B, vec=vec)
+            check(kem.launches - before == (2 if k else 0),
+                  f"ell_spmm K={k}: {kem.launches - before} launches for 2 calls")
+            compare(f"ell_spmm ragged {m}x{n} K={k} Kb={kb} vec={vec}", y1, y2,
+                    ell_spmm_ref(c_t, v_t, B), name,
+                    scale=ell_spmm_ref(c_t, v_t.abs(), B.abs()))
     m, n = 301, 120
     a = _ragged_dense(rng, m, n)
     for c, sigma in ((32, 256), (8, 16), (5, 5)):
@@ -798,14 +833,43 @@ def ragged_spmm_cases(rng, torch, dtype, name):
                     ksm.sell_spmm_t(*args, X, m, c), ksm.sell_spmm_t(*args, X, m, c),
                     sell_spmm_t_ref(*args, X, m, c), name,
                     scale=sell_spmm_t_ref(*s_abs, X.abs(), m, c))
+        s_abs = [args[0], args[1], args[2].abs(), args[3]]
+        for kb in (1, 3, 9, 256, 300):
+            B = _rand(rng, torch, (n, kb), dtype)
+            compare(f"sell_spmm ragged m={m} C={c} Kb={kb} (NaN ghost lanes)",
+                    ksm.sell_spmm(*args, B, m, c), ksm.sell_spmm(*args, B, m, c),
+                    sell_spmm_ref(*args, B, m, c), name,
+                    scale=sell_spmm_ref(*s_abs, B.abs(), m, c))
+    if name != "float32":
+        return  # HYB adds two outputs rounded to bf16: its parts are checked above
+    # HYB SpMM: tail padding with row id M and NaN values sorts past indptr[M]
+    m, n = 64, 40
+    H = convert(coo_from_dense_np(_ragged_dense(rng, m, n), device="cuda", dtype=dtype),
+                Format.HYB, k=3)
+    pad = 5
+    t = H.coo
+    Hp = HYB(H.ell, COO(torch.cat([t.row, torch.full((pad,), m, dtype=torch.int32,
+                                                     device="cuda")]),
+                        torch.cat([t.col, torch.zeros(pad, dtype=torch.int32, device="cuda")]),
+                        torch.cat([t.data, torch.full((pad,), float("nan"), dtype=dtype,
+                                                      device="cuda")]), t.shape, t.nnz + pad),
+             H.shape, H.nnz)
+    tail = kops.tail_csr(H.coo, m)
+    for kb in (1, 9, 300):
+        B = _rand(rng, torch, (n, kb), dtype)
+        compare(f"hyb_spmm ragged m={m} k=3 Kb={kb} (NaN tail padding)",
+                kops.hyb_spmm(Hp, B), kops.hyb_spmm(Hp, B),
+                ell_spmm_ref(H.ell.cols, H.ell.data, B) + csr_spmm_ref(*tail, B, m), name,
+                scale=ell_spmm_ref(H.ell.cols, H.ell.data.abs(), B.abs())
+                + csr_spmm_ref(tail[0], tail[1], tail[2].abs(), B.abs(), m))
 
 
 def weight_containers(torch, w):
-    """The stored (d_out, d_in) weight on the card as CSR, ELL and SELL."""
+    """The stored (d_out, d_in) weight on the card as CSR, ELL, SELL and HYB."""
     from repro_torch.core.convert import convert
     from repro_torch.core.formats import Format, coo_from_dense_np
     coo = coo_from_dense_np(w.T, device="cuda")
-    return {f: convert(coo, Format[f]) for f in ("CSR", "ELL", "SELL")}
+    return {f: convert(coo, Format[f]) for f in ("CSR", "ELL", "SELL", "HYB")}
 
 
 def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
@@ -814,8 +878,8 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
     their JSON records (the up projection's numbers)."""
     from repro_torch.kernels import csr_spmm as kcm, ell_spmm as kem, sell_spmm as ksm
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.ref import (csr_spmm_ref, csr_spmm_t_ref, ell_spmm_t_ref,
-                                         sell_spmm_t_ref)
+    from repro_torch.kernels.ref import (csr_spmm_ref, csr_spmm_t_ref, ell_spmm_ref,
+                                         ell_spmm_t_ref, sell_spmm_ref, sell_spmm_t_ref)
 
     print("== SpMM kernels at minitron-8b MLP width (density 0.25) and ragged shapes",
           flush=True)
@@ -823,10 +887,11 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
     records = {}
     for lname, (w, _) in weights.items():
         mats = weight_containers(torch, w)
-        csr, ell, sell = mats["CSR"], mats["ELL"], mats["SELL"]
+        csr, ell, sell, hyb = mats["CSR"], mats["ELL"], mats["SELL"], mats["HYB"]
         m, n = csr.shape
         print(f"  {lname} weight stored {m}x{n}: nnz={csr.nnz}, ELL K={ell.k}, "
-              f"SELL C={sell.c} capacity={sell.capacity}", flush=True)
+              f"SELL C={sell.c} capacity={sell.capacity}, HYB k={hyb.k} tail={hyb.coo.nnz}",
+              flush=True)
         lib = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data, size=csr.shape)
         w_dense = torch.from_numpy(w).cuda()
         for dtype in (torch.float32, torch.bfloat16):
@@ -836,8 +901,10 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
             for t in (DECODE, PREFILL):
                 X = _rand(rng, torch, (t, n), dtype)
                 B = X.T.contiguous()
-                cfg_c, cfg_e = kops.spmm_t_config(csr), kops.spmm_t_config(ell)
-                cfg_v = kops.default_config(csr)["vec"]
+                cfg_c = kops.default_config(csr, op="spmm_t", ncols=t)
+                cfg_e = kops.default_config(ell, op="spmm_t", ncols=t)
+                cfg_v = kops.default_config(csr, op="spmm", ncols=t)["vec"]
+                cfg_ev = kops.default_config(ell, op="spmm", ncols=t)["vec"]
                 Xa, Ba = X.abs(), B.abs()
                 runs = {
                     "csr_spmm": (lambda: kcm.csr_spmm(csr.indptr, csr.indices, cd, B, m,
@@ -862,21 +929,42 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
                                     lambda: sell_spmm_t_ref(sell.slice_ptrs, sell.cols,
                                                             sd.abs(), sell.perm, Xa, m, sell.c),
                                     lambda: lib @ X.T, f"T={t}"),
+                    "ell_spmm": (lambda: kem.ell_spmm(ell.cols, ed, B, vec=cfg_ev),
+                                 lambda: ell_spmm_ref(ell.cols, ed, B),
+                                 lambda: ell_spmm_ref(ell.cols, ed.abs(), Ba),
+                                 lambda: lib @ B, f"K={t} vec={cfg_ev}"),
+                    "sell_spmm": (lambda: ksm.sell_spmm(sell.slice_ptrs, sell.cols, sd,
+                                                        sell.perm, B, m, sell.c),
+                                  lambda: sell_spmm_ref(sell.slice_ptrs, sell.cols, sd,
+                                                        sell.perm, B, m, sell.c),
+                                  lambda: sell_spmm_ref(sell.slice_ptrs, sell.cols, sd.abs(),
+                                                        sell.perm, Ba, m, sell.c),
+                                  lambda: lib @ B, f"K={t}"),
                 }
+                # the planted fault: each checked kernel's plain version on its
+                # values with every FAULT_EVERY-th stored entry dropped
+                faults = {"csr_spmm_t": (cd, lambda d: csr_spmm_t_ref(csr.indptr, csr.indices,
+                                                                      d, X, m)),
+                          "ell_spmm": (ed, lambda d: ell_spmm_ref(ell.cols, d, B)),
+                          "sell_spmm": (sd, lambda d: sell_spmm_ref(sell.slice_ptrs, sell.cols,
+                                                                    d, sell.perm, B, m,
+                                                                    sell.c))}
                 for kname, (run, plain, plain_abs, library, what) in runs.items():
                     y_p, scale = plain(), plain_abs()
                     err = compare(f"{kname} {lname} {what}", run(), run(), y_p, name,
                                   scale=scale, record=True)
-                    if kname == "csr_spmm_t":
-                        planted_fault(torch, csr, cd, X, y_p, scale, f"{lname} T={t}", name)
+                    if kname in faults:
+                        planted_fault(*faults[kname], y_p, scale, f"{kname} {lname} {what}",
+                                      name)
                     del y_p, scale
                     # the least time: each input read once, Y written once;
                     # the live entries (a column index and a value each) and
                     # the format's row or slice arrays, 2 flops per live entry
                     # and token (ELL's and SELL's padding slots not counted)
+                    sell_idx = sell.perm.numel() * 4 + (sell.nslices + 1) * 4
                     extra = {"csr_spmm": (m + 1) * 4, "csr_spmm_t": (m + 1) * 4,
-                             "ell_spmm_t": 0,
-                             "sell_spmm_t": sell.perm.numel() * 4 + (sell.nslices + 1) * 4}
+                             "ell_spmm_t": 0, "sell_spmm_t": sell_idx,
+                             "ell_spmm": 0, "sell_spmm": sell_idx}
                     nbytes = csr.nnz * (4 + es) + extra[kname] + t * n * es + t * m * es
                     nops = 2 * csr.nnz * t
                     t_bytes, t_ops = nbytes / peak_bw * 1e3, nops / peak_flops * 1e3
@@ -897,15 +985,8 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
                         sfx = "" if t == PREFILL else "_t1"
                         rec = records.setdefault(kname, {
                             "name": kname, "route": "cuda",
-                            "source": {"csr_spmm": "src/repro_torch/csrc/csr_spmm.cu",
-                                       "csr_spmm_t": "src/repro_torch/csrc/csr_spmm.cu",
-                                       "ell_spmm_t": "src/repro_torch/csrc/ell_spmm.cu",
-                                       "sell_spmm_t": "src/repro_torch/csrc/sell_spmm.cu"}[kname],
-                            "replaces": {"csr_spmm": "src/repro/kernels/csr_spmm.py:158",
-                                         "csr_spmm_t": "src/repro/kernels/csr_spmm.py:209",
-                                         "ell_spmm_t": "src/repro/kernels/ell_spmv.py:194",
-                                         "sell_spmm_t": "src/repro/kernels/sell_spmv.py:190"
-                                         }[kname],
+                            "source": f"src/repro_torch/csrc/{kname.removesuffix('_t')}.cu",
+                            "replaces": SPMM_REPLACES[kname],
                             "launches": 0, "shape": f"{m}x{n} nnz={csr.nnz}"})
                         rec.update({f"max_abs_err{sfx}": err, f"ms{sfx}": ms,
                                     f"plain_ms{sfx}": plain_ms, f"bound_ms{sfx}": bound,
@@ -914,6 +995,8 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
                                     f"library_ms{sfx}": lib_ms, f"dense_ms{sfx}": dense_ms})
                     elif lname == "up":
                         records[kname][f"max_abs_err_bf16{'' if t == PREFILL else '_t1'}"] = err
+                if dtype == torch.float32:
+                    hyb_spmm_line(torch, hyb, B, lib, peak_bw, peak_flops, f"{lname} K={t}")
                 if dtype == torch.float32 and t == PREFILL:
                     sweep_token_tiles(lname, csr, sell, cd, sd, X, cfg_c["vec"])
                 if dtype == torch.float32 and t == DECODE:
@@ -923,7 +1006,7 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
                     print(f"  {lname} T=1 beside SpMV at the same nnz: csr_spmv "
                           f"{time_ms(lambda: kc.csr_spmv(csr.indptr, csr.indices, cd, x1, m, vec=vec), 20):.4f} ms",
                           flush=True)
-        del mats, csr, ell, sell, lib, w_dense
+        del mats, csr, ell, sell, hyb, lib, w_dense
         torch.cuda.empty_cache()
     print("  weight-shape readings (|y_k - y_p| / limit; at most 1 passes): largest sound "
           + ", ".join(f"{k} {v:.3e}" for k, v in READINGS["sound"].items())
@@ -934,19 +1017,50 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
     return records
 
 
-def planted_fault(torch, csr, cd, X, y_p, scale, what, dtype_name):
+def planted_fault(vals, plain_of, y_p, scale, what, dtype_name):
     """The SpMM check must catch a kernel that skips entries: the plain
-    version with every ``FAULT_EVERY``-th stored entry dropped reads above
-    the limit against the sound plain version."""
-    from repro_torch.kernels.ref import csr_spmm_t_ref
-    dropped = cd.clone()
-    dropped[::FAULT_EVERY] = 0
-    y_f = csr_spmm_t_ref(csr.indptr, csr.indices, dropped, X, csr.shape[0])
+    version (``plain_of`` the stored values) with every ``FAULT_EVERY``-th
+    stored entry dropped reads above the limit against the sound plain
+    version."""
+    dropped = vals.clone()
+    dropped.view(-1)[::FAULT_EVERY] = 0
+    y_f = plain_of(dropped)
     reading = spmm_reading(y_f, y_p, scale, dtype_name)
     READINGS["fault"][dtype_name] = min(READINGS["fault"].get(dtype_name, float("inf")),
                                         reading)
     check(reading > 1.0, f"planted fault {what} {dtype_name}: every {FAULT_EVERY}th entry "
                          f"dropped reads {reading:.3e} > 1 (the check catches it)")
+
+
+def hyb_spmm_line(torch, hyb, B, lib, peak_bw, peak_flops, what):
+    """HYB SpMM has no kernel of its own: ell_spmm over the regular planes
+    plus csr_spmm over the tail (sorted on the card each call); checked
+    against the two plain versions composed, timed whole and by part."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import csr_spmm_ref, ell_spmm_ref
+    m, n = hyb.shape
+    k = B.shape[1]
+    tail = kops.tail_csr(hyb.coo, m)
+
+    def plain():
+        return ell_spmm_ref(hyb.ell.cols, hyb.ell.data, B) + csr_spmm_ref(*tail, B, m)
+    scale = (ell_spmm_ref(hyb.ell.cols, hyb.ell.data.abs(), B.abs())
+             + csr_spmm_ref(tail[0], tail[1], tail[2].abs(), B.abs(), m))
+    compare(f"hyb_spmm {what}", kops.hyb_spmm(hyb, B), kops.hyb_spmm(hyb, B), plain(),
+            "float32", scale=scale, record=True)
+    cfg = kops.default_config(hyb, op="spmm", ncols=k)
+    parts = {"whole": lambda: kops.hyb_spmm(hyb, B),
+             "ell part": lambda: kops.ell_spmm(hyb.ell, B),
+             "tail sort+indptr": lambda: kops.tail_csr(hyb.coo, m),
+             "csr tail": lambda: kops._csr_mm.csr_spmm(*tail, B, m, vec=cfg["csr"]["vec"]),
+             "plain": plain, "library sparse_csr @ B": lambda: lib @ B}
+    times = {p: time_ms(fn, 3 if p == "plain" else 10) for p, fn in parts.items()}
+    nbytes = ((hyb.nnz - hyb.coo.nnz) * 8 + hyb.coo.nnz * 8 + (m + 1) * 4
+              + (n + m) * k * 4)
+    bound = max(nbytes / peak_bw, 2 * hyb.nnz * k / peak_flops) * 1e3
+    print(f"  hyb_spmm {what} float32 (k={hyb.k}, tail {hyb.coo.nnz} entries): "
+          + ", ".join(f"{p} {t:.4f} ms" for p, t in times.items())
+          + f"; bound {bound:.4f} ms", flush=True)
 
 
 def sweep_token_tiles(lname, csr, sell, cd, sd, X, vec):
@@ -1091,17 +1205,233 @@ def phase_serving(torch, np, weights):
             check(s.delta("serve.retune") == 1
                   and s.delta("serve.format_switch") == int(switched),
                   f"{lname}: serve.retune +1, serve.format_switch +{int(switched)}")
-    # ELL SpMM (Y = A @ B) has no ported kernel: the card route raises
-    E = layers["up"]["ml"].activate(Format.ELL).weight.concrete
-    try:
-        spmm(E, torch.ones(E.shape[1], 2, device="cuda"), backend="cuda")
-        raised = ""
-    except NotImplementedError as e:
-        raised = str(e)
-    check("rows 8 and 10" in raised, f"spmm(ELL, backend='cuda') raises NotImplementedError "
-                                     f"({raised[:60]}...)")
-    del layers, dev_w, E
+    # Y = A @ B on the weight in ELL, SELL and HYB runs their kernels
+    wu = dev_w["up"][0]
+    B = _rand(rng, torch, (MINITRON_MLP["up"][0], 2), torch.float32)
+    ref = wu.T @ B.double()
+    for fmt, kernels in (("ELL", ("ell_spmm",)), ("SELL", ("sell_spmm",)),
+                         ("HYB", ("ell_spmm", "csr_spmm"))):
+        W = layers["up"]["ml"].activate(Format[fmt]).weight.concrete
+        before = kops.launch_counts()
+        y = spmm(W, B, backend="cuda")
+        torch.cuda.synchronize()
+        after = kops.launch_counts()
+        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        e = _rel_err(torch, y, ref)
+        check(launched == {k: 1 for k in kernels} and e <= ORACLE_RTOL,
+              f"up {fmt}: spmm(W, B, backend='cuda') launches {launched}, vs f64 {e:.2e}")
+        del W
+    del layers, dev_w
     return read_path(torch, "(d)", SPMM_KERNELS)
+
+
+# ---------------------------------------------------------------------------
+# Path (e): the measured route (kernel_tune records, backend="auto", cached)
+# ---------------------------------------------------------------------------
+
+# What path (e) tunes: (weight, format, op) at both widths, and HPCG SpMV.
+TUNED_SPMM = [("up", f, "spmm") for f in ("ELL", "SELL", "HYB")] + \
+    [(w, f, "spmm_t") for w in ("up", "down") for f in ("CSR", "ELL", "SELL")]
+TUNED_SPMV = ("DIA", "CSR")
+TUNE_ITERS, TUNE_INNER = 3, 2
+# The kernels each (format, op) launches once a call.
+KERNELS_OF_OP = {("ELL", "spmm"): ("ell_spmm",), ("SELL", "spmm"): ("sell_spmm",),
+                 ("HYB", "spmm"): ("ell_spmm", "csr_spmm"), ("CSR", "spmm"): ("csr_spmm",),
+                 ("CSR", "spmm_t"): ("csr_spmm_t",), ("ELL", "spmm_t"): ("ell_spmm_t",),
+                 ("SELL", "spmm_t"): ("sell_spmm_t",), ("DIA", "spmv"): ("dia_spmv",),
+                 ("CSR", "spmv"): ("csr_spmv",)}
+
+
+def _launched(kops, before):
+    after = kops.launch_counts()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def check_route(torch, A, rec, x, op, label, cache_path):
+    """One record: it round-trips through a fresh store; kernel_route gives
+    ("cuda", rec.cfg) exactly where it beat the reference; op(backend="auto")
+    then launches the kernel once a call and equals backend="cuda",
+    cfg=rec.cfg bitwise (else it runs the reference, counted as a veto)."""
+    from repro_torch.core import ops
+    from repro_torch.kernels import ops as kops
+    from repro_torch.obs import metrics
+    from repro_torch.tuning import SelectionCache, kernel_tune
+    fn = {"spmv": ops.spmv, "spmm": ops.spmm, "spmm_t": ops.spmm_t}[op]
+    ncols = {"spmv": None, "spmm": x.shape[-1], "spmm_t": x.shape[0]}[op]
+    fresh = kernel_tune.best_config(A, op=op, ncols=ncols, cache=SelectionCache(cache_path))
+    check(fresh == rec, f"{label}: the record round-trips through a fresh store")
+    won = rec.speedup >= 1.0
+    route = ops.kernel_route(A, op=op, ncols=ncols)
+    check(route == (("cuda", rec.cfg) if won else ("ref", None)),
+          f"{label}: kernel_route {route[0]} (speedup {rec.speedup:.2f})")
+    with metrics.scope() as s:
+        before = kops.launch_counts()
+        y = fn(A, x, backend="auto")
+        torch.cuda.synchronize()
+        launched = _launched(kops, before)
+        counted = {k: s.delta(f"kernel.route.{k}") for k in ("cuda", "veto", "ref")}
+    want = {k: 1 for k in KERNELS_OF_OP[(type(A).__name__, op)]} if won else {}
+    check(launched == want and counted["cuda" if won else "veto"] == 1,
+          f"{label}: auto launched {launched}, route counts {counted}")
+    if won:
+        check(torch.equal(y, fn(A, x, backend="cuda", cfg=rec.cfg)),
+              f"{label}: auto == backend='cuda', cfg={rec.cfg} bitwise")
+
+
+def phase_measured(torch, np, weights, prob):
+    """Path (e): kernel_tune records at full width, the auto route, the
+    cached policy, LinearSparse with backend='auto', hpcg_solve --tune
+    cached and the SpMM profile pick, on a fresh store."""
+    import tempfile
+    from repro_torch import hpcg_solve
+    from repro_torch.core import hpcg, ops
+    from repro_torch.core.convert import convert
+    from repro_torch.core.dynamic import DynamicMatrix
+    from repro_torch.core.formats import Format, coo_from_dense_np
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import WEIGHT_CANDIDATES, LinearSparse
+    from repro_torch.obs import metrics
+    from repro_torch.tuning import (CACHE_PATH_ENV, FormatPolicy, KernelRecord,
+                                    SelectionCache, kernel_tune)
+
+    print("== path (e): the measured route (kernel_tune, backend='auto', cached) at "
+          f"minitron-8b MLP width and HPCG {'x'.join(map(str, GRID))}", flush=True)
+    start_path(torch)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    path = os.path.join(tmp, "selections.json")
+    os.environ[CACHE_PATH_ENV] = path
+    rng = np.random.default_rng(SEED + 3)
+    coos = {k: coo_from_dense_np(w.T, device="cuda") for k, (w, _) in weights.items()}
+    mats = {("up", "ELL"): convert(coos["up"], Format.ELL)}
+    # the T = 1 layer call with no record (the default store is empty)
+    w_up, b_up = weights["up"]
+    ell_layer = LinearSparse(DynamicMatrix(mats[("up", "ELL")]), torch.from_numpy(b_up).cuda())
+    x1 = _rand(rng, torch, (DECODE, MINITRON_MLP["up"][0]), torch.float32)
+    cold_ms = time_ms(lambda: ell_layer(x1), 50)
+    t0 = time.perf_counter()
+    cache = SelectionCache(path)
+    records = []
+    for wname, fmt, op in TUNED_SPMM:
+        A = mats.setdefault((wname, fmt), convert(coos[wname], Format[fmt]))
+        for width in (DECODE, PREFILL):
+            shape = (A.shape[1], width) if op == "spmm" else (width, A.shape[1])
+            x = _rand(rng, torch, shape, torch.float32)
+            rec = kernel_tune.tune_kernel(A, x, op=op, cache=cache, iters=TUNE_ITERS,
+                                          inner=TUNE_INNER)
+            label = f"{wname} {fmt} {op} width {width}"
+            print(f"  tuned {label}: cfg={rec.cfg} kernel {rec.kernel_us:.1f} us, ref "
+                  f"{rec.ref_us:.1f} us, speedup {rec.speedup:.2f}", flush=True)
+            if width == DECODE:
+                check(kernel_tune.best_config(A, op=op, ncols=PREFILL,
+                                              cache=SelectionCache(path)) is None,
+                      f"{label}: the b1 record is invisible at ncols={PREFILL}")
+            check_route(torch, A, rec, x, op, label, path)
+            records.append((label, rec))
+    hp = hpcg.to_coo(prob, device="cuda")
+    for fmt in TUNED_SPMV:
+        A = convert(hp, Format[fmt])
+        x = _rand(rng, torch, A.shape[1], torch.float32)
+        rec = kernel_tune.tune_kernel(A, x, op="spmv", cache=cache, iters=TUNE_ITERS,
+                                      inner=TUNE_INNER)
+        label = f"HPCG {fmt} spmv"
+        print(f"  tuned {label}: cfg={rec.cfg} kernel {rec.kernel_us:.1f} us, ref "
+              f"{rec.ref_us:.1f} us, speedup {rec.speedup:.2f}", flush=True)
+        check_route(torch, A, rec, x, "spmv", label, path)
+        records.append((label, rec))
+        del A
+    del hp
+    print(f"  {len(records)} records tuned and checked in {time.perf_counter() - t0:.2f} s; "
+          f"{sum(r.speedup >= 1 for _, r in records)} beat the reference", flush=True)
+    # a planted losing record (written here, not measured) must route ref
+    csr = convert(coos["up"], Format.CSR)
+    loser = KernelRecord("CSR", "spmm", kops.default_config(csr, op="spmm", ncols=1),
+                         kernel_us=200.0, ref_us=100.0)
+    cache.put_raw(kernel_tune.kernel_key(csr.format, *csr.shape, csr.nnz, op="spmm", ncols=1,
+                                         device=csr.device), loser.to_json())
+    B1 = _rand(rng, torch, (csr.shape[1], 1), torch.float32)
+    with metrics.scope() as s:
+        before = kops.launch_counts()
+        route = ops.kernel_route(csr, op="spmm", ncols=1)
+        y = ops.spmm(csr, B1, backend="auto")
+        torch.cuda.synchronize()
+        launched = _launched(kops, before)
+        vetoes = s.delta("kernel.route.veto")
+    # the reference sums with index_add_ (atomics): compare at the f32 limit
+    e = _rel_err(torch, y, ops.spmm(csr, B1, backend="ref").double())
+    check(route == ("ref", None) and launched == {} and vetoes == 2 and e <= ORACLE_RTOL,
+          f"planted losing record (speedup 0.50, written by this script): auto routes "
+          f"{route[0]}, launches {launched}, kernel.route.veto +{vetoes}, vs ref {e:.2e}")
+    del csr
+    # the T = 1 layer call with the warm store, then backend='auto'
+    warm_ms = time_ms(lambda: ell_layer(x1), 50)
+    auto_layer = LinearSparse(ell_layer.weight, ell_layer.bias, backend="auto")
+    auto_ms = time_ms(lambda: auto_layer(x1), 50)
+    os.environ[CACHE_PATH_ENV] = os.path.join(tmp, "empty.json")
+    cold2_ms = time_ms(lambda: ell_layer(x1), 50)
+    os.environ[CACHE_PATH_ENV] = path
+    knobs = kops.default_config(mats[("up", "ELL")], op="spmm_t", ncols=DECODE)
+    pinned_ms = time_ms(lambda: ops.spmm_t(ell_layer.weight, x1, cfg=knobs) + ell_layer.bias, 50)
+    A_ell = mats[("up", "ELL")]
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        kops.resolve_config(A_ell, None, "spmm_t", DECODE)
+    lookup_us = (time.perf_counter() - t0) * 1e3
+    print(f"  up ELL layer T=1 ms per call: backend=None cold store {cold_ms:.4f}, warm store "
+          f"{warm_ms:.4f}, backend='auto' {auto_ms:.4f}, cold store again {cold2_ms:.4f}, "
+          f"spmm_t(W, x, cfg={knobs}) + bias with no lookup {pinned_ms:.4f}; host lookup "
+          f"kops.resolve_config {lookup_us:.2f} us a call", flush=True)
+    del ell_layer, auto_layer
+    # the cached policy: per width bucket, a miss pins, the next call hits
+    policy = FormatPolicy("cached", candidates=WEIGHT_CANDIDATES, cache=path)
+    for width in (DECODE, PREFILL):
+        cold = policy.select(coos["up"], op="spmm_t", ncols=width)
+        warm = policy.select(coos["up"], op="spmm_t", ncols=width)
+        print(f"  cached policy up ncols={width}: {cold.mode} -> {cold.best.name} "
+              f"{cold.backend} {cold.cfg}; then {warm.mode}", flush=True)
+        check(cold.mode.startswith("cached-miss") and warm.mode == "cached"
+              and (cold.best, cold.backend, cold.cfg) == (warm.best, warm.backend, warm.cfg),
+              f"cached policy ncols={width}: miss then hit, the same (fmt, backend, cfg)")
+    # LinearSparse built by that policy, backend='auto', at both widths
+    layer = LinearSparse.from_dense(w_up, tune=policy, ncols=PREFILL, bias=b_up,
+                                    backend="auto")
+    wu64 = torch.from_numpy(w_up).cuda().double()
+    bu64 = torch.from_numpy(b_up).cuda().double()
+    for width in (DECODE, PREFILL):
+        x = _rand(rng, torch, (width, MINITRON_MLP["up"][0]), torch.float32)
+        kernels = KERNELS_OF_OP.get((layer.format.name, "spmm_t"), ())
+        before = kops.launch_counts()
+        calls = 3
+        for _ in range(calls):
+            y = layer(x)
+        torch.cuda.synchronize()
+        launched = _launched(kops, before)
+        e = _rel_err(torch, y, x.double() @ wu64 + bu64)
+        check(e <= ORACLE_RTOL and launched == {k: calls for k in kernels} and kernels,
+              f"LinearSparse({layer.format.name}, backend='auto') T={width}: vs f64 {e:.2e}, "
+              f"launches {launched} for {calls} calls")
+    del layer, wu64, bu64
+    # hpcg_solve with the cached pick and its pinned launch knobs
+    r = hpcg_solve.run(GRID, "auto", tune="cached", tol=CG_TOL, maxiter=CG_MAXITER)
+    print(f"  hpcg_solve --tune cached: {r['format']} ({r['pick_mode']}, cfg {r['cfg']}), "
+          f"{r['iters']} iters, max|x-1| {r['err']:.2e}, solve {r['solve_s']:.3f} s", flush=True)
+    check(r["passed"] and r["iters"] == 131, "hpcg_solve --tune cached converges in 131 iters")
+    # the SpMM profile pick times ELL, SELL and HYB through their kernels
+    before = kops.launch_counts()
+    rep = FormatPolicy("profile", candidates=WEIGHT_CANDIDATES, profile_iters=3).select(
+        coos["up"], op="spmm", ncols=PREFILL)
+    launched = _launched(kops, before)
+    print("  profile op='spmm' ncols=256 on up: "
+          + ", ".join(f"{f.name} {t * 1e3:.4f} ms" for f, t in rep.times.items())
+          + f" -> pick {rep.best.name}; launches {launched}", flush=True)
+    check(set(rep.times) == set(WEIGHT_CANDIDATES)
+          and all(launched.get(k, 0) > 0 for k in ("ell_spmm", "sell_spmm", "csr_spmm")),
+          "profile op='spmm' timed every weight candidate, ELL/SELL/HYB through kernels")
+    del mats, coos
+    os.environ.pop(CACHE_PATH_ENV, None)
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    return read_path(torch, "(e)", ("ell_spmm", "sell_spmm", "csr_spmm", "csr_spmm_t",
+                                    "ell_spmm_t", "sell_spmm_t", "dia_spmv", "csr_spmv"))
 
 
 def main() -> int:
@@ -1147,8 +1477,15 @@ def main() -> int:
     del A, b
     torch.cuda.empty_cache()
     counts_d = phase_serving(torch, np, weights)
+    torch.cuda.empty_cache()
+    counts_e = phase_measured(torch, np, weights, prob)
     for name, rec in records.items():
-        rec["launches"] = sum(c[name] for c in (counts_a, counts_b, counts_c, counts_d))
+        rec["launches"] = sum(c[name] for c in (counts_a, counts_b, counts_c, counts_d,
+                                                counts_e))
+    from repro_torch.kernels import ops as kops
+    missing = [k for k in kops.LAUNCH_COUNTERS
+               if k not in records or records[k]["launches"] <= 0]
+    check(not missing, f"every kernel has a record with launches > 0 (missing: {missing})")
     print(f"== total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

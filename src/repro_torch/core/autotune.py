@@ -6,11 +6,12 @@
 * ``profile``  — the paper's §V-E tuner: convert to every candidate, time
   one SpMV of each on the device of ``A``, pick the fastest;
 * ``analytic`` — bytes-touched / bandwidth model, no runs;
-* ``ml``       — the pre-trained decision tree over pattern features.
+* ``ml``       — the pre-trained decision tree over pattern features;
+* ``cached``   — the persistent selection cache in front of ``ml``
+  (``FormatPolicy("cached")``), with the kernel pin of measured records.
 
-``cached`` needs the selection cache and ``kernel_tune``, which are not
-ported yet. The tuning package imports ``repro_torch.core``, so this
-module imports it inside the function.
+The tuning package imports ``repro_torch.core``, so this module imports it
+inside the function.
 """
 from __future__ import annotations
 
@@ -20,8 +21,9 @@ def autotune(A, x=None, mode: str = "profile", **kwargs):
 
     ``mode='profile'`` needs ``x`` (kwargs go to ``profile_select``:
     ``candidates``, ``iters``, ``backends``, ...); ``'analytic'`` takes
-    ``candidates``; ``'ml'`` delegates to a ``FormatPolicy`` (kwargs:
-    ``candidates``, ``tree``).
+    ``candidates``; ``'ml'`` and ``'cached'`` delegate to a
+    ``FormatPolicy`` (kwargs: ``candidates``, ``tree``; ``cache`` for
+    ``'cached'``).
     """
     from repro_torch.core.convert import to_coo
     from repro_torch.core.dynamic import DynamicMatrix
@@ -36,10 +38,6 @@ def autotune(A, x=None, mode: str = "profile", **kwargs):
     if mode == "analytic":
         A = A.concrete if isinstance(A, DynamicMatrix) else A
         return analytic_select(PatternStats.from_coo(to_coo(A)), **kwargs)
-    if mode == "ml":
+    if mode in ("ml", "cached"):
         return FormatPolicy(mode, **kwargs).select(A, x=x)
-    if mode == "cached":
-        raise NotImplementedError(
-            "autotune(mode='cached') needs the selection cache (cache.py) and "
-            "kernel_tune: ROADMAP Queue 1 item 7, not ported yet")
-    raise ValueError(f"unknown mode {mode!r} (profile | analytic | ml)")
+    raise ValueError(f"unknown mode {mode!r} (profile | analytic | ml | cached)")

@@ -68,14 +68,14 @@ class DynamicMatrix:
         plan = policy.plan_for(A, x=x, **conv_kwargs)
         return cls(_execute_fn(A, plan))
 
-    def spmv(self, x, backend: Optional[str] = None):
-        return _ops.spmv(self.concrete, x, backend=backend)
+    def spmv(self, x, backend: Optional[str] = None, cfg: Optional[dict] = None):
+        return _ops.spmv(self.concrete, x, backend=backend, cfg=cfg)
 
-    def spmm(self, B, backend: Optional[str] = None):
-        return _ops.spmm(self.concrete, B, backend=backend)
+    def spmm(self, B, backend: Optional[str] = None, cfg: Optional[dict] = None):
+        return _ops.spmm(self.concrete, B, backend=backend, cfg=cfg)
 
-    def spmm_t(self, X, backend: Optional[str] = None):
-        return _ops.spmm_t(self.concrete, X, backend=backend)
+    def spmm_t(self, X, backend: Optional[str] = None, cfg: Optional[dict] = None):
+        return _ops.spmm_t(self.concrete, X, backend=backend, cfg=cfg)
 
     def extract_diagonal(self):
         return _ops.extract_diagonal(self.concrete)
@@ -167,14 +167,14 @@ class SwitchDynamicMatrix:
     def activate_id(self, active_id: int) -> "SwitchDynamicMatrix":
         return SwitchDynamicMatrix(self.variants, active_id)
 
-    def spmv(self, x, backend: Optional[str] = None):
-        return _ops.spmv(self.variants[self.active_id], x, backend=backend)
+    def spmv(self, x, backend: Optional[str] = None, cfg: Optional[dict] = None):
+        return _ops.spmv(self.variants[self.active_id], x, backend=backend, cfg=cfg)
 
-    def spmm(self, B, backend: Optional[str] = None):
-        return _ops.spmm(self.variants[self.active_id], B, backend=backend)
+    def spmm(self, B, backend: Optional[str] = None, cfg: Optional[dict] = None):
+        return _ops.spmm(self.variants[self.active_id], B, backend=backend, cfg=cfg)
 
-    def spmm_t(self, X, backend: Optional[str] = None):
-        return _ops.spmm_t(self.variants[self.active_id], X, backend=backend)
+    def spmm_t(self, X, backend: Optional[str] = None, cfg: Optional[dict] = None):
+        return _ops.spmm_t(self.variants[self.active_id], X, backend=backend, cfg=cfg)
 
     def __repr__(self):
         return f"SwitchDynamicMatrix<{[f.name for f in self.candidates]}>{self.shape}"

@@ -3,7 +3,15 @@
 Port of ``repro.core.ops``. The ``_spmv_*`` and ``_spmm_*`` functions are
 the plain torch reference path for every format (the CPU path, and the
 ``ref`` backend on the card); ``repro_torch.kernels`` holds the hand-written
-CUDA kernels, selected with ``backend=``.
+CUDA kernels, selected with ``backend=``:
+
+  * ``None``: the kernel for a CUDA tensor (always: no record decides
+    whether it runs), the reference for a CPU tensor;
+  * ``"cuda"``: the kernel, on CUDA tensors only; ``"ref"``: the reference;
+  * ``"auto"``: the measured route (:func:`kernel_route`): the kernel only
+    where a ``kernel_tune`` record for the matrix's bucket beat the
+    reference, with that record's launch knobs; otherwise the reference,
+    counted as ``kernel.route.veto`` or ``kernel.route.ref``.
 
 Reference semantics carried over from JAX:
   * ``jnp.take(..., mode="clip")`` clamps an index into range — torch's
@@ -20,6 +28,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.formats import BSR, COO, CSR, DIA, ELL, Dense, HYB, SELL
+from repro_torch.obs import metrics as _metrics
 
 # ---------------------------------------------------------------------------
 # Helpers shared with the conversions
@@ -150,36 +159,65 @@ _SPMV = {COO: _spmv_coo, CSR: _spmv_csr, DIA: _spmv_dia, ELL: _spmv_ell,
          SELL: _spmv_sell}
 
 def resolve_backend(backend: Optional[str], x: torch.Tensor) -> str:
-    """``None`` -> ``"cuda"`` for a CUDA tensor, ``"ref"`` for a CPU one."""
+    """``None`` -> ``"cuda"`` for a CUDA tensor, ``"ref"`` for a CPU one;
+    ``"auto"`` is routed per matrix by :func:`kernel_route`."""
     if backend is None:
         return "cuda" if x.is_cuda else "ref"
-    if backend == "auto":
-        raise NotImplementedError(
-            "backend='auto' routes from measured kernel-tune records; "
-            "kernel_tune is ROADMAP Queue 1 item 7 and not ported yet")
     if backend not in ("ref", "cuda"):
-        raise ValueError(f"unknown backend {backend!r} (ref | cuda | None)")
+        raise ValueError(f"unknown backend {backend!r} (ref | cuda | auto | None)")
     return backend
 
 
-def spmv(A, x, backend: Optional[str] = None):
+def kernel_route(A, op: str = "spmv", cache=None, ncols: Optional[int] = None):
+    """The measured ``"auto"`` decision for a container: ``("cuda", cfg)``
+    where a cached ``kernel_tune`` record for ``A``'s (format, shape
+    bucket[, rhs-width bucket ``ncols``]) on this card beat the reference
+    (``cfg``: the record's knobs), else ``("ref", None)``, also when no
+    record exists (an unmeasured kernel is never presumed faster) and for a
+    container off the card (the port has no kernel there). Counts
+    ``kernel.route.cuda``, ``kernel.route.veto`` (a record that lost) or
+    ``kernel.route.ref``. Host dict lookups only."""
+    if isinstance(A, _DYN_TYPES):
+        A = getattr(A, "concrete", A)
+    from repro_torch.tuning import kernel_tune  # lazy: tuning imports core
+    if not hasattr(A, "format") or kernel_tune.backend_tag(A.device) != kernel_tune.CUDA_TAG:
+        _metrics.inc("kernel.route.ref")
+        return "ref", None
+    rec = kernel_tune.best_config(A, op=op, ncols=ncols, cache=cache)
+    if rec is not None and rec.speedup >= 1.0:
+        _metrics.inc("kernel.route.cuda")
+        return "cuda", dict(rec.cfg)
+    _metrics.inc("kernel.route.veto" if rec is not None else "kernel.route.ref")
+    return "ref", None
+
+
+def _route(A, backend: Optional[str], cfg: Optional[dict], t: torch.Tensor, op: str,
+           ncols: Optional[int]):
+    """The (backend, cfg) one call runs with."""
+    if backend == "auto":
+        backend, tuned = kernel_route(A, op=op, ncols=ncols)
+        cfg = tuned if cfg is None else cfg
+    else:
+        backend = resolve_backend(backend, t)
+    _cuda_only(backend, t)
+    return backend, cfg
+
+
+def spmv(A, x, backend: Optional[str] = None, cfg: Optional[dict] = None):
     """y = A @ x.
 
-    ``backend=None`` runs the CUDA kernel for a CUDA tensor and the torch
-    reference for a CPU tensor; ``"ref"`` forces the reference on either
-    device; ``"cuda"`` needs a CUDA tensor. COO and Dense have no kernel in
-    the JAX package either and use the reference. The kernel's launch
-    geometry is ``repro_torch.kernels.ops.default_config``'s.
+    ``backend`` as in the module docstring. COO and Dense have no kernel in
+    the JAX package either and use the reference. ``cfg`` overrides the
+    kernel's launch knobs (``repro_torch.kernels.ops.resolve_config``).
     """
     if isinstance(A, _DYN_TYPES):
-        return A.spmv(x, backend=backend)
-    backend = resolve_backend(backend, x)
-    _cuda_only(backend, x)
+        return A.spmv(x, backend=backend, cfg=cfg)
+    backend, cfg = _route(A, backend, cfg, x, "spmv", None)
     if backend == "cuda":
         from repro_torch.kernels import ops as kops  # lazy: keep core import-light
         fn = kops.SPMV_CUDA.get(type(A))
         if fn is not None:
-            return fn(A, x)
+            return fn(A, x, cfg=cfg)
     return _SPMV[type(A)](A, x)
 
 
@@ -291,45 +329,43 @@ def _cuda_only(backend: str, t: torch.Tensor) -> None:
         raise ValueError("backend='cuda' needs CUDA tensors; use backend='ref' on the CPU")
 
 
-def spmm(A, B, backend: Optional[str] = None):
+def spmm(A, B, backend: Optional[str] = None, cfg: Optional[dict] = None):
     """Y = A @ B with dense B of shape (N, K); returns (M, K).
 
-    ``backend`` as in :func:`spmv`. On the card CSR and BSR run their
-    kernels; ELL, SELL and HYB raise ``NotImplementedError`` until their
-    SpMM kernels are ported (ROADMAP Queue 2 rows 8 and 10), and never run
-    the reference there; COO, DIA and Dense use the reference, as the JAX
-    package has no kernel for them either.
+    ``backend``/``cfg`` as in :func:`spmv`; ``"auto"`` reads the
+    ``op="spmm"`` records of the width bucket of K. On the card CSR, ELL,
+    SELL, HYB and BSR run their kernels; COO, DIA and Dense use the
+    reference, as the JAX package has no kernel for them either.
     """
     if isinstance(A, _DYN_TYPES):
-        return A.spmm(B, backend=backend)
-    backend = resolve_backend(backend, B)
-    _cuda_only(backend, B)
+        return A.spmm(B, backend=backend, cfg=cfg)
+    backend, cfg = _route(A, backend, cfg, B, "spmm", B.shape[1])
     if backend == "cuda":
         from repro_torch.kernels import ops as kops
-        fn = kops.spmm_cuda_route(A)
+        fn = kops.SPMM_CUDA.get(type(A))
         if fn is not None:
-            return fn(A, B)
+            return fn(A, B, cfg=cfg)
     return _SPMM[type(A)](A, B)
 
 
-def spmm_t(A, X, backend: Optional[str] = None):
+def spmm_t(A, X, backend: Optional[str] = None, cfg: Optional[dict] = None):
     """Y = X @ A^T for activations X of shape (T, N); returns (T, M).
 
     The serving orientation (``LinearSparse`` stores its weight as
-    (d_out, d_in) and keeps activations row-major). On the card CSR, ELL,
-    SELL, HYB and BSR run their kernels; COO, DIA and Dense use the
-    reference. The reference is the double transpose
-    ``_SPMM[type(A)](A, X.T).T``, as in the JAX package.
+    (d_out, d_in) and keeps activations row-major). ``backend``/``cfg`` as
+    in :func:`spmv`; ``"auto"`` reads the ``op="spmm_t"`` records of the
+    width bucket of T. On the card CSR, ELL, SELL, HYB and BSR run their
+    kernels; COO, DIA and Dense use the reference. The reference is the
+    double transpose ``_SPMM[type(A)](A, X.T).T``, as in the JAX package.
     """
     if isinstance(A, _DYN_TYPES):
-        return A.spmm_t(X, backend=backend)
-    backend = resolve_backend(backend, X)
-    _cuda_only(backend, X)
+        return A.spmm_t(X, backend=backend, cfg=cfg)
+    backend, cfg = _route(A, backend, cfg, X, "spmm_t", X.shape[0])
     if backend == "cuda":
         from repro_torch.kernels import ops as kops
         fn = kops.SPMM_T_CUDA.get(type(A))
         if fn is not None:
-            return fn(A, X)
+            return fn(A, X, cfg=cfg)
     return _SPMM[type(A)](A, X.T).T
 
 

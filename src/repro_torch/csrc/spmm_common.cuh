@@ -8,6 +8,11 @@
 // shared memory where it fits (sell_spmm.cu). Blocks are numbered token
 // tile fastest, so the blocks that run together share their matrix rows in
 // L2 while each reads its own X tile.
+//
+// The row-walking Y = A @ B kernels (B is (N, K) row-major, Y (M, K)) share
+// two row schedules, picked by K (rows_spmm_launch): for K > 8, KW lanes own
+// a row and lie along B's columns; for K <= 8, a sub-warp of VEC lanes lies
+// along the row's entries with K sums a lane.
 
 #pragma once
 
@@ -192,6 +197,137 @@ int rows_spmm_t_launch(Rows rows, const void* idx, const void* val, const void* 
       case 32: return launch_rows_t_tile<T, Rows, 32>(rows, idx, val, X, Y, m, n, t, tt, device, s);
       default: return cudaErrorInvalidValue;
     }
+  });
+}
+
+
+// Y[i, :] = sum_p val[p] * B[idx[p], :] for K > 8: KW lanes (a power of two,
+// at most 32) own row i, lane l on columns c0 + l, c0 + l + KW, ... (KJ of
+// them, c0 from the grid's y axis). The row's entries are read once by the
+// whole group (one address: a broadcast) and each B row segment is a
+// coalesced load. Columns clamp into [0, n); an empty row writes zeros.
+template <typename T, typename Rows, int KW, int KJ>
+__global__ void __launch_bounds__(kBlock)
+rows_spmm_kw(Rows rows, const int32_t* __restrict__ idx, const T* __restrict__ val,
+             const T* __restrict__ B, T* __restrict__ Y, int64_t m, int32_t n, int64_t k) {
+  const int lane = threadIdx.x % KW;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kBlock / KW) + threadIdx.x / KW;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.y) * (KW * KJ) + lane;
+  if (row >= m) return;
+  float acc[KJ];
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) acc[j] = 0.f;
+  const int64_t end = rows.end(row);
+  for (int64_t p = rows.begin(row); p < end; ++p) {
+    const int32_t c = min(max(idx[p], 0), n - 1);
+    const float v = to_f32(val[p]);
+    const T* brow = B + static_cast<int64_t>(c) * k;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      const int64_t col = c0 + j * KW;
+      if (col < k) acc[j] += v * to_f32(brow[col]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) {
+    const int64_t col = c0 + j * KW;
+    if (col < k) Y[row * k + col] = from_f32<T>(acc[j]);
+  }
+}
+
+// Y[i, :] for K <= KK: VEC lanes a row on consecutive entries, KK sums a
+// lane, a butterfly of shuffles, lane j % VEC stores column j.
+template <typename T, typename Rows, int VEC, int KK>
+__global__ void __launch_bounds__(kBlock)
+rows_spmm_vec(Rows rows, const int32_t* __restrict__ idx, const T* __restrict__ val,
+              const T* __restrict__ B, T* __restrict__ Y, int64_t m, int32_t n, int64_t k) {
+  const int lane = threadIdx.x & (VEC - 1);
+  const int64_t row = (static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x) / VEC;
+  float acc[KK];
+#pragma unroll
+  for (int j = 0; j < KK; ++j) acc[j] = 0.f;
+  if (row < m) {
+    const int64_t end = rows.end(row);
+    for (int64_t p = rows.begin(row) + lane; p < end; p += VEC) {
+      const int32_t c = min(max(idx[p], 0), n - 1);
+      const float v = to_f32(val[p]);
+      const T* brow = B + static_cast<int64_t>(c) * k;
+#pragma unroll
+      for (int j = 0; j < KK; ++j) acc[j] += v * to_f32(brow[min(static_cast<int64_t>(j), k - 1)]);
+    }
+  }
+  // Every thread of the warp reaches the shuffles (no early return).
+#pragma unroll
+  for (int j = 0; j < KK; ++j) {
+#pragma unroll
+    for (int off = VEC / 2; off > 0; off >>= 1)
+      acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off, VEC);
+  }
+  if (row < m) {
+#pragma unroll
+    for (int j = 0; j < KK; ++j)
+      if (j % VEC == lane && j < k) Y[row * k + j] = from_f32<T>(acc[j]);
+  }
+}
+
+template <typename T, typename Rows, int VEC, int KK>
+cudaError_t launch_vec(Rows rows, const void* idx, const void* val, const void* B, void* Y,
+                       int64_t m, int32_t n, int64_t k, cudaStream_t stream) {
+  const int64_t grid = (m * VEC + kBlock - 1) / kBlock;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  rows_spmm_vec<T, Rows, VEC, KK><<<static_cast<unsigned>(grid), kBlock, 0, stream>>>(
+      rows, static_cast<const int32_t*>(idx), static_cast<const T*>(val),
+      static_cast<const T*>(B), static_cast<T*>(Y), m, n, k);
+  return cudaGetLastError();
+}
+
+template <typename T, typename Rows, int VEC>
+cudaError_t launch_vec_k(Rows rows, const void* idx, const void* val, const void* B, void* Y,
+                         int64_t m, int32_t n, int64_t k, cudaStream_t s) {
+  if (k <= 1) return launch_vec<T, Rows, VEC, 1>(rows, idx, val, B, Y, m, n, k, s);
+  if (k <= 2) return launch_vec<T, Rows, VEC, 2>(rows, idx, val, B, Y, m, n, k, s);
+  if (k <= 4) return launch_vec<T, Rows, VEC, 4>(rows, idx, val, B, Y, m, n, k, s);
+  return launch_vec<T, Rows, VEC, 8>(rows, idx, val, B, Y, m, n, k, s);
+}
+
+template <typename T, typename Rows, int KW, int KJ>
+cudaError_t launch_kw(Rows rows, const void* idx, const void* val, const void* B, void* Y,
+                      int64_t m, int32_t n, int64_t k, cudaStream_t stream) {
+  const int64_t gx = (m + kBlock / KW - 1) / (kBlock / KW);
+  const int64_t gy = (k + KW * KJ - 1) / (KW * KJ);
+  if (gx > 0x7fffffffLL || gy > 65535) return cudaErrorInvalidConfiguration;
+  rows_spmm_kw<T, Rows, KW, KJ><<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy)),
+                                  kBlock, 0, stream>>>(
+      rows, static_cast<const int32_t*>(idx), static_cast<const T*>(val),
+      static_cast<const T*>(B), static_cast<T*>(Y), m, n, k);
+  return cudaGetLastError();
+}
+
+// Y (m, k) = A @ B for a row-walking format. K <= 8: `vec` lanes a row
+// along its entries (rows_spmm_vec). Wider: lanes along K, the smallest
+// power of two >= K up to 32; past 32 lanes each lane takes up to 8
+// columns (KJ), and the grid's y axis covers the rest.
+template <typename T, typename Rows>
+int rows_spmm_launch(Rows rows, const void* idx, const void* val, const void* B, void* Y,
+                     int64_t m, int32_t n, int64_t k, int vec, int device, void* stream) {
+  if (m == 0 || k == 0) return 0;
+  return on_device(device, [&]() -> cudaError_t {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (k <= 8) {
+      switch (vec) {
+        case 2: return launch_vec_k<T, Rows, 2>(rows, idx, val, B, Y, m, n, k, s);
+        case 4: return launch_vec_k<T, Rows, 4>(rows, idx, val, B, Y, m, n, k, s);
+        case 8: return launch_vec_k<T, Rows, 8>(rows, idx, val, B, Y, m, n, k, s);
+        case 16: return launch_vec_k<T, Rows, 16>(rows, idx, val, B, Y, m, n, k, s);
+        case 32: return launch_vec_k<T, Rows, 32>(rows, idx, val, B, Y, m, n, k, s);
+        default: return cudaErrorInvalidValue;
+      }
+    }
+    if (k <= 16) return launch_kw<T, Rows, 16, 1>(rows, idx, val, B, Y, m, n, k, s);
+    if (k <= 32) return launch_kw<T, Rows, 32, 1>(rows, idx, val, B, Y, m, n, k, s);
+    if (k <= 64) return launch_kw<T, Rows, 32, 2>(rows, idx, val, B, Y, m, n, k, s);
+    if (k <= 128) return launch_kw<T, Rows, 32, 4>(rows, idx, val, B, Y, m, n, k, s);
+    return launch_kw<T, Rows, 32, 8>(rows, idx, val, B, Y, m, n, k, s);
   });
 }
 

@@ -2,8 +2,8 @@
 
   1. problem setup    — 27-point-stencil Poisson system on a 3D grid
   2. optimization     — COO container, format picked by a FormatPolicy
-                        (``--tune ml|analytic|profile``) or named, plan +
-                        conversion on the device
+                        (``--tune ml|analytic|profile|cached``) or named,
+                        plan + conversion on the device
   3. timed solve      — CG, one SpMV per iteration through DynamicMatrix
   4. validation       — the solution must be the all-ones vector
 
@@ -12,6 +12,7 @@ builds a distributed matrix). Run:
 
   python -m repro_torch.hpcg_solve --grid 104 104 104
   python -m repro_torch.hpcg_solve --grid 104 104 104 --tune profile
+  python -m repro_torch.hpcg_solve --grid 104 104 104 --tune cached --cache /tmp/sel.json
   python -m repro_torch.hpcg_solve --grid 16 16 16 --format HYB --ell-k 18 --device cpu
   python -m repro_torch.hpcg_solve --grid 16 16 16 --format BSR --block-size 8 --device cpu
 """
@@ -32,7 +33,7 @@ from repro_torch.tuning.policy import FormatPolicy
 
 TOL_X = 1e-3  # validation: max |x - 1|, as examples/hpcg_solve.py
 FORMATS = ("auto", "DIA", "CSR", "ELL", "SELL", "HYB", "BSR")
-TUNE_MODES = ("ml", "analytic", "profile")
+TUNE_MODES = ("ml", "analytic", "profile", "cached")
 
 
 def _sync(dev: torch.device) -> None:
@@ -51,11 +52,15 @@ def plan_hints(fmt: Format, ell_k=None, block_size=None) -> dict:
 
 
 def run(grid, fmt: str = "auto", device=None, tol: float = 1e-7,
-        maxiter: int = 500, tune: str = "ml", ell_k=None, block_size=None) -> dict:
+        maxiter: int = 500, tune: str = "ml", ell_k=None, block_size=None,
+        cache=None) -> dict:
     """Build, select/convert and solve; returns the numbers ``main`` prints.
 
-    ``fmt="auto"`` takes the pick of ``FormatPolicy(tune)``; the hints
-    ``ell_k`` and ``block_size`` reach the plan of the format that uses them."""
+    ``fmt="auto"`` takes the pick of ``FormatPolicy(tune, cache=cache)``
+    (``cache``: the selection cache's path, default ``$REPRO_TUNING_CACHE``),
+    and the solve runs with the launch knobs the pick pins (``cached``
+    mode, where a tuned record beat the reference); the hints ``ell_k``
+    and ``block_size`` reach the plan of the format that uses them."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     prob = hpcg.generate_problem(*grid)
@@ -66,19 +71,22 @@ def run(grid, fmt: str = "auto", device=None, tol: float = 1e-7,
 
     t0 = time.perf_counter()
     D = DynamicMatrix(A)
-    target = FormatPolicy(tune).select(A).best if fmt == "auto" else Format[fmt]
+    rep = FormatPolicy(tune, cache=cache).select(A) if fmt == "auto" else None
+    target = rep.best if rep is not None else Format[fmt]
     M = D.activate(target, plan=D.plan(target, **plan_hints(target, ell_k, block_size)))
     _sync(dev)
     t_opt = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    res = cg(operator(M), b, tol=tol, maxiter=maxiter)
+    res = cg(operator(M, cfg=rep.cfg if rep is not None else None), b, tol=tol, maxiter=maxiter)
     _sync(dev)
     t_solve = time.perf_counter() - t0
 
     x_exact = torch.from_numpy(hpcg.exact_solution(prob)).to(dev)
     err = float((res.x - x_exact).abs().max())
     return {"n": prob.shape[0], "nnz": int(len(prob.val)), "format": M.active.name,
+            "pick_mode": rep.mode if rep is not None else "named",
+            "cfg": rep.cfg if rep is not None else None,
             "iters": res.iters, "resnorm": float(res.resnorm), "err": err,
             "setup_s": t_setup, "optimize_s": t_opt, "solve_s": t_solve,
             "device": str(dev), "passed": err < TOL_X}
@@ -91,6 +99,9 @@ def main(argv=None) -> int:
                    help="auto = the pick of the --tune FormatPolicy")
     p.add_argument("--tune", default="ml", choices=TUNE_MODES,
                    help="selection policy behind --format auto")
+    p.add_argument("--cache", default=None,
+                   help="selection cache path for --tune cached (default: $REPRO_TUNING_CACHE "
+                        "or ~/.cache/repro-tuning/selections.json)")
     p.add_argument("--ell-k", type=int, default=None,
                    help="ELL width / HYB split (default: max / median row length)")
     p.add_argument("--block-size", type=int, default=None,
@@ -102,11 +113,12 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     r = run(args.grid, args.format, args.device, args.tol, args.maxiter, tune=args.tune,
-            ell_k=args.ell_k, block_size=args.block_size)
+            ell_k=args.ell_k, block_size=args.block_size, cache=args.cache)
     print(f"device: {r['device']}, grid: {args.grid}, n={r['n']} nnz={r['nnz']} "
           f"(setup {r['setup_s']:.2f}s)")
     how = f"{args.tune} pick" if args.format == "auto" else "named"
-    print(f"format: {r['format']} ({how}, "
+    pin = f", {r['pick_mode']}, kernel cfg {r['cfg']}" if args.tune == "cached" else ""
+    print(f"format: {r['format']} ({how}{pin}, "
           f"{r['optimize_s']:.3f}s)")
     gflops = 2 * r["nnz"] * r["iters"] / max(r["solve_s"], 1e-12) / 1e9
     print(f"solve: {r['iters']} iters, {r['solve_s'] * 1e3:.1f} ms, "

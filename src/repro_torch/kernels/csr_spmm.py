@@ -111,7 +111,7 @@ def csr_spmm(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
 def csr_spmm_t(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
                X: torch.Tensor, m: int, vec: int, tt: int | None = None) -> torch.Tensor:
     """Y = X @ A^T for CSR A and activations X (T, N); returns (T, M).
-    ``vec`` lanes reduce each row (``kernels.ops.spmm_t_config`` picks it)
+    ``vec`` lanes reduce each row (``kernels.ops.default_config`` picks it)
     and a block takes ``tt`` tokens at once (default :func:`token_tile` of
     T). f32 accumulation; Y in X's dtype."""
     global launches_t

@@ -1,9 +1,16 @@
 """Bind the hand-written CUDA kernels to the core containers.
 
 ``SPMV_CUDA``, ``SPMM_CUDA`` and ``SPMM_T_CUDA`` map a container type to
-its kernel entry point for SpMV, SpMM (Y = A @ B) and SpMM_T (Y = X @ A^T),
-which launch with the geometry :func:`default_config` /
-:func:`spmm_t_config` picks for the container.
+its kernel entry point for SpMV, SpMM (Y = A @ B) and SpMM_T (Y = X @ A^T).
+Every entry point takes ``cfg=``, a dict of launch knobs: an explicit
+``cfg`` wins, then the measured winner that ``repro_torch.tuning.kernel_tune``
+cached for the matrix's shape bucket (and rhs-width bucket), then
+:func:`default_config`'s choice (:func:`resolve_config`). The knobs are the
+ones the kernels take: DIA ``block``; CSR and ELL ``vec`` (lanes a row);
+``tt`` (tokens a block) of every SpMM_T kernel. SELL's ``c``/``sigma``
+name a container geometry: the tuner rebuilds the container to time them,
+and no launch reads them. ``repro_torch.core.ops.spmv(backend="auto")``
+threads a measured winner here.
 
 Unlike the JAX package, there are no residency fallbacks here: the TPU
 wrappers send a matrix whose x exceeds a VMEM budget to the reference path,
@@ -11,6 +18,8 @@ a TPU limit with no Hopper counterpart. A CUDA tensor runs its kernel or the
 call raises; nothing falls back to the plain version.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -44,41 +53,88 @@ def _csr_vec(nnz: int, m: int) -> int:
     return _pow2_clamp(avg / CSR_ENTRIES_PER_LANE, 2, 32)
 
 
-def default_config(A) -> dict:
-    """Launch geometry for ``A``'s kernel.
+def _ell_vec(k: int) -> int:
+    return _pow2_clamp(k / CSR_ENTRIES_PER_LANE, 2, 32)
+
+
+def default_config(A, op: str = "spmv", ncols: Optional[int] = None) -> dict:
+    """The untuned launch knobs of ``A``'s kernel for ``op`` ("spmv" |
+    "spmm" | "spmm_t") at rhs width ``ncols`` (K of B, or T of X).
 
     DIA: ``block`` threads per block, one row per thread. CSR: ``vec``
-    lanes per row, the smallest power of two with at most
+    lanes a row, the smallest power of two with at most
     ``CSR_ENTRIES_PER_LANE`` entries of an average row per lane, clamped to
-    [2, 32] (the block is fixed at 256 threads in ``csrc/csr_spmv.cu``).
-    HYB: ``{"ell": ..., "csr": {"vec": ...}}``, the CSR width from the
-    tail's average row. ELL, SELL and BSR take no launch knob (their tiles
-    are constants of their sources): ``{}``.
+    [2, 32]; ELL's SpMM kernels the same from its K (its SpMV kernel takes
+    no knob). SpMM_T adds ``tt``, ``csr_spmm.token_tile`` of T. HYB:
+    ``{"ell": ..., "csr": ...}``, the CSR part from the tail's average row.
+    SELL (but for ``tt``) and BSR take no launch knob: ``{}``.
     """
     if isinstance(A, DIA):
         return {"block": 256}
-    if isinstance(A, CSR):
-        return {"vec": _csr_vec(A.nnz, A.shape[0])}
     if isinstance(A, HYB):
-        return {"ell": default_config(A.ell), "csr": {"vec": _csr_vec(A.coo.nnz, A.shape[0])}}
-    return {}
+        csr = {"vec": _csr_vec(A.coo.nnz, A.shape[0])}
+        if op == "spmm_t":
+            csr["tt"] = _csr_mm.token_tile(ncols or 1)
+        return {"ell": default_config(A.ell, op=op, ncols=ncols), "csr": csr}
+    if isinstance(A, CSR):
+        cfg = {"vec": _csr_vec(A.nnz, A.shape[0])}
+    elif isinstance(A, ELL):
+        cfg = {} if op == "spmv" else {"vec": _ell_vec(A.k)}
+    elif isinstance(A, SELL):
+        cfg = {}
+    else:
+        return {}
+    if op == "spmm_t":
+        cfg["tt"] = _csr_mm.token_tile(ncols or 1)
+    return cfg
 
 
-def dia_spmv(A: DIA, x: torch.Tensor) -> torch.Tensor:
-    return _dia.dia_spmv(A.offsets, A.data, x, A.shape[1],
-                         block=default_config(A)["block"])
+_best_config = None  # repro_torch.tuning.kernel_tune.best_config
 
 
-def csr_spmv(A: CSR, x: torch.Tensor) -> torch.Tensor:
-    return _csr.csr_spmv(A.indptr, A.indices, A.data, x, A.shape[0],
-                         vec=default_config(A)["vec"])
+def resolve_config(A, cfg: Optional[dict], op: str = "spmv",
+                   ncols: Optional[int] = None) -> dict:
+    """The launch knobs a wrapper runs with: an explicit ``cfg`` wins;
+    otherwise the tuned winner cached for ``A``'s shape bucket (and rhs
+    width bucket; a host dict lookup, no device work); otherwise
+    :func:`default_config`. Consulting the tuned records here, and not only
+    on the ``"auto"`` route, gives ``backend=None``/``"cuda"`` callers the
+    measured geometry too; whether the kernel runs never depends on it."""
+    global _best_config
+    if cfg is not None:
+        return cfg
+    if _best_config is None:  # bound at first use: tuning imports kernels
+        from repro_torch.tuning.kernel_tune import best_config as _best_config
+    rec = _best_config(A, op=op, ncols=ncols)
+    if rec is not None:
+        return dict(rec.cfg)
+    return default_config(A, op=op, ncols=ncols)
 
 
-def ell_spmv(A: ELL, x: torch.Tensor) -> torch.Tensor:
+def _pick(cfg: dict, key: str, A, op: str = "spmv", ncols: Optional[int] = None) -> int:
+    """``cfg[key]``, else :func:`default_config`'s (a record tuned before a
+    knob existed still launches)."""
+    v = cfg.get(key)
+    return int(v if v is not None else default_config(A, op=op, ncols=ncols)[key])
+
+
+def dia_spmv(A: DIA, x: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
+    cfg = resolve_config(A, cfg)
+    return _dia.dia_spmv(A.offsets, A.data, x, A.shape[1], block=_pick(cfg, "block", A))
+
+
+def csr_spmv(A: CSR, x: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
+    cfg = resolve_config(A, cfg)
+    return _csr.csr_spmv(A.indptr, A.indices, A.data, x, A.shape[0], vec=_pick(cfg, "vec", A))
+
+
+def ell_spmv(A: ELL, x: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
+    """No launch knob: ``cfg`` is taken for a uniform signature."""
     return _ell.ell_spmv(A.cols, A.data, x)
 
 
-def sell_spmv(A: SELL, x: torch.Tensor) -> torch.Tensor:
+def sell_spmv(A: SELL, x: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
+    """No launch knob (``cfg``'s ``c``/``sigma`` name the container)."""
     return _sell.sell_spmv(A.slice_ptrs, A.cols, A.data, A.perm, x, A.shape[0], A.c)
 
 
@@ -95,65 +151,94 @@ def tail_csr(coo: COO, m: int):
     return indptr, coo.col.index_select(0, order), coo.data.index_select(0, order)
 
 
-def hyb_spmv(A: HYB, x: torch.Tensor) -> torch.Tensor:
+def _hyb_tail_knob(A: HYB, cfg: dict, key: str, op: str, ncols: Optional[int]) -> int:
+    v = (cfg.get("csr") or {}).get(key)
+    return int(v if v is not None else default_config(A, op=op, ncols=ncols)["csr"][key])
+
+
+def hyb_spmv(A: HYB, x: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
     """The ELL kernel over the regular planes plus the CSR kernel over the
     COO tail, as the JAX package composes them."""
+    cfg = resolve_config(A, cfg)
     indptr, indices, data = tail_csr(A.coo, A.shape[0])
     tail = _csr.csr_spmv(indptr, indices, data, x, A.shape[0],
-                         vec=default_config(A)["csr"]["vec"])
+                         vec=_hyb_tail_knob(A, cfg, "vec", "spmv", None))
     return ell_spmv(A.ell, x) + tail
 
 
-def bsr_spmm(A: BSR, B: torch.Tensor) -> torch.Tensor:
+def bsr_spmm(A: BSR, B: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
+    """No launch knob: ``cfg`` is taken for a uniform signature."""
     return _bsr.bsr_spmm(A.indptr, A.indices, A.data, B, A.shape[0])
 
 
-def bsr_spmv(A: BSR, x: torch.Tensor) -> torch.Tensor:
+def bsr_spmv(A: BSR, x: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
     return bsr_spmm(A, x[:, None])[:, 0]
 
 
-def spmm_t_config(A) -> dict:
-    """Launch geometry of ``A``'s SpMM_T kernel: ``vec`` lanes a row for the
-    row-walking CSR and ELL kernels, as for CSR SpMV (ELL from its K). HYB:
-    ``{"ell": ..., "csr": ...}``, the CSR width from the tail's average row.
-    SELL takes no launch knob: ``{}``. The token tile follows T in each
-    kernel's wrapper (``csr_spmm.token_tile``)."""
-    if isinstance(A, CSR):
-        return {"vec": _csr_vec(A.nnz, A.shape[0])}
-    if isinstance(A, ELL):
-        return {"vec": _pow2_clamp(A.k / CSR_ENTRIES_PER_LANE, 2, 32)}
-    if isinstance(A, HYB):
-        return {"ell": spmm_t_config(A.ell), "csr": {"vec": _csr_vec(A.coo.nnz, A.shape[0])}}
-    return {}
-
-
-def csr_spmm(A: CSR, B: torch.Tensor) -> torch.Tensor:
+def csr_spmm(A: CSR, B: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
+    k = B.shape[1]
+    cfg = resolve_config(A, cfg, "spmm", k)
     return _csr_mm.csr_spmm(A.indptr, A.indices, A.data, B, A.shape[0],
-                            vec=default_config(A)["vec"])
+                            vec=_pick(cfg, "vec", A, "spmm", k))
 
 
-def csr_spmm_t(A: CSR, X: torch.Tensor) -> torch.Tensor:
+def ell_spmm(A: ELL, B: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
+    k = B.shape[1]
+    cfg = resolve_config(A, cfg, "spmm", k)
+    return _ell_mm.ell_spmm(A.cols, A.data, B, vec=_pick(cfg, "vec", A, "spmm", k))
+
+
+def sell_spmm(A: SELL, B: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
+    """No launch knob (``cfg``'s ``c``/``sigma`` name the container)."""
+    return _sell_mm.sell_spmm(A.slice_ptrs, A.cols, A.data, A.perm, B, A.shape[0], A.c)
+
+
+def hyb_spmm(A: HYB, B: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
+    """The ELL SpMM kernel over the regular planes plus the CSR SpMM kernel
+    over the COO tail, as the JAX package composes them."""
+    k = B.shape[1]
+    cfg = resolve_config(A, cfg, "spmm", k)
+    indptr, indices, data = tail_csr(A.coo, A.shape[0])
+    tail = _csr_mm.csr_spmm(indptr, indices, data, B, A.shape[0],
+                            vec=_hyb_tail_knob(A, cfg, "vec", "spmm", k))
+    return ell_spmm(A.ell, B, cfg=cfg.get("ell")) + tail
+
+
+def csr_spmm_t(A: CSR, X: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
+    t = X.shape[0]
+    cfg = resolve_config(A, cfg, "spmm_t", t)
     return _csr_mm.csr_spmm_t(A.indptr, A.indices, A.data, X, A.shape[0],
-                              **spmm_t_config(A))
+                              vec=_pick(cfg, "vec", A, "spmm_t", t),
+                              tt=_pick(cfg, "tt", A, "spmm_t", t))
 
 
-def ell_spmm_t(A: ELL, X: torch.Tensor) -> torch.Tensor:
-    return _ell_mm.ell_spmm_t(A.cols, A.data, X, **spmm_t_config(A))
+def ell_spmm_t(A: ELL, X: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
+    t = X.shape[0]
+    cfg = resolve_config(A, cfg, "spmm_t", t)
+    return _ell_mm.ell_spmm_t(A.cols, A.data, X, vec=_pick(cfg, "vec", A, "spmm_t", t),
+                              tt=_pick(cfg, "tt", A, "spmm_t", t))
 
 
-def sell_spmm_t(A: SELL, X: torch.Tensor) -> torch.Tensor:
-    return _sell_mm.sell_spmm_t(A.slice_ptrs, A.cols, A.data, A.perm, X, A.shape[0], A.c)
+def sell_spmm_t(A: SELL, X: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
+    t = X.shape[0]
+    cfg = resolve_config(A, cfg, "spmm_t", t)
+    return _sell_mm.sell_spmm_t(A.slice_ptrs, A.cols, A.data, A.perm, X, A.shape[0], A.c,
+                                tt=_pick(cfg, "tt", A, "spmm_t", t))
 
 
-def hyb_spmm_t(A: HYB, X: torch.Tensor) -> torch.Tensor:
+def hyb_spmm_t(A: HYB, X: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
     """The ELL SpMM_T kernel over the regular planes plus the CSR SpMM_T
     kernel over the COO tail, as the JAX package composes them."""
+    t = X.shape[0]
+    cfg = resolve_config(A, cfg, "spmm_t", t)
     indptr, indices, data = tail_csr(A.coo, A.shape[0])
-    tail = _csr_mm.csr_spmm_t(indptr, indices, data, X, A.shape[0], **spmm_t_config(A)["csr"])
-    return ell_spmm_t(A.ell, X) + tail
+    tail = _csr_mm.csr_spmm_t(indptr, indices, data, X, A.shape[0],
+                              vec=_hyb_tail_knob(A, cfg, "vec", "spmm_t", t),
+                              tt=_hyb_tail_knob(A, cfg, "tt", "spmm_t", t))
+    return ell_spmm_t(A.ell, X, cfg=cfg.get("ell")) + tail
 
 
-def bsr_spmm_t(A: BSR, X: torch.Tensor) -> torch.Tensor:
+def bsr_spmm_t(A: BSR, X: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
     """BSR has no transposed-rhs kernel: the (N, K) kernel on X^T, as the
     JAX package does."""
     return bsr_spmm(A, X.T.contiguous()).T
@@ -161,25 +246,9 @@ def bsr_spmm_t(A: BSR, X: torch.Tensor) -> torch.Tensor:
 
 SPMV_CUDA = {CSR: csr_spmv, DIA: dia_spmv, ELL: ell_spmv, SELL: sell_spmv,
              HYB: hyb_spmv, BSR: bsr_spmv}
-SPMM_CUDA = {BSR: bsr_spmm, CSR: csr_spmm}
+SPMM_CUDA = {BSR: bsr_spmm, CSR: csr_spmm, ELL: ell_spmm, HYB: hyb_spmm, SELL: sell_spmm}
 SPMM_T_CUDA = {CSR: csr_spmm_t, ELL: ell_spmm_t, HYB: hyb_spmm_t, SELL: sell_spmm_t,
                BSR: bsr_spmm_t}
-# Formats with a Pallas SpMM kernel in the JAX package that the port has
-# not ported yet: on the card their SpMM raises instead of running the
-# reference under a kernel's name.
-SPMM_PENDING = (ELL, SELL, HYB)
-_SPMM_PENDING_WHY = ("ELL/SELL/HYB SpMM (Y = A @ B) kernels are ROADMAP Queue 2 rows 8 and 10 "
-                     "(ell_spmm, sell_spmm; hyb_spmm composes them), not ported yet")
-
-
-def spmm_cuda_route(A):
-    """The SpMM kernel entry point for ``A`` on the card: its kernel, None
-    where the JAX package has no kernel either (COO, DIA, Dense: the
-    reference runs), or ``NotImplementedError`` for a kernel still to be
-    ported."""
-    if isinstance(A, SPMM_PENDING):
-        raise NotImplementedError(f"{type(A).__name__}: {_SPMM_PENDING_WHY}")
-    return SPMM_CUDA.get(type(A))
 
 
 def cuda_registry(op: str) -> dict:
@@ -194,8 +263,9 @@ LAUNCH_COUNTERS = {
     "dia_spmv": (_dia, "launches"), "csr_spmv": (_csr, "launches"),
     "ell_spmv": (_ell, "launches"), "sell_spmv": (_sell, "launches"),
     "bsr_spmm": (_bsr, "launches"), "csr_spmm": (_csr_mm, "launches"),
-    "csr_spmm_t": (_csr_mm, "launches_t"), "ell_spmm_t": (_ell_mm, "launches"),
-    "sell_spmm_t": (_sell_mm, "launches"),
+    "csr_spmm_t": (_csr_mm, "launches_t"), "ell_spmm": (_ell_mm, "launches"),
+    "ell_spmm_t": (_ell_mm, "launches_t"), "sell_spmm": (_sell_mm, "launches"),
+    "sell_spmm_t": (_sell_mm, "launches_t"),
 }
 
 

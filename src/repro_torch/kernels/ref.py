@@ -104,20 +104,27 @@ def csr_spmm_t_ref(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tens
     return csr_spmm_ref(indptr, indices, data, X.T, m).T
 
 
+def ell_spmm_ref(cols: torch.Tensor, data: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Y[i, :] = sum_k data[i, k] * B[cols[i, k], :] for B (N, Kb); columns
+    clamp into [0, N) (padding slots col=-1/val=0 read row 0 of B and add
+    nothing); K = 0 gives zeros. (M, Kb) in B's dtype."""
+    def part(Bc):
+        return (data.float()[..., None] * take_clip(Bc, cols).float()).sum(dim=1)
+    return by_columns(part, B, cols.numel()).to(B.dtype)
+
+
 def ell_spmm_t_ref(cols: torch.Tensor, data: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """Y[t, i] = sum_k data[i, k] * X[t, cols[i, k]]; columns clamp into
     [0, N) (padding slots col=-1/val=0 read column 0 and add nothing);
     K = 0 gives zeros. (T, M) in X's dtype."""
-    def part(Bc):
-        return (data.float()[..., None] * take_clip(Bc, cols).float()).sum(dim=1)
-    return by_columns(part, X.T, cols.numel()).T.to(X.dtype)
+    return ell_spmm_ref(cols, data, X.T).T
 
 
-def sell_spmm_t_ref(slice_ptrs: torch.Tensor, cols: torch.Tensor, data: torch.Tensor,
-                    perm: torch.Tensor, X: torch.Tensor, m: int, c: int) -> torch.Tensor:
-    """Y = X @ A^T for SELL-C-sigma A and activations X (T, N): each sorted
-    lane's sums scatter to column ``perm[lane]`` of Y; ghost lanes (``perm``
-    outside [0, m)) are dropped. (T, M) in X's dtype."""
+def sell_spmm_ref(slice_ptrs: torch.Tensor, cols: torch.Tensor, data: torch.Tensor,
+                  perm: torch.Tensor, B: torch.Tensor, m: int, c: int) -> torch.Tensor:
+    """Y = A @ B for SELL-C-sigma A and B (N, Kb): each sorted lane's sums
+    scatter to row ``perm[lane]`` of Y; ghost lanes (``perm`` outside
+    [0, m)) are dropped. (M, Kb) in B's dtype."""
     nslices = slice_ptrs.shape[0] - 1
     t = data.shape[0] // c
     q = torch.arange(t, dtype=slice_ptrs.dtype, device=data.device) * c
@@ -129,4 +136,12 @@ def sell_spmm_t_ref(slice_ptrs: torch.Tensor, cols: torch.Tensor, data: torch.Te
             Bc, cols.reshape(t, c)).float()
         y_sorted = segment_sum(contrib, plane, nslices).reshape(nslices * c, -1)
         return segment_sum(y_sorted, perm, m)
-    return by_columns(part, X.T, data.shape[0]).T.to(X.dtype)
+    return by_columns(part, B, data.shape[0]).to(B.dtype)
+
+
+def sell_spmm_t_ref(slice_ptrs: torch.Tensor, cols: torch.Tensor, data: torch.Tensor,
+                    perm: torch.Tensor, X: torch.Tensor, m: int, c: int) -> torch.Tensor:
+    """Y = X @ A^T for SELL-C-sigma A and activations X (T, N): each sorted
+    lane's sums scatter to column ``perm[lane]`` of Y; ghost lanes (``perm``
+    outside [0, m)) are dropped. (T, M) in X's dtype."""
+    return sell_spmm_ref(slice_ptrs, cols, data, perm, X.T, m, c).T

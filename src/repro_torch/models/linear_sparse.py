@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.core.convert import convert
+from repro_torch.core.convert import convert_execute
 from repro_torch.core.dynamic import DynamicMatrix
 from repro_torch.core.formats import Format, coo_from_dense_np, from_numpy
 from repro_torch.core.ops import spmm_t
@@ -67,8 +67,10 @@ class LinearSparse(nn.Module):
 
     ``backend`` is the SpMM_T backend of every call: ``None`` (default) runs
     the kernel on the card and the reference on the CPU, ``"ref"`` the
-    reference anywhere. (The JAX layer's default, ``"auto"``, routes from
-    kernel-tune records, which are not ported.)
+    reference anywhere, ``"auto"`` the kernel where a ``kernel_tune`` record
+    for the call's width bucket beat the reference (else the reference,
+    counted). The JAX layer defaults to ``"auto"``; untuned, that runs the
+    reference, so the port keeps the kernel as its default.
     """
 
     def __init__(self, weight: DynamicMatrix, bias: Optional[torch.Tensor] = None,
@@ -85,16 +87,17 @@ class LinearSparse(nn.Module):
         """Build from a (pruned) dense weight (d_in, d_out), on ``device``
         (None: the card). ``fmt=None`` picks the format with a
         :class:`FormatPolicy` over ``WEIGHT_CANDIDATES``: ``tune`` is a mode
-        string ("ml" | "analytic" | "profile") or a policy. ``ncols`` (the
-        expected batch width) makes the pick width-aware: profile mode
-        times the transposed-rhs SpMM at that width, so decode (1) and
-        prefill (256) builds may pick different formats."""
+        string ("ml" | "analytic" | "profile" | "cached") or a policy.
+        ``ncols`` (the expected batch width) makes the pick width-aware:
+        profile mode times the transposed-rhs SpMM at that width, cached
+        mode keys its decision by the width bucket, so decode (1) and
+        prefill (256) builds may pick different formats. A SELL weight takes
+        the slice geometry of a tuned record at that width, where the
+        policy's cache holds one (``FormatPolicy.plan_for``)."""
         dev = resolve_device(device)
         coo = coo_from_dense_np(np.asarray(w).T, device=dev)
-        if fmt is None:
-            fmt = _policy(tune).select(coo, op="spmm_t", ncols=ncols).best
-        return cls(DynamicMatrix(convert(coo, fmt, **conv_kwargs)), _bias(bias, dev),
-                   backend=backend)
+        plan = _policy(tune).plan_for(coo, fmt=fmt, op="spmm_t", ncols=ncols, **conv_kwargs)
+        return cls(DynamicMatrix(convert_execute(coo, plan)), _bias(bias, dev), backend=backend)
 
     @classmethod
     def from_numpy(cls, fields: dict, fmt, shape, nnz: int, bias=None,

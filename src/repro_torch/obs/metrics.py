@@ -8,6 +8,13 @@ Counters are host-side dict updates under a lock. Standard names:
                                 width-aware re-selection of a weight format
     serve.format_switch         the retunes that changed the weight's format
                                 (``repro_torch.models.linear_sparse``)
+    kernel.route.cuda           ``backend="auto"`` calls routed to a kernel by
+                                a record that beat the reference
+    kernel.route.veto           ... kept on the reference by a record that lost
+    kernel.route.ref            ... kept on the reference with no record, or
+                                off the card (``repro_torch.core.ops.kernel_route``)
+    selection.cache_hit/miss    selection-store lookups
+                                (``repro_torch.tuning.cache``)
 
 Kernel launches are counted by each kernel module's ``launches`` integer
 (``repro_torch.kernels.ops.launch_counts``), not here.

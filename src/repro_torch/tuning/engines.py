@@ -8,8 +8,8 @@
     :func:`time_fn` (CUDA events on the card, the host clock on the CPU)
     and picks the fastest.
 
-The measured gather penalty (``calibrate_gather_penalty``) comes with the
-kernel-tuning slice.
+The measured gather penalty (``calibrate_gather_penalty``) is still to be
+ported.
 """
 from __future__ import annotations
 
@@ -37,14 +37,14 @@ GATHER_PENALTY = 4.0  # effective-bandwidth derate for data-dependent gathers
 class TuneReport:
     """A selection decision: the winning format, the time each candidate
     was predicted (or measured) to take and, when :func:`profile_select`
-    searched more than one backend, the backend that won. The kernel launch
-    config that the JAX report may carry comes with the kernel-tuning
-    slice."""
+    searched more than one backend or a cached decision pins a kernel, the
+    backend (and, pinned, the kernel's launch knobs)."""
 
     best: Format
     times: Dict[Format, float]  # seconds (measured or predicted)
     mode: str
-    backend: Optional[str] = None  # "ref" | "cuda" | None (not searched)
+    backend: Optional[str] = None  # "ref" | "cuda" | None (not searched, not pinned)
+    cfg: Optional[dict] = None  # the pinned kernel's launch knobs
 
     def __repr__(self):
         rows = ", ".join(f"{f.name}={t:.3e}s" for f, t in self.times.items())
@@ -162,9 +162,7 @@ def profile_select(A, x,
     planned (one small sync) and converted on the device of ``A``, then one
     ``op(Af, x, backend=...)`` is timed with :func:`time_fn`, through the
     route ``backend=None`` takes on that device: the CUDA kernel on the
-    card, the torch reference on the CPU. A format whose kernel for ``op``
-    is still to be ported (SpMM of ELL, SELL and HYB) has no route on the
-    card and is skipped there. ``backends`` extends the search to (format,
+    card, the torch reference on the CPU. ``backends`` extends the search to (format,
     backend) pairs, e.g. ``("ref", "cuda")``; ``times`` then holds each
     format's best time and the report's ``backend`` names the winning pair's
     backend. ``"cuda"`` is timed only for formats with a kernel in the op's
@@ -190,8 +188,6 @@ def profile_select(A, x,
         for b in searched:
             if b == "cuda" and type(Af) not in registry:
                 continue
-            if b is None and x.is_cuda and op == "spmm" and isinstance(Af, kops.SPMM_PENDING):
-                continue  # no route on the card until its kernel is ported
             t = time_fn(lambda a, v, b=b: op_fn(a, v, backend=b), Af, x,
                         iters=iters, inner=inner)
             if fmt not in times or t < times[fmt]:

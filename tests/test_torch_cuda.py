@@ -31,8 +31,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import sell_spmm as ksm
 from repro_torch.kernels import sell_spmv as ks
 from repro_torch.kernels.ref import (bsr_spmm_ref, csr_spmm_ref, csr_spmm_t_ref,
-                                     csr_spmv_ref, dia_spmv_ref, ell_spmm_t_ref,
-                                     ell_spmv_ref, sell_spmm_t_ref, sell_spmv_ref)
+                                     csr_spmv_ref, dia_spmv_ref, ell_spmm_ref, ell_spmm_t_ref,
+                                     ell_spmv_ref, sell_spmm_ref, sell_spmm_t_ref, sell_spmv_ref)
 from repro_torch.models import LinearSparse, prune_magnitude
 from repro_torch.tuning import FormatPolicy, PatternFeatures
 
@@ -409,10 +409,10 @@ def test_ell_spmm_t_kernel_matches_plain(card, dtype_name):
             X = _rand(rng, (t, n), dt, card)
             y_p = ell_spmm_t_ref(cols, vals, X)
             for vec, tt in ((2, 1), (8, 4), (32, 8), (4, 2), (16, None)):
-                before = kem.launches
+                before = kem.launches_t
                 y1 = kem.ell_spmm_t(cols, vals, X, vec=vec, tt=tt)
                 y2 = kem.ell_spmm_t(cols, vals, X, vec=vec, tt=tt)
-                assert kem.launches == before + (2 if k else 0)  # K = 0 launches nothing
+                assert kem.launches_t == before + (2 if k else 0)  # K = 0 launches nothing
                 _same(y1, y2, y_p, dtype_name)
 
 
@@ -428,34 +428,147 @@ def test_sell_spmm_t_kernel_matches_plain(card, dtype_name, c, sigma):
         X = _rand(rng, (t, n), dt, card)
         y_p = sell_spmm_t_ref(*args, X, m, c)
         for tt in kcm.TOKEN_TILES + (None,):
-            before = ksm.launches
+            before = ksm.launches_t
             y1 = ksm.sell_spmm_t(*args, X, m, c, tt=tt)
             y2 = ksm.sell_spmm_t(*args, X, m, c, tt=tt)
-            assert ksm.launches == before + 2
+            assert ksm.launches_t == before + 2
             _same(y1, y2, y_p, dtype_name)
 
 
 def test_spmm_on_formats_without_a_ported_kernel_raises(card):
-    """On the card ELL, SELL and HYB SpMM raise (their kernels are still to
-    be ported) instead of running the reference; CSR and BSR launch their
-    kernels; COO runs the reference, as in the JAX package."""
+    """Every SpMM kernel is ported now: on the card ELL, SELL and HYB SpMM
+    launch their kernels (HYB: ell_spmm and csr_spmm over the tail), as do
+    CSR and BSR, with ``backend=None`` and ``"cuda"``; COO runs the
+    reference, as in the JAX package."""
     a = _ragged_dense(np.random.default_rng(14), 64, 48)
     A = coo_from_dense_np(a, device=card)
     B = torch.ones(48, 5, device=card)
-    for fmt in (Format.ELL, Format.SELL, Format.HYB):
-        with pytest.raises(NotImplementedError, match="rows 8 and 10"):
-            spmm(convert(A, fmt), B)
-        with pytest.raises(NotImplementedError, match="rows 8 and 10"):
-            spmm(convert(A, fmt), B, backend="cuda")
-    for fmt, kernel in ((Format.CSR, "csr_spmm"), (Format.BSR, "bsr_spmm"), (Format.COO, None)):
+    for fmt, kernels in ((Format.ELL, ("ell_spmm",)), (Format.SELL, ("sell_spmm",)),
+                         (Format.HYB, ("ell_spmm", "csr_spmm")), (Format.CSR, ("csr_spmm",)),
+                         (Format.BSR, ("bsr_spmm",)), (Format.COO, ())):
         M = convert(A, fmt, **({"block_size": 16} if fmt == Format.BSR else {}))
+        for backend in (None, "cuda"):
+            before = kops.launch_counts()
+            y = spmm(M, B, backend=backend)
+            torch.cuda.synchronize()
+            after = kops.launch_counts()
+            assert {k: after[k] - before[k] for k in after} == \
+                {k: int(k in kernels) for k in after}
+            np.testing.assert_allclose(y.cpu().numpy(), a @ np.ones((48, 5), np.float32),
+                                       rtol=1e-4, atol=1e-4)
+
+
+# Rhs widths of Y = A @ B: the sub-warp schedule (K <= 8), one lane group
+# (9), a group with several columns a lane (256), a second grid row (300).
+SPMM_WIDTHS = (1, 3, 9, 256, 300)
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+def test_ell_spmm_kernel_matches_plain(card, dtype_name):
+    """Clamped columns and rows of padding only; K = 0 launches nothing."""
+    rng = np.random.default_rng(18)
+    dt = DTYPES[dtype_name]
+    for m, n, k in ELL_CASES:
+        cols, vals, _ = _ell_inputs(rng, m, n, k, dt, card)
+        for kb in SPMM_WIDTHS:
+            B = _rand(rng, (n, kb), dt, card)
+            y_p = ell_spmm_ref(cols, vals, B)
+            for vec in (kcm.VEC_WIDTHS if kb <= 8 else (8,)):  # vec reads Kb <= 8 only
+                before = kem.launches
+                y1 = kem.ell_spmm(cols, vals, B, vec=vec)
+                y2 = kem.ell_spmm(cols, vals, B, vec=vec)
+                assert kem.launches == before + (2 if k else 0)
+                _same(y1, y2, y_p, dtype_name)
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("c,sigma", [(32, 256), (8, 16), (5, 5)])
+def test_sell_spmm_kernel_matches_plain(card, dtype_name, c, sigma):
+    """Ghost lanes hold NaN (never written to Y), empty rows, C != 32."""
+    rng = np.random.default_rng(19)
+    dt = DTYPES[dtype_name]
+    m, n = 301, 120
+    args = _sell_with_nan_ghosts(_ragged_dense(rng, m, n), c, sigma, dt, card)
+    for kb in SPMM_WIDTHS:
+        B = _rand(rng, (n, kb), dt, card)
+        before = ksm.launches
+        y1 = ksm.sell_spmm(*args, B, m, c)
+        y2 = ksm.sell_spmm(*args, B, m, c)
+        assert ksm.launches == before + 2
+        _same(y1, y2, sell_spmm_ref(*args, B, m, c), dtype_name)
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+def test_hyb_spmm_kernel_matches_plain(card, dtype_name):
+    """ELL planes plus the CSR tail, each kernel once a call."""
+    rng = np.random.default_rng(20)
+    dt = DTYPES[dtype_name]
+    a = _ragged_dense(rng, 96, 70)
+    H = convert(coo_from_dense_np(a, device=card, dtype=dt), Format.HYB, k=3)
+    assert H.coo.nnz > 0
+    for kb in SPMM_WIDTHS:
+        B = _rand(rng, (70, kb), dt, card)
         before = kops.launch_counts()
-        y = spmm(M, B)
-        torch.cuda.synchronize()
+        y1, y2 = kops.hyb_spmm(H, B), kops.hyb_spmm(H, B)
         after = kops.launch_counts()
-        assert {k: after[k] - before[k] for k in after} == {k: int(k == kernel) for k in after}
-        np.testing.assert_allclose(y.cpu().numpy(), a @ np.ones((48, 5), np.float32),
-                                   rtol=1e-4, atol=1e-4)
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == \
+            {"ell_spmm": 2, "csr_spmm": 2}
+        y_p = ell_spmm_ref(H.ell.cols, H.ell.data, B) + csr_spmm_ref(
+            *kops.tail_csr(H.coo, 96), B, 96)
+        _same(y1, y2, y_p, dtype_name)
+
+
+def test_tune_kernel_then_auto_launches_the_kernel(card, tmp_path, monkeypatch):
+    """A record that beat the reference routes ``auto`` to the kernel with
+    its knobs (bitwise what ``backend="cuda", cfg=`` gives), one launch a
+    call; a record that lost routes to the reference, counted as a veto."""
+    from repro_torch.obs import metrics
+    from repro_torch.tuning import CACHE_PATH_ENV, KernelRecord, SelectionCache, kernel_tune
+    path = str(tmp_path / "sel.json")
+    monkeypatch.setenv(CACHE_PATH_ENV, path)
+    rng = np.random.default_rng(21)
+    A = convert(coo_from_dense_np(_ragged_dense(rng, 400, 300), device=card), Format.ELL)
+    B = _rand(rng, (300, 16), torch.float32, card)
+    rec = kernel_tune.tune_kernel(A, B, op="spmm", cache=SelectionCache(path), iters=2, inner=1)
+    rec = KernelRecord(rec.fmt, rec.op, rec.cfg, kernel_us=1.0, ref_us=2.0)  # a winner
+    key = kernel_tune.kernel_key(A.format, 400, 300, A.nnz, op="spmm", ncols=16, device=card)
+    SelectionCache(path).put_raw(key, rec.to_json())
+    assert kernel_tune.best_config(A, op="spmm", ncols=256) is None  # b16 only
+    with metrics.scope() as s:
+        before = kem.launches
+        y = spmm(A, B, backend="auto")
+        torch.cuda.synchronize()
+        assert kem.launches == before + 1 and s.delta("kernel.route.cuda") == 1
+    assert torch.equal(y, spmm(A, B, backend="cuda", cfg=rec.cfg))
+    SelectionCache(path).put_raw(key, KernelRecord(rec.fmt, rec.op, rec.cfg, 2.0, 1.0).to_json())
+    with metrics.scope() as s:
+        before = kem.launches
+        y_ref = spmm(A, B, backend="auto")
+        assert kem.launches == before and s.delta("kernel.route.veto") == 1
+    torch.testing.assert_close(y_ref, y, rtol=1e-4, atol=1e-4)
+
+
+def test_cached_policy_round_trip_on_card(card, tmp_path):
+    """FormatPolicy("cached") per width bucket: a miss takes the ml pick
+    and pins ("cuda", cfg) from a winning record of its own cache; the
+    next call hits and returns the same (format, backend, cfg)."""
+    from repro_torch.models import WEIGHT_CANDIDATES
+    from repro_torch.tuning import KernelRecord, SelectionCache, kernel_tune
+    rng = np.random.default_rng(22)
+    w = prune_magnitude(rng.standard_normal((128, 96)).astype(np.float32), 0.25)
+    A = coo_from_dense_np(w.T, device=card)
+    cache = SelectionCache(str(tmp_path / "sel.json"))
+    fmt = FormatPolicy("ml", candidates=WEIGHT_CANDIDATES).select(A).best
+    cache.put_raw(kernel_tune.kernel_key(fmt, 96, 128, A.nnz, op="spmm_t", ncols=256,
+                                         device=card),
+                  KernelRecord(fmt.name, "spmm_t", {"tt": 4}, 1.0, 9.0).to_json())
+    for ncols, pin in ((1, (None, None)), (256, ("cuda", {"tt": 4}))):
+        pol = FormatPolicy("cached", candidates=WEIGHT_CANDIDATES, cache=cache)
+        cold = pol.select(A, op="spmm_t", ncols=ncols)
+        warm = pol.select(A, op="spmm_t", ncols=ncols)
+        assert cold.mode == "cached-miss:ml" and warm.mode == "cached"
+        assert (cold.best, cold.backend, cold.cfg) == (warm.best, warm.backend, warm.cfg) == \
+            (fmt,) + pin
 
 
 # Kernels each weight format's SpMM_T launches once per call.
@@ -515,6 +628,9 @@ def test_profile_spmm_t_on_card_skips_nothing_and_launches_kernels(card):
     assert set(rep.times) == set(candidates)
     counts = kops.launch_counts()
     assert all(counts[k] > 0 for k in ("csr_spmm_t", "ell_spmm_t", "sell_spmm_t"))
+    kops.reset_launches()
     rep = FormatPolicy("profile", candidates=candidates, profile_iters=2).select(
         A, op="spmm", ncols=16)
-    assert set(rep.times) == {Format.CSR, Format.COO}  # ELL, SELL, HYB: no kernel yet
+    assert set(rep.times) == set(candidates)
+    counts = kops.launch_counts()
+    assert all(counts[k] > 0 for k in ("csr_spmm", "ell_spmm", "sell_spmm"))

@@ -38,13 +38,14 @@ DIA_CASES = [
     (1, 1, [0]),
 ]
 ALL_KERNELS = ("dia_spmv", "csr_spmv", "ell_spmv", "sell_spmv", "bsr_spmm", "csr_spmm",
-               "csr_spmm_t", "ell_spmm_t", "sell_spmm_t")
+               "csr_spmm_t", "ell_spmm", "ell_spmm_t", "sell_spmm", "sell_spmm_t")
 # Source (library) -> the Pallas functions its kernels replace.
 REPLACES = {"dia_spmv": ("dia_spmv.py::dia_spmv",), "csr_spmv": ("csr_spmv.py::csr_spmv",),
             "ell_spmv": ("ell_spmv.py::ell_spmv",), "sell_spmv": ("sell_spmv.py::sell_spmv",),
             "bsr_spmm": ("bsr_spmm.py::bsr_spmm",),
             "csr_spmm": ("csr_spmm.py::csr_spmm", "csr_spmm.py::csr_spmm_t"),
-            "ell_spmm": ("ell_spmv.py::ell_spmm_t",), "sell_spmm": ("sell_spmv.py::sell_spmm_t",)}
+            "ell_spmm": ("ell_spmv.py::ell_spmm", "ell_spmv.py::ell_spmm_t"),
+            "sell_spmm": ("sell_spmv.py::sell_spmm", "sell_spmv.py::sell_spmm_t")}
 # CSR row lengths: empty first/middle/last rows, one long row.
 CSR_LENS = [[0, 3, 0, 0, 70, 1, 27, 0, 64, 0], [5], [0, 0, 2]]
 

@@ -17,6 +17,7 @@ import repro.core.ops as jops
 import repro_torch.core.formats as tf
 import repro_torch.core.ops as tops
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import metrics
 from repro.core import Format as JFormat
 from torch_parity import CAP, PATTERNS, jconv, port_from_jax, tol
 
@@ -84,14 +85,17 @@ def test_spmv_rectangular_dia_offsets_outside():
 def test_backend_resolution():
     """Every SpMV format but COO and Dense has a CUDA kernel now: on a CPU
     tensor ``backend="cuda"`` refuses (it never falls back to the
-    reference), and ``"ref"`` runs the reference."""
+    reference), ``"ref"`` runs the reference, and ``"auto"`` routes: off
+    the card always to the reference, counted as ``kernel.route.ref``."""
     _, _, Bt = _containers("stencil", "CSR")
     x = torch.ones(Bt.shape[1])
     assert tops.resolve_backend(None, x) == "ref"
     with pytest.raises(ValueError, match="CUDA tensors"):
         tops.spmv(Bt, x, backend="cuda")
-    with pytest.raises(NotImplementedError, match="kernel_tune"):
-        tops.spmv(Bt, x, backend="auto")
+    with metrics.scope() as s:
+        assert torch.equal(tops.spmv(Bt, x, backend="auto"), tops.spmv(Bt, x, backend="ref"))
+        assert tops.kernel_route(Bt) == ("ref", None)
+        assert s.delta("kernel.route.ref") == 2 and s.delta("kernel.route.cuda") == 0
     with pytest.raises(ValueError, match="unknown backend"):
         tops.spmv(Bt, x, backend="pallas")
     assert set(kops.SPMV_CUDA) == {tf.CSR, tf.DIA, tf.ELL, tf.SELL, tf.HYB, tf.BSR}

@@ -178,12 +178,17 @@ def test_autotune_matches_jax(mode, fake_times):
     assert rt.best.name == rj.best.name and rt.mode == rj.mode
 
 
-def test_autotune_refuses_what_it_cannot_do():
+def test_autotune_refuses_what_it_cannot_do(tmp_path):
+    """``cached`` now selects: the ml pick on a miss, the stored pick on a
+    hit; only an unknown mode or profile without x refuses."""
     _, At = coo_pair(PATTERNS["stencil"]())
     with pytest.raises(ValueError, match="requires x"):
         autotune(At, mode="profile")
-    with pytest.raises(NotImplementedError, match="kernel_tune"):
-        autotune(At, mode="cached")
+    path = str(tmp_path / "sel.json")
+    cold = autotune(At, mode="cached", cache=path)
+    warm = autotune(At, mode="cached", cache=path)
+    assert cold.best == warm.best == autotune(At, mode="ml").best
+    assert (cold.mode, warm.mode) == ("cached-miss:ml", "cached")
     with pytest.raises(ValueError, match="unknown mode"):
         autotune(At, mode="fastest")
 
@@ -269,7 +274,7 @@ def test_profile_spmm_t_times_real_runs_on_the_cpu():
     with pytest.raises(ValueError, match="CUDA tensors"):
         profile_select(At, X, candidates=(Format.ELL,), iters=1, backends=("ref", "cuda"),
                        op="spmm_t")
-    # no SpMM kernel for ELL yet: "cuda" is not timed for it, so nothing raises
-    rep = profile_select(At, X.T.contiguous(), candidates=(Format.ELL,), iters=1,
-                         backends=("ref", "cuda"), op="spmm")
-    assert rep.best == Format.ELL and rep.backend == "ref"
+    # ELL has its SpMM kernel now: "cuda" is timed for it and refuses too
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        profile_select(At, X.T.contiguous(), candidates=(Format.ELL,), iters=1,
+                       backends=("ref", "cuda"), op="spmm")

@@ -30,8 +30,8 @@ from repro_torch.kernels import csr_spmm as kcm
 from repro_torch.kernels import ell_spmm as kem
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import sell_spmm as ksm
-from repro_torch.kernels.ref import (csr_spmm_ref, csr_spmm_t_ref, ell_spmm_t_ref,
-                                     sell_spmm_t_ref)
+from repro_torch.kernels.ref import (csr_spmm_ref, csr_spmm_t_ref, ell_spmm_ref,
+                                     ell_spmm_t_ref, sell_spmm_ref, sell_spmm_t_ref)
 from torch_parity import PATTERNS, coo_pair, jconv, port_from_jax, tconv, tol
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -213,6 +213,115 @@ def test_sell_plain_spmm_t_drops_nan_ghost_lanes(c, sigma, dtype_name):
         np.testing.assert_allclose(_f(y), oracle, **tol(dtype_name))
 
 
+@pytest.mark.parametrize("dtype_name", DTYPE_NAMES)
+@pytest.mark.parametrize("case", range(len(ELL_CASES)))
+def test_ell_plain_spmm_matches_jax_pallas_ref_and_oracle(case, dtype_name):
+    """``ell_spmm_ref`` and ``spmm(ELL)`` on the CPU against JAX's Pallas
+    ``ell_spmm`` in interpret mode (both layouts), its jnp reference and the
+    dense oracle; clamped columns, padding rows, K = 0."""
+    m, n, k = ELL_CASES[case]
+    rng = np.random.default_rng(32)
+    cols = rng.integers(-3, n + 3, (m, k)).astype(np.int32)
+    vals = rng.standard_normal((m, k)).astype(np.float32)
+    cols[::7], vals[::7] = -1, 0.0
+    B = rng.standard_normal((n, 5)).astype(np.float32)
+    y = ell_spmm_ref(_t(cols), _t(vals, dtype_name), _t(B, dtype_name))
+    assert y.dtype == TORCH_DTYPES[dtype_name] and y.shape == (m, 5)
+    oracle = np.einsum("ik,ikj->ij", _rounded(vals, dtype_name),
+                       _rounded(B, dtype_name)[np.clip(cols, 0, n - 1)])
+    np.testing.assert_allclose(_f(y), oracle, **tol(dtype_name))
+    E = tf.ELL(_t(cols), _t(vals, dtype_name), (m, n), m * k)
+    assert torch.equal(kops.ell_spmm(E, _t(B, dtype_name)), y)  # CPU: the plain version
+    if dtype_name == "float32":  # the reference route sums bf16 in bf16, as JAX's does
+        np.testing.assert_allclose(_f(tops.spmm(E, _t(B))), oracle, **tol(dtype_name))
+    jargs = (jnp.asarray(cols), jnp.asarray(_f(_t(vals, dtype_name))),
+             jnp.asarray(_f(_t(B, dtype_name))))
+    Ej = jf.ELL(jargs[0], jargs[1], (m, n), m * k)
+    np.testing.assert_allclose(_f(y), np.asarray(jops.spmm(Ej, jargs[2], backend="ref")),
+                               **tol(dtype_name))
+    for layout in ("row", "col"):
+        pallas = jell.ell_spmm(*jargs, tm=32, tn=8, layout=layout, interpret=True)
+        np.testing.assert_allclose(_f(y), np.asarray(pallas, np.float32), **tol(dtype_name))
+
+
+@pytest.mark.parametrize("dtype_name", DTYPE_NAMES)
+@pytest.mark.parametrize("c,sigma", [(8, 16), (32, 64), (5, 5)])
+def test_sell_plain_spmm_matches_jax_ref_and_drops_nan_ghost_lanes(c, sigma, dtype_name):
+    """``sell_spmm_ref`` and ``spmm(SELL)`` against JAX's jnp reference
+    (``_spmm_sell``: the Pallas SELL kernel does not trace on this JAX) on
+    the same container, with empty rows, C != 32, and ghost lanes holding
+    NaN in the plain version's input (never written)."""
+    rng = np.random.default_rng(33)
+    m, n = 61, 40
+    a = np.zeros((m, n), np.float32)
+    for i in range(m):
+        if i % 5:
+            ln = int(rng.integers(1, 3 * n // 4))
+            a[i, rng.choice(n, ln, replace=False)] = rng.standard_normal(ln)
+    Jc, _ = coo_pair(a)
+    Sj = jconv.convert(Jc, jf.Format.SELL, c=c, sigma=sigma)
+    S = port_from_jax(Sj)
+    data = S.data.clone()
+    ptrs, perm = S.slice_ptrs.tolist(), S.perm.tolist()
+    for lane, row in enumerate(perm):
+        if row >= m:
+            s, r = divmod(lane, c)
+            data[ptrs[s] + r:ptrs[s + 1]:c] = float("nan")
+    assert max(perm) == m  # the case has ghost lanes
+    args = (S.slice_ptrs, S.cols, data.to(TORCH_DTYPES[dtype_name]), S.perm)
+    oracle_a = _rounded(a, dtype_name)
+    for w in WIDTHS + (20,):
+        B = rng.standard_normal((n, w)).astype(np.float32)
+        y = sell_spmm_ref(*args, _t(B, dtype_name), m, c)
+        assert y.shape == (m, w) and bool(torch.isfinite(y).all())
+        np.testing.assert_allclose(_f(y), oracle_a @ _rounded(B, dtype_name), **tol(dtype_name))
+        Sw = jax_sell_widened(Sj, dtype_name)
+        yj = jops._spmm_sell(Sw, jnp.asarray(_f(_t(B, dtype_name))))
+        np.testing.assert_allclose(_f(y), np.asarray(yj, np.float32), **tol(dtype_name))
+        if dtype_name == "float32":  # the wrapper on a CPU tensor: the plain version
+            assert torch.equal(kops.sell_spmm(S, _t(B)), sell_spmm_ref(
+                S.slice_ptrs, S.cols, S.data, S.perm, _t(B), m, c))
+            np.testing.assert_allclose(_f(tops.spmm(S, _t(B))), oracle_a @ B, **tol(dtype_name))
+
+
+def jax_sell_widened(Sj, dtype_name):
+    """The JAX SELL container with its values rounded to the working type
+    and widened to float32 (JAX's jnp reference would sum bf16 in bf16)."""
+    vals = np.array(Sj.data, np.float32)  # a writable copy
+    return dataclasses.replace(Sj, data=jnp.asarray(_f(_t(vals, dtype_name))))
+
+
+@pytest.mark.parametrize("dtype_name", DTYPE_NAMES)
+def test_hyb_spmm_matches_jax_and_oracle(dtype_name):
+    """``hyb_spmm`` (on the CPU: the ELL plain version plus the CSR plain
+    version over the sorted tail) and ``spmm(HYB)`` against JAX's
+    ``_spmm_hyb`` and the dense float64 oracle."""
+    a = PATTERNS["powerlaw"]()
+    Jc = jf.coo_from_dense_np(a, capacity=1032)
+    Hj = jconv.convert(Jc, jf.Format.HYB, k=2)
+    H = port_from_jax(Hj)
+    if dtype_name == "bfloat16":
+        H = tf.HYB(tf.ELL(H.ell.cols, H.ell.data.bfloat16(), H.shape, H.ell.nnz),
+                   tf.COO(H.coo.row, H.coo.col, H.coo.data.bfloat16(), H.shape, H.coo.nnz),
+                   H.shape, H.nnz)
+    assert H.coo.nnz > 0
+    rng = np.random.default_rng(34)
+    for w in WIDTHS:
+        B = rng.standard_normal((a.shape[1], w)).astype(np.float32)
+        Bt = _t(B, dtype_name)
+        y = kops.hyb_spmm(H, Bt)
+        assert y.dtype == TORCH_DTYPES[dtype_name] and y.shape == (a.shape[0], w)
+        oracle = _rounded(a, dtype_name) @ _rounded(B, dtype_name)
+        np.testing.assert_allclose(_f(y), oracle, **tol(dtype_name))
+        if dtype_name == "float32":  # the reference route sums bf16 in bf16, as JAX's does
+            np.testing.assert_allclose(_f(tops.spmm(H, Bt)), oracle, **tol(dtype_name))
+        Hw = _widened(Hj) if dtype_name == "float32" else dataclasses.replace(
+            Hj, ell=jax_sell_widened(Hj.ell, dtype_name), coo=jax_sell_widened(Hj.coo,
+                                                                               dtype_name))
+        yj = jops._spmm_hyb(Hw, jnp.asarray(_f(Bt)))
+        np.testing.assert_allclose(_f(y), np.asarray(yj, np.float32), **tol(dtype_name))
+
+
 def test_reference_spmm_walks_wide_rhs_in_column_chunks(monkeypatch):
     """A chunk budget below one column gives the same Y: each column of Y
     depends on that column of B alone (a sum over a strided chunk may round
@@ -247,8 +356,8 @@ def test_dispatch_of_spmm_and_spmm_t():
         tops.spmm_t(P, X, backend="cuda")
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         tops.spmm(P, X.T.contiguous(), backend="cuda")
-    with pytest.raises(NotImplementedError, match="kernel_tune"):
-        tops.spmm_t(P, X, backend="auto")
+    assert torch.equal(tops.spmm_t(P, X, backend="auto"), tops.spmm_t(P, X, backend="ref"))
+    assert torch.equal(tops.spmm(P, X.T, backend="auto"), tops.spmm(P, X.T, backend="ref"))
     with pytest.raises(ValueError, match="unknown backend"):
         tops.spmm(P, X.T, backend="pallas")
     D = DynamicMatrix(P)
@@ -262,21 +371,22 @@ def test_dispatch_of_spmm_and_spmm_t():
 
 
 def test_pending_spmm_kernels_raise_only_on_the_card():
-    """ELL, SELL and HYB SpMM have no ported kernel: the card route raises
-    (checked here through the route lookup); CSR and BSR have kernels; COO,
-    DIA and Dense run the reference on the card."""
+    """No SpMM kernel is pending any more: ELL, SELL and HYB SpMM have their
+    kernels beside CSR and BSR (on a CPU tensor each wrapper runs its plain
+    version); COO, DIA and Dense run the reference on the card, as the JAX
+    package has no kernel for them either."""
     a = PATTERNS["random"]()
     C = tf.coo_from_dense_np(a, device="cpu")
-    for fmt in ("ELL", "SELL", "HYB"):
-        with pytest.raises(NotImplementedError, match="rows 8 and 10"):
-            kops.spmm_cuda_route(tconv.convert(C, tf.Format[fmt]))
-    assert kops.spmm_cuda_route(tconv.convert(C, tf.Format.CSR)) is kops.csr_spmm
-    assert kops.spmm_cuda_route(tconv.convert(C, tf.Format.BSR, block_size=8)) is \
-        kops.bsr_spmm
-    for fmt in ("COO", "DIA", "DENSE"):
-        assert kops.spmm_cuda_route(tconv.convert(C, tf.Format[fmt])) is None
-    assert set(kops.SPMM_CUDA) == {tf.BSR, tf.CSR}
+    assert not hasattr(kops, "SPMM_PENDING")
+    assert set(kops.SPMM_CUDA) == {tf.BSR, tf.CSR, tf.ELL, tf.SELL, tf.HYB}
     assert set(kops.SPMM_T_CUDA) == {tf.CSR, tf.ELL, tf.HYB, tf.SELL, tf.BSR}
+    B = _t(np.random.default_rng(30).standard_normal((a.shape[1], 3)).astype(np.float32))
+    for fmt in ("ELL", "SELL", "HYB"):
+        A = tconv.convert(C, tf.Format[fmt])
+        np.testing.assert_allclose(kops.SPMM_CUDA[type(A)](A, B).numpy(),
+                                   a.astype(np.float64) @ B.double().numpy(), **tol("float32"))
+    for fmt in ("COO", "DIA", "DENSE"):
+        assert tconv.convert(C, tf.Format[fmt]).__class__ not in kops.SPMM_CUDA
 
 
 def test_spmm_wrappers_on_cpu_run_the_plain_version_uncounted():
@@ -297,8 +407,8 @@ def test_spmm_wrappers_on_cpu_run_the_plain_version_uncounted():
     assert torch.equal(kcm.csr_spmm_t(Cr.indptr, Cr.indices, Cr.data, X, 64, vec=8, tt=4),
                        csr_spmm_t_ref(Cr.indptr, Cr.indices, Cr.data, X, 64))
     assert all(v == 0 for v in kops.launch_counts().values())
-    assert set(kops.launch_counts()) >= {"csr_spmm", "csr_spmm_t", "ell_spmm_t",
-                                         "sell_spmm_t"}
+    assert set(kops.launch_counts()) >= {"csr_spmm", "csr_spmm_t", "ell_spmm", "ell_spmm_t",
+                                         "sell_spmm", "sell_spmm_t"}
     with pytest.raises(ValueError, match="cuda or cpu"):
         kem.ell_spmm_t(torch.zeros(2, 1, dtype=torch.int32, device="meta"),
                        torch.zeros(2, 1, device="meta"), torch.zeros(1, 3, device="meta"),
@@ -343,14 +453,19 @@ def test_spmm_t_config_takes_up_to_eight_tokens_a_block():
     assert kcm.MAX_TOKEN_TILE == max(kcm.TOKEN_TILES)
     C = tf.CSR(torch.zeros(101, dtype=torch.int32), torch.zeros(102400, dtype=torch.int32),
                torch.zeros(102400), (100, 4096), 102400)
-    assert kops.spmm_t_config(C) == {"vec": 32}
+    assert kops.default_config(C, op="spmm_t", ncols=256) == {"vec": 32, "tt": 8}
+    assert kops.default_config(C, op="spmm_t", ncols=3) == {"vec": 32, "tt": 4}
+    assert kops.default_config(C, op="spmm", ncols=256) == {"vec": 32}
     E = tf.ELL(torch.zeros(100, 20, dtype=torch.int32), torch.zeros(100, 20), (100, 64), 2000)
-    assert kops.spmm_t_config(E) == {"vec": 4}
+    assert kops.default_config(E, op="spmm_t", ncols=1) == {"vec": 4, "tt": 1}
+    assert kops.default_config(E, op="spmm", ncols=1) == {"vec": 4}
     a = PATTERNS["powerlaw"]()
     A = tf.coo_from_dense_np(a, device="cpu")
-    assert kops.spmm_t_config(tconv.convert(A, tf.Format.SELL)) == {}
-    cfg = kops.spmm_t_config(tconv.convert(A, tf.Format.HYB))
+    assert kops.default_config(tconv.convert(A, tf.Format.SELL), op="spmm_t", ncols=2) == \
+        {"tt": 2}
+    cfg = kops.default_config(tconv.convert(A, tf.Format.HYB), op="spmm_t", ncols=256)
     assert set(cfg) == {"ell", "csr"} and cfg["csr"]["vec"] in kcm.VEC_WIDTHS
+    assert cfg["csr"]["tt"] == cfg["ell"]["tt"] == 8
 
 
 # Stand-ins with the SpMM entry points' C signatures: each records its
@@ -372,11 +487,18 @@ _SIGNATURES = {
         "const void* indptr", "const void* indices", "const void* data", "const void* x",
         "void* y", "int64_t m", "int32_t n", "int64_t t", "int vec", "int tt", "int device",
         "void* stream"],
-    ("ell_spmm", "ell_spmm_t_f32", "_fn"): [
+    ("ell_spmm", "ell_spmm_f32", "_fn"): [
+        "const void* cols", "const void* data", "const void* b", "void* y", "int64_t m",
+        "int32_t n", "int32_t k", "int64_t kb", "int vec", "int device", "void* stream"],
+    ("ell_spmm", "ell_spmm_t_f32", "_fn_t"): [
         "const void* cols", "const void* data", "const void* x", "void* y", "int64_t m",
         "int32_t n", "int32_t k", "int64_t t", "int vec", "int tt", "int device",
         "void* stream"],
-    ("sell_spmm", "sell_spmm_t_f32", "_fn"): [
+    ("sell_spmm", "sell_spmm_f32", "_fn"): [
+        "const void* ptrs", "const void* cols", "const void* data", "const void* perm",
+        "const void* b", "void* y", "int64_t lanes", "int32_t c", "int64_t m", "int32_t n",
+        "int64_t k", "int device", "void* stream"],
+    ("sell_spmm", "sell_spmm_t_f32", "_fn_t"): [
         "const void* ptrs", "const void* cols", "const void* data", "const void* perm",
         "const void* x", "void* y", "int64_t lanes", "int32_t c", "int64_t m", "int32_t n",
         "int64_t t", "int tt", "int device", "void* stream"],
@@ -434,7 +556,8 @@ def test_headers_are_part_of_the_build_key(tmp_path, monkeypatch):
 def test_each_source_names_its_kernels_and_int64_offsets():
     srcs = _build.sources()
     for name, kernels in (("csr_spmm", ("csr_spmm", "csr_spmm_t")),
-                          ("ell_spmm", ("ell_spmm_t",)), ("sell_spmm", ("sell_spmm_t",))):
+                          ("ell_spmm", ("ell_spmm", "ell_spmm_t")),
+                          ("sell_spmm", ("sell_spmm", "sell_spmm_t"))):
         text = srcs[name].read_text()
         for k in kernels:
             assert f"int {k}_f32(" in text and f"int {k}_bf16(" in text

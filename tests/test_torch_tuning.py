@@ -117,15 +117,16 @@ def test_tree_round_trips_and_predicts_like_jax(tmp_path):
     assert FormatPolicy("ml", tree=str(path)).tree.n_nodes == tj.n_nodes
 
 
-def test_unported_modes_raise():
-    """``cached`` and ``backend="auto"`` wait for the selection cache and
-    ``kernel_tune``; ``profile`` is ported (tests/test_torch_profile.py)."""
-    with pytest.raises(NotImplementedError, match="kernel_tune: ROADMAP Queue 1 item 7"):
-        FormatPolicy("cached")
+def test_unported_modes_raise(tmp_path):
+    """Every mode is ported now: ``cached`` builds and keeps its store,
+    ``backend="auto"`` routes a CPU tensor to the reference; only an
+    unknown mode raises."""
+    pol = FormatPolicy("cached", cache=str(tmp_path / "sel.json"))
+    assert pol.cache.path == str(tmp_path / "sel.json")
     assert FormatPolicy("profile", profile_iters=3).profile_iters == 3
     _, At = coo_pair(PATTERNS["stencil"]())
-    with pytest.raises(NotImplementedError, match="kernel_tune"):
-        spmv(At, torch.ones(At.shape[1]), backend="auto")
+    x = torch.ones(At.shape[1])
+    assert torch.equal(spmv(At, x, backend="auto"), spmv(At, x, backend="ref"))
     with pytest.raises(ValueError, match="not in"):
         FormatPolicy("fastest")
 
