@@ -29,7 +29,12 @@ Phases, in order (any failure exits nonzero and prints no result line):
    fault the check must catch, with their times, bounds, plain times and two
    yardsticks (``torch.sparse_csr_tensor`` times X^T or B, and the dense
    X @ W in float32 without TF32), a HYB SpMM line (ell_spmm + csr_spmm)
-   and a token-tile sweep;
+   and a token-tile sweep; then csr_spmm_t and ell_spmm_t on both of their
+   schedules (the ``xt`` knob: the row schedule and the token-major one):
+   the token-major one against the plain version at T = 256 and 257 on
+   both weights in float32 and bfloat16 with a planted fault, against the
+   row schedule, the two timed in turns beside the dense X @ W, and a sweep
+   over T in {8, 16, 32, 64, 128, 256} and the token tile;
 3. reference check: the port's solve at 16^3 on the card (CUDA kernels)
    against the same solve on the CPU (plain torch path), in every format;
 4. main paths at HPCG's default 104^3 grid, each driven with the launch
@@ -45,7 +50,8 @@ Phases, in order (any failure exits nonzero and prints no result line):
       with the ml pick and with the profile pick at ncols 1 and 256 (every
       candidate's time printed), layer(x) and down(up(x)) at T = 1 and 256
       against float64, every weight format (CSR, ELL, SELL, HYB, COO) with
-      launches == kernel calls, agreement and no device->host sync, the
+      launches == kernel calls (the token-major schedule's launches counted
+      apart and required), agreement and no device->host sync, the
       spmm(W, x.T).T form through csr_spmm, retune(ncols=256) with its
       counters, and spmm(W, B, backend="cuda") in ELL, SELL and HYB through
       their kernels.
@@ -130,12 +136,12 @@ def peaks_for(name: str):
 WARMUP_S = 0.2  # launch-and-sync this long before timing, so clocks settle
 
 
-def time_ms(fn, iters: int) -> float:
+def time_ms(fn, iters: int, warmup_s: float = WARMUP_S) -> float:
     """Median milliseconds of ``fn`` on the current stream (CUDA events),
-    after at least 3 calls and ``WARMUP_S`` seconds of warm-up."""
+    after at least 3 calls and ``warmup_s`` seconds of warm-up."""
     import torch
     t0, calls = time.perf_counter(), 0
-    while calls < 3 or time.perf_counter() - t0 < WARMUP_S:
+    while calls < 3 or time.perf_counter() - t0 < warmup_s:
         fn()
         torch.cuda.synchronize()
         calls += 1
@@ -772,7 +778,7 @@ def ragged_spmm_cases(rng, torch, dtype, name):
         idx = torch.from_numpy(rng.integers(-2, n + 2, nnz + 37).astype("int32")).cuda()
         val = _rand(rng, torch, nnz + 37, dtype)
         val[nnz:] = float("nan")
-        for t in (1, 3, 256):
+        for t in (1, 3, 256, 257):
             X = _rand(rng, torch, (t, n), dtype)
             y_p = csr_spmm_t_ref(indptr, idx, val, X, m)
             scale = csr_spmm_t_ref(indptr, idx, val.abs(), X.abs(), m)
@@ -780,6 +786,11 @@ def ragged_spmm_cases(rng, torch, dtype, name):
                 compare(f"csr_spmm_t ragged m={m} n={n} T={t} vec={vec} tt={tt}",
                         kcm.csr_spmm_t(indptr, idx, val, X, m, vec=vec, tt=tt),
                         kcm.csr_spmm_t(indptr, idx, val, X, m, vec=vec, tt=tt),
+                        y_p, name, scale=scale)
+            for xt in kcm.XT_TILES:  # unsorted, out-of-range columns: filtered rows
+                compare(f"csr_spmm_t ragged m={m} n={n} T={t} xt={xt}",
+                        kcm.csr_spmm_t(indptr, idx, val, X, m, vec=32, xt=xt),
+                        kcm.csr_spmm_t(indptr, idx, val, X, m, vec=32, xt=xt),
                         y_p, name, scale=scale)
         if n == 900:
             for k in (1, 3, 256):
@@ -802,9 +813,17 @@ def ragged_spmm_cases(rng, torch, dtype, name):
             y2 = kem.ell_spmm_t(c_t, v_t, X, vec=8)
             check(kem.launches_t - before == (2 if k else 0),
                   f"ell_spmm_t K={k}: {kem.launches_t - before} launches for 2 calls")
-            compare(f"ell_spmm_t ragged {m}x{n} K={k} T={t}", y1, y2,
-                    ell_spmm_t_ref(c_t, v_t, X), name,
-                    scale=ell_spmm_t_ref(c_t, v_t.abs(), X.abs()))
+            y_p = ell_spmm_t_ref(c_t, v_t, X)
+            scale = ell_spmm_t_ref(c_t, v_t.abs(), X.abs())
+            compare(f"ell_spmm_t ragged {m}x{n} K={k} T={t}", y1, y2, y_p, name, scale=scale)
+            for xt in kcm.XT_TILES:
+                before = kem.launches_xt
+                y1 = kem.ell_spmm_t(c_t, v_t, X, vec=8, xt=xt)
+                compare(f"ell_spmm_t ragged {m}x{n} K={k} T={t} xt={xt}", y1,
+                        kem.ell_spmm_t(c_t, v_t, X, vec=8, xt=xt), y_p, name, scale=scale)
+                check(kem.launches_xt - before == (2 if k else 0),
+                      f"ell_spmm_t K={k} xt={xt}: {kem.launches_xt - before} token-major "
+                      "launches for 2 calls")
         for kb, vec in ((1, 2), (3, 8), (9, 8), (256, 8), (300, 8)):
             B = _rand(rng, torch, (n, kb), dtype)
             before = kem.launches
@@ -945,6 +964,7 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
                 # values with every FAULT_EVERY-th stored entry dropped
                 faults = {"csr_spmm_t": (cd, lambda d: csr_spmm_t_ref(csr.indptr, csr.indices,
                                                                       d, X, m)),
+                          "ell_spmm_t": (ed, lambda d: ell_spmm_t_ref(ell.cols, d, X)),
                           "ell_spmm": (ed, lambda d: ell_spmm_ref(ell.cols, d, B)),
                           "sell_spmm": (sd, lambda d: sell_spmm_ref(sell.slice_ptrs, sell.cols,
                                                                     d, sell.perm, B, m,
@@ -1080,6 +1100,90 @@ def sweep_token_tiles(lname, csr, sell, cd, sd, X, vec):
               flush=True)
 
 
+SWEEP_T = (8, 16, 32, 64, 128, 256)  # the widths that place default_config's switch
+SWEEP_WARMUP_S = 0.05  # the sweep's cells follow each other on a warm card
+
+
+def phase_token_major(torch, np, weights, records):
+    """csr_spmm_t and ell_spmm_t on their two schedules (the ``xt`` knob) at
+    both weights: the token-major schedule against the plain version at T =
+    256 and 257 in float32 and bfloat16 (with a planted fault), against the
+    row schedule at T = 256, the two timed in turns (row, token-major,
+    token-major, row) beside the dense X @ W, and a sweep over T and the
+    token tile. Adds the row schedule's T = 256 time to the up weight's
+    records."""
+    from repro_torch.core.convert import convert
+    from repro_torch.core.formats import Format, coo_from_dense_np
+    from repro_torch.kernels import csr_spmm as kcm, ell_spmm as kem
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import csr_spmm_t_ref, ell_spmm_t_ref
+
+    print("== SpMM_T schedules: token-major (xt) against the row schedule", flush=True)
+    rng = np.random.default_rng(SEED + 4)
+    for lname, (w, _) in weights.items():
+        coo = coo_from_dense_np(w.T, device="cuda")
+        csr, ell = convert(coo, Format.CSR), convert(coo, Format.ELL)
+        del coo
+        m, n = csr.shape
+        w_dense = torch.from_numpy(w).cuda()
+        run = {"csr_spmm_t": lambda X, d, **kw: kcm.csr_spmm_t(csr.indptr, csr.indices, d, X,
+                                                               m, **kw),
+               "ell_spmm_t": lambda X, d, **kw: kem.ell_spmm_t(ell.cols, d, X, **kw)}
+        plain = {"csr_spmm_t": lambda X, d: csr_spmm_t_ref(csr.indptr, csr.indices, d, X, m),
+                 "ell_spmm_t": lambda X, d: ell_spmm_t_ref(ell.cols, d, X)}
+        vals = {"csr_spmm_t": csr.data, "ell_spmm_t": ell.data}
+        rows = {k: {"vec": kops.default_config(A, op="spmm_t", ncols=PREFILL)["vec"],
+                    "tt": kcm.MAX_TOKEN_TILE}
+                for k, A in (("csr_spmm_t", csr), ("ell_spmm_t", ell))}
+        xt = kcm.xt_tile(PREFILL)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "float32" if dtype == torch.float32 else "bfloat16"
+            for t in (PREFILL, PREFILL + 1):
+                X = _rand(rng, torch, (t, n), dtype)
+                for kname in run:
+                    d = vals[kname].to(dtype)
+                    y_p, scale = plain[kname](X, d), plain[kname](X.abs(), d.abs())
+                    what = f"{kname} {lname} T={t} xt={xt}"
+                    y = run[kname](X, d, vec=32, xt=xt)
+                    compare(what, y, run[kname](X, d, vec=32, xt=xt), y_p, name, scale=scale,
+                            record=True)
+                    planted_fault(d, lambda dd, k=kname: plain[k](X, dd), y_p, scale, what, name)
+                    if t == PREFILL:
+                        y_r = run[kname](X, d, **rows[kname])
+                        reading = spmm_reading(y, y_r, scale, name)
+                        check(reading <= 1.0, f"{what} {name}: against the row schedule "
+                                              f"{rows[kname]}, reading {reading:.3e} <= 1")
+                    del y_p, scale
+        X = _rand(rng, torch, (PREFILL, n), torch.float32)
+        for kname in run:
+            d = vals[kname]
+            t_row = time_ms(lambda: run[kname](X, d, **rows[kname]), 20)
+            t_xt = time_ms(lambda: run[kname](X, d, vec=32, xt=xt), 20)
+            t_xt2 = time_ms(lambda: run[kname](X, d, vec=32, xt=xt), 20)
+            t_row2 = time_ms(lambda: run[kname](X, d, **rows[kname]), 20)
+            dense = time_ms(lambda: X @ w_dense, 20)
+            print(f"  {kname} {lname} float32 T={PREFILL} (ms, in turns): row schedule "
+                  f"{rows[kname]} {t_row:.4f}, token-major xt={xt} {t_xt:.4f}, {t_xt2:.4f}, "
+                  f"row schedule {t_row2:.4f}; dense X @ W f32 {dense:.4f}; token-major / row "
+                  f"{min(t_xt, t_xt2) / min(t_row, t_row2):.3f}, / dense "
+                  f"{min(t_xt, t_xt2) / dense:.3f}", flush=True)
+            if lname == "up" and kname in records:
+                records[kname]["ms_row_schedule"] = min(t_row, t_row2)
+        for t in SWEEP_T:
+            Xt = _rand(rng, torch, (t, n), torch.float32)
+            for kname in run:
+                d = vals[kname]
+                cells = [f"row tt={kcm.token_tile(t)} "
+                         + f"{time_ms(lambda: run[kname](Xt, d, vec=rows[kname]['vec']), 10, SWEEP_WARMUP_S):.4f}"]
+                cells += [f"xt={x} "
+                          + f"{time_ms(lambda x=x: run[kname](Xt, d, vec=32, xt=x), 10, SWEEP_WARMUP_S):.4f}"
+                          for x in kcm.XT_TILES]
+                print(f"  {kname} {lname} float32 T={t} sweep (ms): " + ", ".join(cells),
+                      flush=True)
+        del csr, ell, w_dense, vals
+        torch.cuda.empty_cache()
+
+
 def recorded_policy(mode):
     """A FormatPolicy over the weight candidates that keeps its last report
     (the candidates' times of a ``from_dense(tune=...)`` build)."""
@@ -1105,9 +1209,11 @@ def phase_serving(torch, np, weights):
     from repro_torch.models import LinearSparse
     from repro_torch.obs import metrics
 
+    from repro_torch.kernels import csr_spmm as kcm, ell_spmm as kem
     print("== main path (d): sparse-weight serving, LinearSparse at minitron-8b MLP "
           f"width {MINITRON_MLP} density {DENSITY}", flush=True)
     start_path(torch)
+    xt_before = {"csr_spmm_t": kcm.launches_xt, "ell_spmm_t": kem.launches_xt}
     dev_w = {k: (torch.from_numpy(w).cuda().double(), torch.from_numpy(b).cuda().double())
              for k, (w, b) in weights.items()}
     layers = {}
@@ -1222,6 +1328,11 @@ def phase_serving(torch, np, weights):
               f"up {fmt}: spmm(W, B, backend='cuda') launches {launched}, vs f64 {e:.2e}")
         del W
     del layers, dev_w
+    xt_launches = {"csr_spmm_t": kcm.launches_xt - xt_before["csr_spmm_t"],
+                   "ell_spmm_t": kem.launches_xt - xt_before["ell_spmm_t"]}
+    print(f"  token-major (xt) launches over path (d): {xt_launches}", flush=True)
+    check(all(v > 0 for v in xt_launches.values()),
+          "csr_spmm_t and ell_spmm_t ran the token-major schedule on path (d)")
     return read_path(torch, "(d)", SPMM_KERNELS)
 
 
@@ -1470,6 +1581,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     records.update(phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops))
     torch.cuda.empty_cache()
+    phase_token_major(torch, np, weights, records)
     phase_reference(torch)
     A, b, counts_a = phase_main(torch, prob, t_gen)
     counts_b, _ = phase_profile(torch, A, b)

@@ -14,14 +14,20 @@
 // (2 * nnz * T = 8.6 GFLOP, 0.128 ms at 67 TFLOP/s f32). Every stored entry
 // feeds T multiply-adds, so the design loads each entry once per tile of
 // the rhs and keeps the rhs tile close:
-//   * csr_spmm_t (spmm_common.cuh::rows_spmm_t): a sub-warp of VEC lanes a
-//     row (the width csr_spmv.cu picks from the row length), lanes on
-//     consecutive entries (coalesced); each entry, loaded once, feeds a tile
-//     of TT tokens (8 at prefill), gathered from X through L1 (a copy of
-//     the tile in shared memory measured slower: it costs the 256-thread
-//     blocks their occupancy); the blocks of one run of matrix rows follow
-//     each other in the grid, so the matrix streams from HBM about once and
-//     from L2 T/TT times;
+//   * csr_spmm_t, xt = 0 (spmm_common.cuh::rows_spmm_t, decode widths): a
+//     sub-warp of VEC lanes a row (the width csr_spmv.cu picks from the row
+//     length), lanes on consecutive entries (coalesced); each entry, loaded
+//     once, feeds a tile of TT <= 8 tokens, gathered from X through L1; the
+//     blocks of one run of matrix rows follow each other in the grid, so the
+//     matrix streams from HBM about once and from L2 T/TT times. At T = 256
+//     that gather is the limit (~32 sectors a load for 32 multiply-adds:
+//     2.37 ms on the up weight, 5% of the operation bound);
+//   * csr_spmm_t, xt = 32/64/128 (spmm_common.cuh::tokens_spmm_t, prefill
+//     widths): X turned token-major once a call, a block's xt tokens of it
+//     staged in shared memory in column chunks, lanes along tokens, each
+//     entry a broadcast feeding xt multiply-adds; bound by shared-memory
+//     wavefronts (one an entry plus xt/32 of X), ~1.0 ms on the up weight
+//     at T = 256 (PERF.md);
 //   * csr_spmm (spmm_common.cuh::rows_spmm_launch over CsrRows), K > 8: KW
 //     lanes (the smallest power of two >= K, at most 32) own one row, lane
 //     k on columns k, k + KW, ... (KJ of them): the row's entries are read
@@ -59,6 +65,14 @@ int mm_t(const void* indptr, const void* indices, const void* data, const void* 
                                      stream);
 }
 
+template <typename T>
+int mm_xt(const void* indptr, const void* indices, const void* data, const void* X, void* XT,
+          void* Y, int64_t m, int32_t n, int64_t t, int xt, int device, void* stream) {
+  const spmm::CsrRows rows{static_cast<const int32_t*>(indptr)};
+  return spmm::tokens_spmm_t_launch<T>(rows, indices, data, X, XT, Y, m, n, t, 0, xt, device,
+                                       stream);  // int32 row pointers: positions fit
+}
+
 }  // namespace
 
 extern "C" {
@@ -91,6 +105,20 @@ int csr_spmm_t_bf16(const void* indptr, const void* indices, const void* data, c
                     void* Y, int64_t m, int32_t n, int64_t t, int vec, int tt, int device,
                     void* stream) {
   return mm_t<__nv_bfloat16>(indptr, indices, data, X, Y, m, n, t, vec, tt, device, stream);
+}
+
+// csr_spmm_t on the token-major schedule: token tiles of `xt` (32, 64 or
+// 128); XT is scratch of (n, tp) elements, tp = t rounded up to xt.
+int csr_spmm_xt_f32(const void* indptr, const void* indices, const void* data, const void* X,
+                    void* XT, void* Y, int64_t m, int32_t n, int64_t t, int xt, int device,
+                    void* stream) {
+  return mm_xt<float>(indptr, indices, data, X, XT, Y, m, n, t, xt, device, stream);
+}
+
+int csr_spmm_xt_bf16(const void* indptr, const void* indices, const void* data, const void* X,
+                     void* XT, void* Y, int64_t m, int32_t n, int64_t t, int xt, int device,
+                     void* stream) {
+  return mm_xt<__nv_bfloat16>(indptr, indices, data, X, XT, Y, m, n, t, xt, device, stream);
 }
 
 const char* csr_spmm_error_string(int code) {

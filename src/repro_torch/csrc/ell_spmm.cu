@@ -18,11 +18,17 @@
 // contiguous run [i*K, (i+1)*K) of each plane, so both kernels are the
 // row-walking kernels of csr_spmm.cu with implicit row pointers
 // (spmm_common.cuh over EllRows, no row pointers read):
-//   * ell_spmm_t (rows_spmm_t): a sub-warp of VEC lanes a row reads the
-//     row's slots coalesced (the counterpart of the Pallas `layout` choice,
-//     and of the shared-memory transpose in ell_spmv.cu, which one thread a
-//     row needs); each slot, loaded once, feeds a tile of TT tokens gathered
-//     through L1;
+//   * ell_spmm_t, xt = 0 (rows_spmm_t, decode widths): a sub-warp of VEC
+//     lanes a row reads the row's slots coalesced (the counterpart of the
+//     Pallas `layout` choice, and of the shared-memory transpose in
+//     ell_spmv.cu, which one thread a row needs); each slot, loaded once,
+//     feeds a tile of TT <= 8 tokens gathered through L1 (L1-bound at
+//     prefill: 2.67 ms on the up weight at T = 256);
+//   * ell_spmm_t, xt = 32/64/128 (tokens_spmm_t, prefill widths): X
+//     token-major in shared memory, lanes along xt tokens, each slot a
+//     broadcast; bound by shared-memory wavefronts. A row's sorted slots
+//     and its trailing padding are two runs of non-decreasing columns, each
+//     walked once over the column chunks;
 //   * ell_spmm (rows_spmm_launch): for Kb > 8, KW lanes own a row and lie
 //     along B's columns (each slot is a broadcast, each B row segment a
 //     coalesced load); for Kb <= 8, VEC lanes lie along the row's slots
@@ -52,6 +58,15 @@ int mm_t(const void* cols, const void* data, const void* X, void* Y, int64_t m, 
   if (k == 0) return 0;
   const spmm::EllRows rows{k};
   return spmm::rows_spmm_t_launch<T>(rows, cols, data, X, Y, m, n, t, vec, tt, device, stream);
+}
+
+template <typename T>
+int mm_xt(const void* cols, const void* data, const void* X, void* XT, void* Y, int64_t m,
+          int32_t n, int32_t k, int64_t t, int xt, int device, void* stream) {
+  if (k == 0) return 0;
+  const spmm::EllRows rows{k};
+  return spmm::tokens_spmm_t_launch<T>(rows, cols, data, X, XT, Y, m, n, t, m * k, xt, device,
+                                       stream);
 }
 
 }  // namespace
@@ -84,6 +99,20 @@ int ell_spmm_t_bf16(const void* cols, const void* data, const void* X, void* Y, 
                     int32_t n, int32_t k, int64_t t, int vec, int tt, int device,
                     void* stream) {
   return mm_t<__nv_bfloat16>(cols, data, X, Y, m, n, k, t, vec, tt, device, stream);
+}
+
+// ell_spmm_t on the token-major schedule: token tiles of `xt` (32, 64 or
+// 128); XT is scratch of (n, tp) elements, tp = t rounded up to xt.
+int ell_spmm_xt_f32(const void* cols, const void* data, const void* X, void* XT, void* Y,
+                    int64_t m, int32_t n, int32_t k, int64_t t, int xt, int device,
+                    void* stream) {
+  return mm_xt<float>(cols, data, X, XT, Y, m, n, k, t, xt, device, stream);
+}
+
+int ell_spmm_xt_bf16(const void* cols, const void* data, const void* X, void* XT, void* Y,
+                     int64_t m, int32_t n, int32_t k, int64_t t, int xt, int device,
+                     void* stream) {
+  return mm_xt<__nv_bfloat16>(cols, data, X, XT, Y, m, n, k, t, xt, device, stream);
 }
 
 const char* ell_spmm_error_string(int code) {

@@ -1,13 +1,15 @@
 // Pieces shared by the SpMM kernels (csr_spmm.cu, ell_spmm.cu, sell_spmm.cu).
 //
 // The transposed-rhs kernels (Y = X @ A^T, X is (T, N) row-major, Y is
-// (T, M) row-major) share one work split. A block owns a tile of TT rows of
-// X ("tokens") and a run of matrix rows; each stored entry, loaded once,
-// feeds TT multiply-adds. The row-walking kernels (CSR, ELL) gather X
-// through L1, as the SpMV kernels do; the SELL kernel copies its tile into
-// shared memory where it fits (sell_spmm.cu). Blocks are numbered token
-// tile fastest, so the blocks that run together share their matrix rows in
-// L2 while each reads its own X tile.
+// (T, M) row-major) give a block a tile of tokens (rows of X) and a run of
+// matrix rows; each stored entry, loaded once, feeds a tile's multiply-adds.
+// The row-walking formats (CSR, ELL) have two schedules, picked by the
+// wrappers' `xt` knob: rows_spmm_t (decode widths: TT <= 8 tokens, X
+// gathered through L1, as the SpMV kernels do) and tokens_spmm_t (prefill
+// widths: X turned token-major and staged in shared memory, 32 to 128
+// tokens a block). The SELL kernel copies its tile into shared memory where
+// it fits (sell_spmm.cu). Blocks are numbered token tile fastest, so the
+// blocks that run together share their matrix rows in L2.
 //
 // The row-walking Y = A @ B kernels (B is (N, K) row-major, Y (M, K)) share
 // two row schedules, picked by K (rows_spmm_launch): for K > 8, KW lanes own
@@ -21,6 +23,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace spmm {
 
@@ -195,6 +198,502 @@ int rows_spmm_t_launch(Rows rows, const void* idx, const void* val, const void* 
       case 8: return launch_rows_t_tile<T, Rows, 8>(rows, idx, val, X, Y, m, n, t, tt, device, s);
       case 16: return launch_rows_t_tile<T, Rows, 16>(rows, idx, val, X, Y, m, n, t, tt, device, s);
       case 32: return launch_rows_t_tile<T, Rows, 32>(rows, idx, val, X, Y, m, n, t, tt, device, s);
+      default: return cudaErrorInvalidValue;
+    }
+  });
+}
+
+// ---------------------------------------------------------------------------
+// The token-major transposed-rhs schedule (prefill widths, T >= 32).
+//
+// rows_spmm_t above gathers X (T, N) in place: the TT <= 8 tokens of one
+// column lie in TT rows of X and the 32 lanes of a warp on 32 columns, so
+// every load touches ~32 sectors to feed 32 multiply-adds (L1-bound), and
+// the weight streams from L2 T/8 times. This schedule turns the rhs around:
+//   * X (T, N) becomes XT (N, Tp) once per call (transpose_tokens; Tp is T
+//     rounded up to the token tile, the extra tokens zero), so the tokens of
+//     one column are contiguous;
+//   * a block of kXtWarps warps owns 8 matrix rows a warp (4 or 2 where a
+//     short matrix would leave SMs idle) and a tile of TT = 32 * TJ tokens;
+//     lane l holds tokens l*TJ .. l*TJ + TJ - 1, so one stored entry (c, v)
+//     feeds TT multiply-adds: the weight streams from L2 Tp/TT times;
+//   * XT's slice for the block's tokens is staged in shared memory in
+//     column chunks of `nc` (stage_xt, cp.async into two buffers: the next
+//     chunk lands while this one is consumed). A lane reads its TJ tokens of
+//     column c in one vector load, conflict-free;
+//   * a warp walks its rows in lock-step, one 32-entry window of each row a
+//     step (its rows' loads in flight together); a window's entries in the
+//     chunk are parked in a shared slot and read back as one broadcast load
+//     each (a shuffle pair would take two);
+//   * what bounds it on an H100 is shared-memory wavefronts, not operations:
+//     per entry, one broadcast and TJ wavefronts of X (4 bytes a f32
+//     multiply-add, 2 in bf16): at one wavefront a clock on each of the
+//     132 SMs, ~0.7 ms for the 16.8M-entry weight at T = 256 in f32,
+//     against the 0.128 ms operation bound. Only reuse of X in registers (a tile of A
+//     made dense for the tensor cores) would get under it;
+//   * a row is walked chunk by chunk with a cursor: a run of entries whose
+//     (clamped) columns do not decrease is consumed once over all chunks.
+//     A row may be two such runs (ELL's trailing padding, col -1, clamps to
+//     column 0 after the sorted entries), each with its own cursor; a row
+//     with more descents is filtered: each chunk scans the whole row and
+//     takes the entries that fall in it. So any column order is right, and
+//     sorted rows (what convert builds) cost one pass;
+//   * each (row, token) sum is f32 in registers across the chunks, in a
+//     fixed order (chunk by chunk, run A then run B, stored order within
+//     each): no atomics, bitwise reruns;
+//   * Y (T, M) is written through shared memory with lanes along M
+//     (coalesced), one rounding to the output type.
+// Columns clamp into [0, n), as in rows_spmm_t. Offsets into X, XT and Y
+// are int64; positions in the matrix's arrays int32.
+
+constexpr int kXtWarps = 16;
+constexpr int kXtThreads = kXtWarps * 32;
+constexpr int32_t kPastAll = 0x7fffffff;  // a column past every chunk
+
+__device__ __forceinline__ int32_t clamp_col(int32_t c, int32_t n) {
+  return min(max(c, 0), n - 1);
+}
+
+// XT (n, tp) = X (t, n)^T; tokens t..tp-1 are zero. 32x32 tiles through
+// shared memory, both sides coalesced.
+template <typename T>
+__global__ void __launch_bounds__(256)
+transpose_tokens(const T* __restrict__ X, T* __restrict__ XT, int64_t t, int32_t n,
+                 int64_t tp) {
+  __shared__ float tile[32][33];
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * 32;
+  const int64_t t0 = static_cast<int64_t>(blockIdx.y) * 32;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int64_t tok = t0 + i, c = c0 + threadIdx.x;
+    tile[i][threadIdx.x] = (tok < t && c < n) ? to_f32(X[tok * n + c]) : 0.f;
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int64_t c = c0 + i, tok = t0 + threadIdx.x;
+    if (c < n) XT[c * tp + tok] = from_f32<T>(tile[threadIdx.x][i]);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start copying columns [lo, hi) of the block's token slice of XT into
+// `buf` ([hi - lo][TT], 16-byte pieces).
+template <typename T, int TT>
+__device__ __forceinline__ void stage_xt(T* buf, const T* __restrict__ XT, int64_t tp,
+                                         int64_t t0, int32_t lo, int32_t hi) {
+  constexpr int kPer = 16 / sizeof(T);  // elements a piece
+  constexpr int kPieces = TT / kPer;    // pieces a column
+  const int total = (hi - lo) * kPieces;
+  for (int i = threadIdx.x; i < total; i += kXtThreads) {
+    const int col = i / kPieces, piece = i % kPieces;
+    cp_async16(buf + col * TT + piece * kPer,
+               XT + (static_cast<int64_t>(lo) + col) * tp + t0 + piece * kPer);
+  }
+}
+
+// TJ (1, 2 or 4) consecutive tokens of one staged column, as f32, in one
+// vector load.
+template <typename T, int TJ>
+__device__ __forceinline__ void load_tokens(const T* p, float (&x)[TJ]) {
+  static_assert(TJ == 1 || TJ == 2 || TJ == 4, "token tiles of 32, 64 or 128");
+  if constexpr (std::is_same<T, float>::value) {
+    if constexpr (TJ == 1) {
+      x[0] = *p;
+    } else if constexpr (TJ == 2) {
+      const float2 f = *reinterpret_cast<const float2*>(p);
+      x[0] = f.x; x[1] = f.y;
+    } else {
+      const float4 f = *reinterpret_cast<const float4*>(p);
+      x[0] = f.x; x[1] = f.y; x[2] = f.z; x[3] = f.w;
+    }
+  } else if constexpr (TJ == 1) {
+    x[0] = __bfloat162float(*p);
+  } else {
+    uint32_t raw[TJ / 2];  // bf16 pairs
+    if constexpr (TJ == 2) {
+      raw[0] = *reinterpret_cast<const uint32_t*>(p);
+    } else {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      raw[0] = u.x; raw[1] = u.y;
+    }
+#pragma unroll
+    for (int g = 0; g < TJ / 2; ++g) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw[g]));
+      x[2 * g] = f.x; x[2 * g + 1] = f.y;
+    }
+  }
+}
+
+// One window of a row, an entry (c, v) a lane: the entries of lanes with
+// `in` (columns in this chunk) are parked in the warp's 32-entry slot, in
+// lane order, as (offset of column c in the staged chunk, value bits), and
+// each is read back as one broadcast load (a shuffle pair would take two),
+// several at a time so the loads overlap: acc += v * XT_s[c - lo][lane's
+// tokens]. Returns how many were taken. PREFIX: the lanes with `in` are a
+// prefix of the warp (a window of a sorted run), so no lane needs its rank.
+template <typename T, int TT, int TJ, bool PREFIX>
+__device__ __forceinline__ int take_window(const T* xc, int2* slot, bool in, int32_t c,
+                                           float v, int32_t lo, int lane, float (&acc)[TJ]) {
+  const unsigned mask = __ballot_sync(0xffffffffu, in);
+  __syncwarp();  // every lane is done with the slot's last window
+  if constexpr (PREFIX)
+    slot[lane] = make_int2(in ? (c - lo) * TT : 0, __float_as_int(v));
+  else if (in)
+    slot[__popc(mask & ((1u << lane) - 1u))] = make_int2((c - lo) * TT, __float_as_int(v));
+  __syncwarp();
+  const int cnt = __popc(mask);
+  constexpr int kU = TJ >= 4 ? 4 : 8;  // entries in flight (4 keeps TJ = 4 in registers)
+  int j = 0;
+  for (; j + kU <= cnt; j += kU) {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int2 e = slot[j + u];
+      float x[TJ];
+      load_tokens<T, TJ>(xc + e.x, x);
+      const float ev = __int_as_float(e.y);
+#pragma unroll
+      for (int i = 0; i < TJ; ++i) acc[i] += ev * x[i];
+    }
+  }
+  for (; j < cnt; ++j) {
+    const int2 e = slot[j];
+    float x[TJ];
+    load_tokens<T, TJ>(xc + e.x, x);
+    const float ev = __int_as_float(e.y);
+#pragma unroll
+    for (int i = 0; i < TJ; ++i) acc[i] += ev * x[i];
+  }
+  return cnt;
+}
+
+// Consume the entries of the non-decreasing run [cur, end) with columns
+// below `hi` (all >= lo: the earlier chunks took the rest), one window of
+// 32 at a time; returns the new cursor. The entries of this chunk are a
+// prefix of each window.
+template <typename T, int TT, int TJ>
+__device__ __forceinline__ int32_t take_run(const int32_t* __restrict__ idx,
+                                            const T* __restrict__ val, const T* xc, int2* slot,
+                                            int32_t cur, int32_t end, int32_t n, int32_t lo,
+                                            int32_t hi, int lane, float (&acc)[TJ]) {
+  while (cur < end) {
+    const int32_t p = cur + lane;
+    int32_t c = kPastAll;
+    float v = 0.f;
+    if (p < end) {
+      c = clamp_col(idx[p], n);
+      v = to_f32(val[p]);
+    }
+    const int cnt = take_window<T, TT, TJ, true>(xc, slot, c < hi, c, v, lo, lane, acc);
+    cur += cnt;
+    if (cnt < 32) break;
+  }
+  return cur;
+}
+
+// Take the entries of [b, e) in columns [lo, hi), in stored order (a row
+// in no column order: the whole row is scanned every chunk).
+template <typename T, int TT, int TJ>
+__device__ __forceinline__ void take_filtered(const int32_t* __restrict__ idx,
+                                              const T* __restrict__ val, const T* xc,
+                                              int2* slot, int32_t b, int32_t e, int32_t n,
+                                              int32_t lo, int32_t hi, int lane,
+                                              float (&acc)[TJ]) {
+  for (int32_t p0 = b; p0 < e; p0 += 32) {
+    const int32_t p = p0 + lane;
+    int32_t c = -1;
+    float v = 0.f;
+    if (p < e) {
+      c = clamp_col(idx[p], n);
+      v = to_f32(val[p]);
+    }
+    take_window<T, TT, TJ, false>(xc, slot, c >= lo && c < hi, c, v, lo, lane, acc);
+  }
+}
+
+// Y[t, i] = sum_p val[p] * XT[idx[p], t] over the block's kXtWarps * RPW
+// rows (RPW a warp) and TT = 32 * TJ tokens. Every warp walks its RPW rows
+// in lock-step, one 32-entry window of each row a step (so RPW row loads
+// are in flight at once), with the rows' sums in registers across the
+// chunks; a window's entries in this chunk are parked in the warp's
+// 32-entry slot (take_window). Shared memory: two XT chunks [nc][TT], the
+// rows' state [4][rows] (run A cursor and end, run B cursor and end; run
+// A's end is -1 for a filtered row, which spans [cursor A, end B)), and the
+// slots [kXtWarps][32]. The sums leave through the chunk buffers
+// ([rows][TT + 4] f32) at the end. Positions are int32 (the launcher
+// checks that they fit).
+template <typename T, typename Rows, int TJ, int RPW>
+__global__ void __launch_bounds__(kXtThreads, 1)
+tokens_spmm_t(Rows rows, const int32_t* __restrict__ idx, const T* __restrict__ val,
+              const T* __restrict__ XT, T* __restrict__ Y, int64_t m, int32_t n, int64_t t,
+              int64_t tp, int64_t t_tiles, int nc) {
+  constexpr int TT = 32 * TJ;
+  constexpr int AS = TT + 4;  // row stride of the sums at the end (16-byte aligned)
+  constexpr int R = kXtWarps * RPW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);
+  const size_t xs_bytes = 2 * static_cast<size_t>(nc) * TT * sizeof(T);
+  int32_t* st = reinterpret_cast<int32_t*>(smem_raw + xs_bytes);
+  int32_t* cur_a = st;
+  int32_t* end_a = st + R;
+  int32_t* cur_b = st + 2 * R;
+  int32_t* end_b = st + 3 * R;
+  int2* slot = reinterpret_cast<int2*>(st + 4 * R) + (threadIdx.x >> 5) * 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t t0 = (blockIdx.x % t_tiles) * TT;
+  const int64_t row0 = (blockIdx.x / t_tiles) * R;
+  const int r0 = warp * RPW;
+  const int nchunks = (n + nc - 1) / nc;
+
+  stage_xt<T, TT>(xs, XT, tp, t0, 0, min(n, nc));  // lands during the row scan
+  cp_async_commit();
+
+  // Each row's runs, all RPW rows of the warp a window at a time: the first
+  // descent of the clamped columns splits a row in two; a second descent
+  // makes it a filtered row.
+  {
+    int32_t b[RPW], e[RPW], split[RPW], prev[RPW];
+    int desc[RPW];
+    int32_t longest = 0;
+#pragma unroll
+    for (int q = 0; q < RPW; ++q) {
+      const int64_t row = row0 + r0 + q;
+      b[q] = e[q] = 0;
+      if (row < m) {
+        b[q] = static_cast<int32_t>(rows.begin(row));
+        e[q] = static_cast<int32_t>(rows.end(row));
+      }
+      split[q] = e[q];
+      prev[q] = -1;
+      desc[q] = 0;
+      longest = max(longest, e[q] - b[q]);
+    }
+    for (int32_t w = 0; w < longest; w += 32) {
+      int32_t c[RPW];
+#pragma unroll
+      for (int q = 0; q < RPW; ++q) {
+        const int32_t p = b[q] + w + lane;
+        c[q] = p < e[q] ? clamp_col(idx[p], n) : kPastAll;
+      }
+#pragma unroll
+      for (int q = 0; q < RPW; ++q) {
+        int32_t before = __shfl_up_sync(0xffffffffu, c[q], 1);
+        if (lane == 0) before = prev[q];
+        prev[q] = __shfl_sync(0xffffffffu, c[q], 31);
+        const unsigned mask =
+            __ballot_sync(0xffffffffu, b[q] + w + lane < e[q] && c[q] < before);
+        if (mask) {
+          if (desc[q] == 0) split[q] = b[q] + w + __ffs(mask) - 1;
+          desc[q] += __popc(mask);
+        }
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int q = 0; q < RPW; ++q) {
+        cur_a[r0 + q] = b[q];
+        end_a[r0 + q] = desc[q] >= 2 ? -1 : split[q];
+        cur_b[r0 + q] = split[q];
+        end_b[r0 + q] = e[q];
+      }
+    }
+  }
+
+  float acc[RPW][TJ];
+#pragma unroll
+  for (int q = 0; q < RPW; ++q)
+#pragma unroll
+    for (int i = 0; i < TJ; ++i) acc[q][i] = 0.f;
+
+  for (int k = 0; k < nchunks; ++k) {
+    const int32_t lo = k * nc, hi = min(n, lo + nc);
+    if (k + 1 < nchunks) {
+      stage_xt<T, TT>(xs + ((k + 1) & 1) * static_cast<size_t>(nc) * TT, XT, tp, t0, hi,
+                      min(n, hi + nc));
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* xc = xs + (k & 1) * static_cast<size_t>(nc) * TT + lane * TJ;
+    // run A of every row, in lock-step
+    int32_t cur[RPW], end[RPW];
+    unsigned live = 0;
+#pragma unroll
+    for (int q = 0; q < RPW; ++q) {
+      cur[q] = cur_a[r0 + q];
+      end[q] = end_a[r0 + q];
+      if (cur[q] < end[q]) live |= 1u << q;
+    }
+    while (live) {
+      int32_t c[RPW];
+      float v[RPW];
+#pragma unroll
+      for (int q = 0; q < RPW; ++q) {
+        const int32_t p = cur[q] + lane;
+        c[q] = kPastAll;
+        v[q] = 0.f;
+        if (((live >> q) & 1u) && p < end[q]) {
+          c[q] = clamp_col(idx[p], n);
+          v[q] = to_f32(val[p]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < RPW; ++q) {
+        if ((live >> q) & 1u) {
+          const int cnt =
+              take_window<T, TT, TJ, true>(xc, slot, c[q] < hi, c[q], v[q], lo, lane, acc[q]);
+          cur[q] += cnt;
+          if (cnt < 32 || cur[q] >= end[q]) live &= ~(1u << q);
+        }
+      }
+    }
+    // run B, and the filtered rows
+#pragma unroll
+    for (int q = 0; q < RPW; ++q) {
+      const int r = r0 + q;
+      if (end[q] < 0) {
+        take_filtered<T, TT, TJ>(idx, val, xc, slot, cur_a[r], end_b[r], n, lo, hi, lane,
+                                 acc[q]);
+      } else if (cur_b[r] < end_b[r]) {
+        const int32_t cb = take_run<T, TT, TJ>(idx, val, xc, slot, cur_b[r], end_b[r], n, lo,
+                                               hi, lane, acc[q]);
+        __syncwarp();
+        if (lane == 0) cur_b[r] = cb;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) {
+#pragma unroll
+      for (int q = 0; q < RPW; ++q)
+        if (end[q] >= 0) cur_a[r0 + q] = cur[q];
+    }
+    __syncthreads();  // the buffer of chunk k is refilled with chunk k + 2
+  }
+
+  // Y (t, m) through the chunk buffers: lanes along the rows, so each store
+  // runs along M.
+  float* acc_s = reinterpret_cast<float*>(smem_raw);
+#pragma unroll
+  for (int q = 0; q < RPW; ++q)
+#pragma unroll
+    for (int i = 0; i < TJ; ++i) acc_s[(r0 + q) * AS + lane * TJ + i] = acc[q][i];
+  __syncthreads();
+  for (int i = threadIdx.x; i < R * TT; i += kXtThreads) {
+    const int tt = i / R, r = i % R;
+    const int64_t row = row0 + r, tok = t0 + tt;
+    if (row < m && tok < t) Y[tok * m + row] = from_f32<T>(acc_s[r * AS + tt]);
+  }
+}
+
+// Shared memory of tokens_spmm_t at `nc` columns a chunk: two chunks (at
+// least the sums' tile), the rows' state and the warps' entry slots.
+template <typename T, int TJ, int RPW>
+constexpr size_t xt_smem(int nc) {
+  constexpr int TT = 32 * TJ;
+  constexpr size_t rows = kXtWarps * RPW;
+  const size_t chunks = 2 * static_cast<size_t>(nc) * TT * sizeof(T);
+  const size_t sums = rows * (TT + 4) * sizeof(float);
+  return (chunks > sums ? chunks : sums) + 4 * rows * sizeof(int32_t) +
+         kXtWarps * 32 * sizeof(int2);
+}
+
+constexpr int kXtRowsPerWarp = 8;  // at most; 4 or 2 on a matrix of few rows
+
+template <typename T, typename Rows, int TJ, int RPW>
+cudaError_t launch_tokens_rpw(Rows rows, const void* idx, const void* val, const void* XT,
+                              void* Y, int64_t m, int32_t n, int64_t t, int64_t tp,
+                              int64_t t_tiles, int nc, cudaStream_t stream) {
+  constexpr int R = kXtWarps * RPW;
+  const int64_t nblocks = ((m + R - 1) / R) * t_tiles;
+  if (nblocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const size_t smem = xt_smem<T, TJ, RPW>(nc);
+  auto kernel = tokens_spmm_t<T, Rows, TJ, RPW>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(nblocks), kXtThreads, smem, stream>>>(
+      rows, static_cast<const int32_t*>(idx), static_cast<const T*>(val),
+      static_cast<const T*>(XT), static_cast<T*>(Y), m, n, t, tp, t_tiles, nc);
+  return cudaGetLastError();
+}
+
+// Transpose X into the scratch XT (n, tp), then launch tokens_spmm_t.
+// The chunk width is what the card's opt-in shared memory leaves for two
+// buffers, rounded down to 8 columns: it depends on the card, the dtype
+// and TT only. A block takes kXtRowsPerWarp rows a warp, halved (down to
+// 2) while the grid would leave more than half the SMs without a block.
+template <typename T, typename Rows, int TJ>
+cudaError_t launch_tokens_t(Rows rows, const void* idx, const void* val, const void* X,
+                            void* XT, void* Y, int64_t m, int32_t n, int64_t t,
+                            int64_t entries, int device, cudaStream_t stream) {
+  constexpr int TT = 32 * TJ;
+  if (entries > 0x7fffffffLL - 64) return cudaErrorInvalidValue;  // int32 positions
+  const int64_t t_tiles = (t + TT - 1) / TT;
+  const int64_t tp = t_tiles * TT;
+  if (tp / 32 > 65535) return cudaErrorInvalidConfiguration;
+  const dim3 tgrid(static_cast<unsigned>((n + 31) / 32), static_cast<unsigned>(tp / 32));
+  transpose_tokens<T><<<tgrid, dim3(32, 8), 0, stream>>>(
+      static_cast<const T*>(X), static_cast<T*>(XT), t, n, tp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  int sms = 0, optin = 0;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+      cudaSuccess)
+    return err;
+  if ((err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                    device)) != cudaSuccess)
+    return err;
+  constexpr int kRpw = kXtRowsPerWarp;
+  const int64_t rest = static_cast<int64_t>(xt_smem<T, TJ, kRpw>(0)) -
+                       static_cast<int64_t>(kXtWarps * kRpw * (TT + 4) * sizeof(float));
+  const int nc = static_cast<int>((optin - rest) / (2 * TT * sizeof(T))) / 8 * 8;
+  if (nc < 8 || xt_smem<T, TJ, kRpw>(nc) > static_cast<size_t>(optin))
+    return cudaErrorInvalidConfiguration;
+  int rpw = kRpw;
+  while (rpw > 2 && ((m + kXtWarps * rpw - 1) / (kXtWarps * rpw)) * t_tiles * 2 <= sms)
+    rpw /= 2;
+  switch (rpw) {
+    case 2:
+      return launch_tokens_rpw<T, Rows, TJ, 2>(rows, idx, val, XT, Y, m, n, t, tp, t_tiles, nc,
+                                               stream);
+    case 4:
+      return launch_tokens_rpw<T, Rows, TJ, 4>(rows, idx, val, XT, Y, m, n, t, tp, t_tiles, nc,
+                                               stream);
+    default:
+      return launch_tokens_rpw<T, Rows, TJ, kRpw>(rows, idx, val, XT, Y, m, n, t, tp, t_tiles,
+                                                  nc, stream);
+  }
+}
+
+// Y (t, m) = X @ A^T for a row-walking format on the token-major schedule,
+// token tiles of `xt` (32, 64 or 128); XT is the caller's (n, tp) scratch,
+// tp = t rounded up to xt.
+template <typename T, typename Rows>
+int tokens_spmm_t_launch(Rows rows, const void* idx, const void* val, const void* X, void* XT,
+                         void* Y, int64_t m, int32_t n, int64_t t, int64_t entries, int xt,
+                         int device, void* stream) {
+  if (m == 0 || t == 0 || n == 0) return 0;
+  return on_device(device, [&]() -> cudaError_t {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (xt) {
+      case 32:
+        return launch_tokens_t<T, Rows, 1>(rows, idx, val, X, XT, Y, m, n, t, entries, device,
+                                           s);
+      case 64:
+        return launch_tokens_t<T, Rows, 2>(rows, idx, val, X, XT, Y, m, n, t, entries, device,
+                                           s);
+      case 128:
+        return launch_tokens_t<T, Rows, 4>(rows, idx, val, X, XT, Y, m, n, t, entries, device,
+                                           s);
       default: return cudaErrorInvalidValue;
     }
   });

@@ -8,6 +8,13 @@ launches its kernel (or raises); on a CPU tensor it runs the plain version,
 ``repro_torch.kernels.ref.csr_spmm_ref`` / ``csr_spmm_t_ref``. Each kernel
 has its own count: ``launches`` (csr_spmm) and ``launches_t``
 (csr_spmm_t), raised where the kernel launches and nowhere else.
+
+``csr_spmm_t`` has two schedules (``csrc/spmm_common.cuh``), picked by the
+launch knob ``xt``: 0 runs the row schedule (``rows_spmm_t``: ``vec`` lanes
+a row, ``tt`` <= 8 tokens a block, X gathered through L1); 32, 64 or 128
+runs the token-major schedule (``tokens_spmm_t``: X transposed into a
+scratch XT once a call, ``xt`` tokens a block staged in shared memory).
+Both count in ``launches_t``.
 """
 from __future__ import annotations
 
@@ -30,12 +37,20 @@ TOKEN_TILES = (1, 2, 4, 8)
 # the down weight; the SELL kernel on the up weight ran 2.13 ms at 4 tokens
 # against 2.29 ms at 8.
 MAX_TOKEN_TILE = 8
+# Token tiles of the token-major schedule (``xt``; 0 is the row schedule).
+# ``kernels.ops.default_config`` takes the largest tile <= T: on an H100 at
+# the minitron-8b MLP shapes (f32; chip_smoke.py's T sweep, PERF.md) it beat
+# the row schedule and the other tiles on both weights at T = 32, 64, 128
+# and 256, and lost to the row schedule at T = 8 and 16.
+XT_TILES = (32, 64, 128)
 launches = 0
 launches_t = 0
+launches_xt = 0  # of launches_t, those on the token-major schedule
 
 _P, _I64, _I32, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _P, _I64, _I32, _I64, _INT, _INT, _P]
 _ARGTYPES_T = [_P, _P, _P, _P, _P, _I64, _I32, _I64, _INT, _INT, _INT, _P]
+_ARGTYPES_XT = [_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _INT, _INT, _P]
 
 
 def token_tile(t: int) -> int:
@@ -47,6 +62,31 @@ def token_tile(t: int) -> int:
     return tt
 
 
+def xt_tile(t: int) -> int:
+    """The ``xt`` knob for ``t`` tokens: the largest of ``XT_TILES`` <= t,
+    or 0 (the row schedule) below the smallest."""
+    return max((xt for xt in XT_TILES if xt <= t), default=0)
+
+
+def check_xt(xt: int) -> int:
+    """``xt`` as an int if the kernels take it (0 or one of ``XT_TILES``),
+    else ValueError. The wrappers call it before anything else."""
+    if isinstance(xt, bool) or not isinstance(xt, int) or xt not in (0,) + XT_TILES:
+        raise ValueError(f"xt must be 0 (the row schedule) or one of {XT_TILES}, got {xt!r}")
+    return xt
+
+
+# Stored entries the token-major schedule addresses (int32 positions).
+XT_MAX_ENTRIES = 2 ** 31 - 65
+
+
+def xt_scratch(X: torch.Tensor, xt: int) -> torch.Tensor:
+    """The token-major schedule's scratch XT: (N, T rounded up to ``xt``)
+    in X's dtype, on X's device, uninitialised (the kernel fills it)."""
+    t, n = X.shape
+    return torch.empty((n, -(-t // xt) * xt), dtype=X.dtype, device=X.device)
+
+
 @functools.lru_cache(maxsize=None)
 def _fn(dtype: torch.dtype):
     return _build.entry_point(NAME, f"csr_spmm_{DTYPES[dtype]}", _ARGTYPES)
@@ -55,6 +95,11 @@ def _fn(dtype: torch.dtype):
 @functools.lru_cache(maxsize=None)
 def _fn_t(dtype: torch.dtype):
     return _build.entry_point(NAME, f"csr_spmm_t_{DTYPES[dtype]}", _ARGTYPES_T)
+
+
+@functools.lru_cache(maxsize=None)
+def _fn_xt(dtype: torch.dtype):
+    return _build.entry_point(NAME, f"csr_spmm_xt_{DTYPES[dtype]}", _ARGTYPES_XT)
 
 
 def _check(indptr, indices, data, rhs, m, what, n_axis):
@@ -109,17 +154,23 @@ def csr_spmm(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
 
 
 def csr_spmm_t(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
-               X: torch.Tensor, m: int, vec: int, tt: int | None = None) -> torch.Tensor:
+               X: torch.Tensor, m: int, vec: int, tt: int | None = None,
+               xt: int = 0) -> torch.Tensor:
     """Y = X @ A^T for CSR A and activations X (T, N); returns (T, M).
-    ``vec`` lanes reduce each row (``kernels.ops.default_config`` picks it)
-    and a block takes ``tt`` tokens at once (default :func:`token_tile` of
-    T). f32 accumulation; Y in X's dtype."""
-    global launches_t
+    ``xt`` 0: the row schedule, ``vec`` lanes reduce each row
+    (``kernels.ops.default_config`` picks it) and a block takes ``tt``
+    tokens at once (default :func:`token_tile` of T). ``xt`` in
+    ``XT_TILES``: the token-major schedule, ``xt`` tokens a block (``vec``
+    and ``tt`` unread). f32 accumulation; Y in X's dtype."""
+    global launches_t, launches_xt
+    xt = check_xt(xt)
     if X.device.type == "cpu":
         return csr_spmm_t_ref(indptr, indices, data, X, m)
     if X.device.type != "cuda":
         raise ValueError(f"csr_spmm_t runs on cuda or cpu tensors, got {X.device}")
     _check(indptr, indices, data, X, m, "X", 1)
+    if xt and data.shape[0] > XT_MAX_ENTRIES:
+        raise ValueError(f"xt={xt} addresses at most {XT_MAX_ENTRIES} stored entries")
     tt = token_tile(X.shape[0]) if tt is None else tt
     if vec not in VEC_WIDTHS or tt not in TOKEN_TILES:
         raise ValueError(f"vec must be one of {VEC_WIDTHS} and tt one of {TOKEN_TILES}, "
@@ -128,11 +179,18 @@ def csr_spmm_t(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
     if m == 0 or t == 0 or n == 0:  # nothing to launch: every output sums nothing
         return torch.zeros((t, m), dtype=X.dtype, device=X.device)
     y = torch.empty((t, m), dtype=X.dtype, device=X.device)
-    fn, err_str = _fn_t(X.dtype)
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    err = fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(), X.data_ptr(),
-             y.data_ptr(), m, n, t, vec, tt, X.device.index, stream)
+    if xt:
+        fn, err_str = _fn_xt(X.dtype)
+        scratch = xt_scratch(X, xt)  # freed on this stream after the launch: reuse waits
+        err = fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(), X.data_ptr(),
+                 scratch.data_ptr(), y.data_ptr(), m, n, t, xt, X.device.index, stream)
+    else:
+        fn, err_str = _fn_t(X.dtype)
+        err = fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(), X.data_ptr(),
+                 y.data_ptr(), m, n, t, vec, tt, X.device.index, stream)
     if err:
         raise RuntimeError(f"csr_spmm_t launch failed: {err_str(err).decode()} ({err})")
     launches_t += 1
+    launches_xt += bool(xt)
     return y

@@ -8,7 +8,9 @@ launches its kernel (or raises); on a CPU tensor it runs the plain version,
 ``repro_torch.kernels.ref.ell_spmm_ref`` / ``ell_spmm_t_ref``. K = 0 returns
 zeros and launches nothing, as the JAX kernels do. Each kernel has its own
 count: ``launches`` (ell_spmm) and ``launches_t`` (ell_spmm_t), raised where
-the kernel launches and nowhere else.
+the kernel launches and nowhere else. ``ell_spmm_t`` takes the launch knob
+``xt`` as ``csr_spmm.csr_spmm_t`` does: 0 the row schedule, 32, 64 or 128
+the token-major schedule.
 """
 from __future__ import annotations
 
@@ -18,17 +20,20 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.csr_spmm import TOKEN_TILES, VEC_WIDTHS, token_tile
+from repro_torch.kernels.csr_spmm import (TOKEN_TILES, VEC_WIDTHS, XT_MAX_ENTRIES, check_xt,
+                                          token_tile, xt_scratch)
 from repro_torch.kernels.ref import ell_spmm_ref, ell_spmm_t_ref
 
 NAME = "ell_spmm"
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 launches = 0
 launches_t = 0
+launches_xt = 0  # of launches_t, those on the token-major schedule
 
 _P, _I64, _I32, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _I64, _I32, _I32, _I64, _INT, _INT, _P]
 _ARGTYPES_T = [_P, _P, _P, _P, _I64, _I32, _I32, _I64, _INT, _INT, _INT, _P]
+_ARGTYPES_XT = [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I64, _INT, _INT, _P]
 
 
 @functools.lru_cache(maxsize=None)
@@ -39,6 +44,11 @@ def _fn(dtype: torch.dtype):
 @functools.lru_cache(maxsize=None)
 def _fn_t(dtype: torch.dtype):
     return _build.entry_point(NAME, f"ell_spmm_t_{DTYPES[dtype]}", _ARGTYPES_T)
+
+
+@functools.lru_cache(maxsize=None)
+def _fn_xt(dtype: torch.dtype):
+    return _build.entry_point(NAME, f"ell_spmm_xt_{DTYPES[dtype]}", _ARGTYPES_XT)
 
 
 def _check(cols, data, X, vec, tt, what="X", n_axis=1):
@@ -96,29 +106,40 @@ def ell_spmm(cols: torch.Tensor, data: torch.Tensor, B: torch.Tensor,
 
 
 def ell_spmm_t(cols: torch.Tensor, data: torch.Tensor, X: torch.Tensor, vec: int,
-               tt: int | None = None) -> torch.Tensor:
+               tt: int | None = None, xt: int = 0) -> torch.Tensor:
     """Y = X @ A^T for ELL A given as (cols[M, K], data[M, K]) and
-    activations X (T, N); returns (T, M). Columns clamp into [0, N); ``vec``
-    lanes a row (``kernels.ops.default_config``), ``tt`` tokens a block
-    (default ``csr_spmm.token_tile`` of T). f32 accumulation; Y in X's
-    dtype."""
-    global launches_t
+    activations X (T, N); returns (T, M). Columns clamp into [0, N). ``xt``
+    0: the row schedule, ``vec`` lanes a row (``kernels.ops.default_config``),
+    ``tt`` tokens a block (default ``csr_spmm.token_tile`` of T); ``xt`` in
+    ``csr_spmm.XT_TILES``: the token-major schedule, ``xt`` tokens a block.
+    f32 accumulation; Y in X's dtype."""
+    global launches_t, launches_xt
+    xt = check_xt(xt)
     if X.device.type == "cpu":
         return ell_spmm_t_ref(cols, data, X)
     if X.device.type != "cuda":
         raise ValueError(f"ell_spmm_t runs on cuda or cpu tensors, got {X.device}")
     tt = token_tile(X.shape[0]) if tt is None else tt
     _check(cols, data, X, vec, tt)
+    if xt and data.numel() > XT_MAX_ENTRIES:
+        raise ValueError(f"xt={xt} addresses at most {XT_MAX_ENTRIES} stored entries")
     m, k = data.shape
     t, n = X.shape
     if m == 0 or k == 0 or t == 0 or n == 0:  # nothing to launch: every row sums nothing
         return torch.zeros((t, m), dtype=X.dtype, device=X.device)
     y = torch.empty((t, m), dtype=X.dtype, device=X.device)
-    fn, err_str = _fn_t(X.dtype)
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    err = fn(cols.data_ptr(), data.data_ptr(), X.data_ptr(), y.data_ptr(), m, n, k, t,
-             vec, tt, X.device.index, stream)
+    if xt:
+        fn, err_str = _fn_xt(X.dtype)
+        scratch = xt_scratch(X, xt)  # freed on this stream after the launch: reuse waits
+        err = fn(cols.data_ptr(), data.data_ptr(), X.data_ptr(), scratch.data_ptr(),
+                 y.data_ptr(), m, n, k, t, xt, X.device.index, stream)
+    else:
+        fn, err_str = _fn_t(X.dtype)
+        err = fn(cols.data_ptr(), data.data_ptr(), X.data_ptr(), y.data_ptr(), m, n, k, t,
+                 vec, tt, X.device.index, stream)
     if err:
         raise RuntimeError(f"ell_spmm_t launch failed: {err_str(err).decode()} ({err})")
     launches_t += 1
+    launches_xt += bool(xt)
     return y

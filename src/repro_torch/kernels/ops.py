@@ -7,7 +7,10 @@ Every entry point takes ``cfg=``, a dict of launch knobs: an explicit
 cached for the matrix's shape bucket (and rhs-width bucket), then
 :func:`default_config`'s choice (:func:`resolve_config`). The knobs are the
 ones the kernels take: DIA ``block``; CSR and ELL ``vec`` (lanes a row);
-``tt`` (tokens a block) of every SpMM_T kernel. SELL's ``c``/``sigma``
+``tt`` (tokens a block) of every SpMM_T kernel; ``xt`` of the CSR and ELL
+SpMM_T kernels (HYB's two parts too), which picks their schedule: absent or
+0 the row schedule, 32, 64 or 128 the token-major one with that many tokens
+a block. SELL's ``c``/``sigma``
 name a container geometry: the tuner rebuilds the container to time them,
 and no launch reads them. ``repro_torch.core.ops.spmv(backend="auto")``
 threads a measured winner here.
@@ -65,7 +68,9 @@ def default_config(A, op: str = "spmv", ncols: Optional[int] = None) -> dict:
     lanes a row, the smallest power of two with at most
     ``CSR_ENTRIES_PER_LANE`` entries of an average row per lane, clamped to
     [2, 32]; ELL's SpMM kernels the same from its K (its SpMV kernel takes
-    no knob). SpMM_T adds ``tt``, ``csr_spmm.token_tile`` of T. HYB:
+    no knob). SpMM_T adds ``tt``, ``csr_spmm.token_tile`` of T, and for CSR
+    and ELL ``xt``, ``csr_spmm.xt_tile`` of T where that is not 0 (the
+    token-major schedule from T = 32). HYB:
     ``{"ell": ..., "csr": ...}``, the CSR part from the tail's average row.
     SELL (but for ``tt``) and BSR take no launch knob: ``{}``.
     """
@@ -75,6 +80,7 @@ def default_config(A, op: str = "spmv", ncols: Optional[int] = None) -> dict:
         csr = {"vec": _csr_vec(A.coo.nnz, A.shape[0])}
         if op == "spmm_t":
             csr["tt"] = _csr_mm.token_tile(ncols or 1)
+            _add_xt(csr, ncols)
         return {"ell": default_config(A.ell, op=op, ncols=ncols), "csr": csr}
     if isinstance(A, CSR):
         cfg = {"vec": _csr_vec(A.nnz, A.shape[0])}
@@ -86,7 +92,21 @@ def default_config(A, op: str = "spmv", ncols: Optional[int] = None) -> dict:
         return {}
     if op == "spmm_t":
         cfg["tt"] = _csr_mm.token_tile(ncols or 1)
+        if not isinstance(A, SELL):
+            _add_xt(cfg, ncols)
     return cfg
+
+
+def _add_xt(cfg: dict, ncols: Optional[int]) -> None:
+    xt = _csr_mm.xt_tile(ncols or 1)
+    if xt:
+        cfg["xt"] = xt
+
+
+def _xt(cfg: Optional[dict]) -> int:
+    """``cfg``'s schedule knob: absent (a cfg or record from before the
+    token-major schedule) is 0, the row schedule."""
+    return int((cfg or {}).get("xt") or 0)
 
 
 _best_config = None  # repro_torch.tuning.kernel_tune.best_config
@@ -209,14 +229,14 @@ def csr_spmm_t(A: CSR, X: torch.Tensor, cfg: Optional[dict] = None) -> torch.Ten
     cfg = resolve_config(A, cfg, "spmm_t", t)
     return _csr_mm.csr_spmm_t(A.indptr, A.indices, A.data, X, A.shape[0],
                               vec=_pick(cfg, "vec", A, "spmm_t", t),
-                              tt=_pick(cfg, "tt", A, "spmm_t", t))
+                              tt=_pick(cfg, "tt", A, "spmm_t", t), xt=_xt(cfg))
 
 
 def ell_spmm_t(A: ELL, X: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
     t = X.shape[0]
     cfg = resolve_config(A, cfg, "spmm_t", t)
     return _ell_mm.ell_spmm_t(A.cols, A.data, X, vec=_pick(cfg, "vec", A, "spmm_t", t),
-                              tt=_pick(cfg, "tt", A, "spmm_t", t))
+                              tt=_pick(cfg, "tt", A, "spmm_t", t), xt=_xt(cfg))
 
 
 def sell_spmm_t(A: SELL, X: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
@@ -234,7 +254,8 @@ def hyb_spmm_t(A: HYB, X: torch.Tensor, cfg: Optional[dict] = None) -> torch.Ten
     indptr, indices, data = tail_csr(A.coo, A.shape[0])
     tail = _csr_mm.csr_spmm_t(indptr, indices, data, X, A.shape[0],
                               vec=_hyb_tail_knob(A, cfg, "vec", "spmm_t", t),
-                              tt=_hyb_tail_knob(A, cfg, "tt", "spmm_t", t))
+                              tt=_hyb_tail_knob(A, cfg, "tt", "spmm_t", t),
+                              xt=_xt(cfg.get("csr")))
     return ell_spmm_t(A.ell, X, cfg=cfg.get("ell")) + tail
 
 

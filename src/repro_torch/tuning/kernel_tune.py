@@ -65,7 +65,7 @@ class KernelRecord:
 
     fmt: str            # Format name
     op: str             # "spmv" | "spmm" | "spmm_t"
-    cfg: dict           # launch knobs (block / vec / tt; SELL c, sigma)
+    cfg: dict           # launch knobs (block / vec / tt / xt; SELL c, sigma)
     kernel_us: float    # best measured time of cfg, microseconds
     ref_us: float       # reference-route time on the same matrix
 
@@ -227,14 +227,19 @@ def default_grid(A, smoke: bool = False, op: str = "spmv",
     choice first, so tuning can only match or beat the untuned path.
 
     ``vec`` brackets the default (half, same, double); ``tt`` takes every
-    token tile up to the default (1, 2, 4, 8 at T >= 8); SELL adds a second
-    container geometry (``c`` 64, or 32 where it is 64, ``sigma`` 8c),
-    which the tuner rebuilds. ``smoke`` keeps two or three entries.
+    token tile up to the default (1, 2, 4, 8 at T >= 8); where the default
+    runs the token-major SpMM_T schedule (``xt``), the grid holds both
+    schedules: every ``xt`` tile, and the row schedule's ``vec`` x ``tt``
+    entries (no ``xt``); HYB's tail takes its ELL part's ``tt`` and ``xt``.
+    SELL adds a second container geometry (``c`` 64, or 32 where it is 64,
+    ``sigma`` 8c), which the tuner rebuilds. ``smoke`` keeps two or three
+    entries.
     """
     base = kops.default_config(A, op=op, ncols=ncols)
     if isinstance(A, HYB):
         sub = default_grid(A.ell, smoke=smoke, op=op, ncols=ncols)
-        grid = [{"ell": g, "csr": dict(base["csr"], **({"tt": g["tt"]} if "tt" in g else {}))}
+        tail = {k: v for k, v in base["csr"].items() if k not in ("tt", "xt")}
+        grid = [{"ell": g, "csr": dict(tail, **{k: g[k] for k in ("tt", "xt") if k in g})}
                 for g in sub]
     elif isinstance(A, SELL):
         own = dict({"c": A.c, "sigma": A.sigma}, **base)
@@ -253,8 +258,13 @@ def default_grid(A, smoke: bool = False, op: str = "spmv",
         elif op == "spmm" and (ncols or 1) > 8:
             grid = [base]  # lanes lie along K: no knob is read
         else:
-            grid = [base] + [{k: v for k, v in (("vec", vec), ("tt", tt)) if v is not None}
-                             for vec in vecs for tt in tts]
+            tiles = []
+            if "xt" in base:  # the row schedule's default next, then every tile
+                tiles = [{k: v for k, v in base.items() if k != "xt"}] + [
+                    dict(base, xt=xt) for xt in _csr_mm.XT_TILES]
+            grid = [base] + tiles + [
+                {k: v for k, v in (("vec", vec), ("tt", tt)) if v is not None}
+                for vec in vecs for tt in tts]
         if smoke:
             grid = grid[:3]
     seen, out = set(), []

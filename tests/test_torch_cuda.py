@@ -435,6 +435,150 @@ def test_sell_spmm_t_kernel_matches_plain(card, dtype_name, c, sigma):
             _same(y1, y2, y_p, dtype_name)
 
 
+# The token-major SpMM_T schedule (xt): token counts around its tiles, rhs
+# widths of one chunk and of several (neither a multiple of a chunk), and
+# rows in three column orders: sorted (one run), two sorted runs (ELL's
+# trailing padding is one), and no order at all (filtered rows); every
+# layout holds empty rows and columns past both edges.
+XT_TOKENS = (9, 16, 31, 33, 256, 257)
+XT_WIDTHS = (700, 9001)
+XT_LAYOUTS = ("sorted", "two_runs", "unsorted")
+# |y_k - y_p| <= atol + sum_rtol * sum|a||b| + out_rtol * |y_p| (chip_smoke.py's
+# SpMM rule: other summation orders in f32, one rounding to bf16).
+SPMM_TOL = {"float32": (1e-4, 1e-4, 0.0), "bfloat16": (0.0, 1e-4, 2.0 ** -7)}
+
+
+def _spmm_reading(y, y_p, scale, dtype_name):
+    atol, sum_rtol, out_rtol = SPMM_TOL[dtype_name]
+    limit = atol + sum_rtol * scale.float() + out_rtol * y_p.float().abs()
+    diff = (y.float() - y_p.float()).abs()
+    return float((diff / limit.clamp_min(1e-30)).max()) if y.numel() else 0.0
+
+
+def _row_cols(rng, layout, ln, n):
+    """Column indices of one row of ``ln`` entries in ``layout`` order."""
+    if layout == "unsorted":
+        return rng.integers(-2, n + 2, ln)
+    if layout == "two_runs" and ln > 1:
+        cut = int(rng.integers(1, ln))
+        return np.concatenate([np.sort(rng.integers(n // 2, n + 2, cut)),
+                               np.sort(rng.integers(-2, n // 2, ln - cut))])
+    return np.sort(rng.integers(-2, n + 2, ln))
+
+
+def _xt_csr(rng, layout, n, dt, dev, m=300):
+    """CSR in ``layout`` order: empty rows, rows longer than a chunk, and
+    capacity padding of NaN past indptr[-1] (never read)."""
+    lens = rng.integers(0, 80, m)
+    lens[::7] = 0
+    lens[5], lens[11] = 2 * n + 3, 33
+    ix = np.concatenate([_row_cols(rng, layout, int(ln), n) for ln in lens] +
+                        [rng.integers(0, n, 37)]).astype(np.int32)
+    nnz = int(lens.sum())
+    ip = torch.tensor(np.concatenate([[0], np.cumsum(lens)]), dtype=torch.int32, device=dev)
+    v = _rand(rng, nnz + 37, dt, dev)
+    v[nnz:] = float("nan")
+    return ip, torch.from_numpy(ix).to(dev), v, m
+
+
+def _xt_ell(rng, layout, n, k, dt, dev, m=300):
+    """ELL in ``layout`` order: each row's live slots, then padding (col -1,
+    val 0) to K; every seventh row is padding only."""
+    cols = np.full((m, k), -1, np.int32)
+    vals = np.zeros((m, k), np.float32)
+    for i in range(m):
+        ln = 0 if i % 7 == 0 or k == 0 else int(rng.integers(1, k + 1))
+        cols[i, :ln] = _row_cols(rng, layout, ln, n)
+        vals[i, :ln] = rng.standard_normal(ln)
+    return torch.from_numpy(cols).to(dev), torch.from_numpy(vals).to(dev, dt)
+
+
+def _check_xt(run, plain, X, row_cfg, dtype_name, counters, expect_launch=True):
+    """Every tile against the plain version (and the row schedule ``row_cfg``)
+    within SPMM_TOL, bitwise reruns, two counted token-major launches."""
+    y_p = plain(X, False)
+    scale = plain(X, True)
+    y_row = run(X, **row_cfg)
+    torch.cuda.synchronize()
+    assert _spmm_reading(y_row, y_p, scale, dtype_name) <= 1.0
+    for xt in kcm.XT_TILES:
+        before = [getattr(mod, attr) for mod, attr in counters]
+        y1, y2 = run(X, vec=8, xt=xt), run(X, vec=8, xt=xt)
+        torch.cuda.synchronize()
+        launched = [getattr(mod, attr) - b for (mod, attr), b in zip(counters, before)]
+        assert launched == [2 if expect_launch else 0] * len(counters), (xt, launched)
+        assert y1.shape == y_p.shape and y1.dtype == X.dtype
+        assert bool(torch.isfinite(y1).all())
+        assert _spmm_reading(y1, y_p, scale, dtype_name) <= 1.0, xt
+        assert _spmm_reading(y1, y_row, scale, dtype_name) <= 1.0, xt  # new against old
+        assert torch.equal(y1, y2)  # one summation order: bitwise stable
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("layout", XT_LAYOUTS)
+@pytest.mark.parametrize("n", XT_WIDTHS)
+def test_token_major_csr_spmm_t_matches_plain(card, dtype_name, layout, n):
+    rng = np.random.default_rng(40)
+    dt = DTYPES[dtype_name]
+    ip, ix, v, m = _xt_csr(rng, layout, n, dt, card)
+    empty = (ip[1:] == ip[:-1]).nonzero().flatten()
+
+    def run(X, **kw):
+        return kcm.csr_spmm_t(ip, ix, v, X, m, **kw)
+
+    def plain(X, absolute):
+        return csr_spmm_t_ref(ip, ix, v.abs() if absolute else v, X.abs() if absolute else X, m)
+    for t in XT_TOKENS:
+        X = _rand(rng, (t, n), dt, card)
+        _check_xt(run, plain, X, {"vec": 8, "tt": 8}, dtype_name,
+                  [(kcm, "launches_t"), (kcm, "launches_xt")])
+        assert not bool(run(X, vec=8, xt=32)[:, empty].any())  # empty rows write zeros
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("layout", XT_LAYOUTS)
+@pytest.mark.parametrize("n", XT_WIDTHS)
+def test_token_major_ell_spmm_t_matches_plain(card, dtype_name, layout, n):
+    rng = np.random.default_rng(41)
+    dt = DTYPES[dtype_name]
+    for k in (0, 70):
+        cols, vals = _xt_ell(rng, layout, n, k, dt, card)
+
+        def run(X, **kw):
+            return kem.ell_spmm_t(cols, vals, X, **kw)
+
+        def plain(X, absolute):
+            return ell_spmm_t_ref(cols, vals.abs() if absolute else vals,
+                                  X.abs() if absolute else X)
+        for t in XT_TOKENS:
+            X = _rand(rng, (t, n), dt, card)
+            _check_xt(run, plain, X, {"vec": 8, "tt": 8}, dtype_name,
+                      [(kem, "launches_t"), (kem, "launches_xt")], expect_launch=k > 0)
+            if k:
+                assert not bool(run(X, vec=8, xt=64)[:, ::7].any())  # padding-only rows
+
+
+def test_token_major_with_full_blocks_and_the_layer_route(card):
+    """A matrix of enough rows for blocks of 8 rows a warp (the serving
+    weights' case), through ``kernels.ops`` with the default cfg at T = 256
+    and a record-free cfg without ``xt`` (the row schedule): both launch,
+    only the first on the token-major schedule."""
+    rng = np.random.default_rng(42)
+    a = np.where(rng.random((9000, 700)) < 0.05, rng.standard_normal((9000, 700)), 0)
+    A = coo_from_dense_np(a.astype(np.float32), device=card)
+    X = _rand(rng, (256, 700), torch.float32, card)
+    oracle = X.double() @ torch.from_numpy(a.T).to(card)
+    for fmt, mod in ((Format.CSR, kcm), (Format.ELL, kem)):
+        M = convert(A, fmt)
+        for cfg, xt_launches in ((None, 1), ({"vec": 8, "tt": 8}, 0)):
+            before = (mod.launches_t, mod.launches_xt)
+            y = spmm_t(M, X, backend="cuda", cfg=cfg)
+            torch.cuda.synchronize()
+            assert (mod.launches_t - before[0], mod.launches_xt - before[1]) == (1, xt_launches)
+            err = float((y.double() - oracle).abs().max() / oracle.abs().max())
+            assert err <= 1e-5, (fmt, cfg, err)
+
+
 def test_spmm_on_formats_without_a_ported_kernel_raises(card):
     """Every SpMM kernel is ported now: on the card ELL, SELL and HYB SpMM
     launch their kernels (HYB: ell_spmm and csr_spmm over the tail), as do

@@ -26,6 +26,7 @@ import repro_torch.core.ops as tops
 from repro_torch import hpcg_solve
 from repro_torch.core.dynamic import DynamicMatrix
 from repro_torch.core.solvers import operator
+from repro_torch.kernels import csr_spmm as kcm
 from repro_torch.kernels import ops as kops
 from repro_torch.models import WEIGHT_CANDIDATES, LinearSparse, prune_magnitude
 from repro_torch.obs import metrics
@@ -194,6 +195,27 @@ def test_default_grid_contains_default_config(fmt):
                 assert tts == ({1, 2, 4, 8} if w == 256 else {1, 2, 4} if w == 3 else {1})
 
 
+@pytest.mark.parametrize("fmt", ["CSR", "ELL", "HYB"])
+def test_default_grid_holds_both_spmm_t_schedules(fmt):
+    """At ncols = 256 the grid times the token-major schedule at every tile
+    and the row schedule (entries without ``xt``); at ncols = 1 only the row
+    schedule. HYB's tail runs its ELL part's schedule."""
+    A = tconv.convert(coo_pair(PATTERNS["powerlaw"]())[1], tf.Format[fmt])
+
+    def knobs(g):
+        return [g["ell"], g["csr"]] if fmt == "HYB" else [g]
+    for smoke in (False, True):
+        grid = kt.default_grid(A, smoke=smoke, op="spmm_t", ncols=256)
+        xts = {kops._xt(k) for g in grid for k in knobs(g)}
+        assert 0 in xts and 128 in xts
+        if not smoke:
+            assert xts == {0, *kcm.XT_TILES}
+        for g in grid:
+            assert len({kops._xt(k) for k in knobs(g)}) == 1
+    assert all(kops._xt(k) == 0 for g in kt.default_grid(A, op="spmm_t", ncols=1)
+               for k in knobs(g))
+
+
 def test_tune_kernel_persists_its_winner(tmp_path, monkeypatch):
     """The stubbed timer gives the reference 1 s and the grid's configs the
     listed times: the record keeps the fastest cfg with both times, under a
@@ -304,6 +326,36 @@ def test_resolve_config_prefers_explicit_then_record_then_default(store):
     assert kops._pick({"vec": 16}, "tt", A, "spmm_t", 256) == base["tt"]
     assert kops.resolve_config(A, None, "spmm_t", 1) == kops.default_config(A, op="spmm_t",
                                                                              ncols=1)
+
+
+def test_a_record_without_xt_means_the_row_schedule(store):
+    """A record stored before the token-major schedule existed (no ``xt``)
+    still answers its bucket, and runs the row schedule; one with ``xt``
+    runs that tile."""
+    A = _csr()
+    assert kops._xt(kops.resolve_config(A, None, "spmm_t", 256)) == 128  # the default
+    _seed(A, "spmm_t", 1.0, 9.0, {"vec": 8, "tt": 4}, ncols=256)
+    cfg = kops.resolve_config(A, None, "spmm_t", 256)
+    assert cfg == {"vec": 8, "tt": 4} and kops._xt(cfg) == 0
+    _seed(A, "spmm_t", 1.0, 9.0, {"vec": 8, "tt": 4, "xt": 64}, ncols=256)
+    assert kops._xt(kops.resolve_config(A, None, "spmm_t", 256)) == 64
+    assert kops._xt(None) == kops._xt({}) == kops._xt({"xt": 0}) == 0
+
+
+def test_xt_round_trips_through_the_selection_cache(tmp_path, card_tag):
+    """The knob survives the record JSON, a fresh store handle and a pinned
+    decision of the cached policy, and the JAX package reads it back."""
+    path = str(tmp_path / "sel.json")
+    A = _csr()
+    cfg = {"vec": 32, "tt": 8, "xt": 128}
+    rec = _seed(A, "spmm_t", 700.0, 45000.0, cfg, ncols=256, path=path)
+    fresh = kt.best_config(A, op="spmm_t", ncols=256, cache=SelectionCache(path))
+    assert fresh == rec and fresh.cfg == cfg and kops._xt(fresh.cfg) == 128
+    assert KernelRecord.from_json(rec.to_json()).cfg == cfg
+    SelectionCache(path).put_decision("k-xt", tf.Format.ELL, "cuda", {"ell": cfg}, kt.CUDA_TAG)
+    assert SelectionCache(path).get_decision("k-xt") == (tf.Format.ELL, "cuda", {"ell": cfg},
+                                                         kt.CUDA_TAG)
+    assert jcache.SelectionCache(path).get_decision("k-xt")[2] == {"ell": cfg}
 
 
 def test_operator_and_dynamic_matrix_thread_cfg(monkeypatch):

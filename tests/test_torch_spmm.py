@@ -453,7 +453,7 @@ def test_spmm_t_config_takes_up_to_eight_tokens_a_block():
     assert kcm.MAX_TOKEN_TILE == max(kcm.TOKEN_TILES)
     C = tf.CSR(torch.zeros(101, dtype=torch.int32), torch.zeros(102400, dtype=torch.int32),
                torch.zeros(102400), (100, 4096), 102400)
-    assert kops.default_config(C, op="spmm_t", ncols=256) == {"vec": 32, "tt": 8}
+    assert kops.default_config(C, op="spmm_t", ncols=256) == {"vec": 32, "tt": 8, "xt": 128}
     assert kops.default_config(C, op="spmm_t", ncols=3) == {"vec": 32, "tt": 4}
     assert kops.default_config(C, op="spmm", ncols=256) == {"vec": 32}
     E = tf.ELL(torch.zeros(100, 20, dtype=torch.int32), torch.zeros(100, 20), (100, 64), 2000)
@@ -466,6 +466,84 @@ def test_spmm_t_config_takes_up_to_eight_tokens_a_block():
     cfg = kops.default_config(tconv.convert(A, tf.Format.HYB), op="spmm_t", ncols=256)
     assert set(cfg) == {"ell", "csr"} and cfg["csr"]["vec"] in kcm.VEC_WIDTHS
     assert cfg["csr"]["tt"] == cfg["ell"]["tt"] == 8
+    assert cfg["csr"]["xt"] == cfg["ell"]["xt"] == 128
+
+
+@pytest.mark.parametrize("t,xt", [(1, 0), (8, 0), (31, 0), (32, 32), (63, 32), (64, 64),
+                                  (127, 64), (128, 128), (256, 128), (257, 128)])
+def test_spmm_t_config_picks_its_schedule_from_t(t, xt):
+    """The row schedule below 32 tokens (no ``xt`` key), else the largest
+    token-major tile <= T; CSR, ELL and both HYB parts alike, SELL never."""
+    assert kcm.xt_tile(t) == xt
+    a = PATTERNS["powerlaw"]()
+    A = tf.coo_from_dense_np(a, device="cpu")
+    for fmt in ("CSR", "ELL"):
+        cfg = kops.default_config(tconv.convert(A, tf.Format[fmt]), op="spmm_t", ncols=t)
+        assert cfg.get("xt", 0) == xt and ("xt" in cfg) == bool(xt)
+        assert kops._xt(cfg) == xt
+    hyb = kops.default_config(tconv.convert(A, tf.Format.HYB), op="spmm_t", ncols=t)
+    assert kops._xt(hyb["ell"]) == kops._xt(hyb["csr"]) == xt
+    assert "xt" not in kops.default_config(tconv.convert(A, tf.Format.SELL), op="spmm_t",
+                                           ncols=t)
+    for op in ("spmv", "spmm"):
+        assert "xt" not in kops.default_config(tconv.convert(A, tf.Format.CSR), op=op, ncols=t)
+
+
+@pytest.mark.parametrize("bad", [48, -1, 1, 256, True, 64.0, "64", None])
+def test_spmm_t_wrappers_reject_a_bad_xt_before_any_launch(bad):
+    """``check_xt`` is the wrappers' first step, whatever the device: a knob
+    the kernels do not take raises before any check or launch, also on the
+    CPU (where a valid knob runs the plain version, uncounted)."""
+    with pytest.raises(ValueError, match="xt must be"):
+        kcm.check_xt(bad)
+    ip = torch.tensor([0, 2, 3], dtype=torch.int32)
+    ix = torch.tensor([0, 4, 1], dtype=torch.int32)
+    X = torch.ones(4, 5)
+    kops.reset_launches()
+    with pytest.raises(ValueError, match="xt must be"):
+        kcm.csr_spmm_t(ip, ix, torch.ones(3), X, 2, vec=4, xt=bad)
+    with pytest.raises(ValueError, match="xt must be"):
+        kem.ell_spmm_t(torch.zeros(3, 2, dtype=torch.int32), torch.ones(3, 2), X, vec=4, xt=bad)
+    with pytest.raises(ValueError, match="xt must be"):  # a meta tensor: no device at all
+        kem.ell_spmm_t(torch.zeros(2, 1, dtype=torch.int32, device="meta"),
+                       torch.zeros(2, 1, device="meta"), torch.zeros(1, 3, device="meta"),
+                       vec=2, xt=bad)
+    for xt in (0,) + kcm.XT_TILES:
+        assert kcm.check_xt(xt) == xt
+        assert torch.equal(kcm.csr_spmm_t(ip, ix, torch.ones(3), X, 2, vec=4, xt=xt),
+                           csr_spmm_t_ref(ip, ix, torch.ones(3), X, 2))
+    assert all(v == 0 for v in kops.launch_counts().values())
+    assert kcm.launches_xt == kem.launches_xt == 0
+
+
+def test_spmm_t_entry_points_pass_xt_and_read_a_missing_knob_as_the_row_schedule(
+        monkeypatch, tmp_path):
+    """``kernels.ops`` hands the wrappers the cfg's ``xt``; a cfg (or a
+    record) without the knob means the row schedule, 0, in CSR, ELL and both
+    parts of HYB; the default at T = 256 is the token-major one."""
+    monkeypatch.setenv("REPRO_TUNING_CACHE", str(tmp_path / "empty.json"))
+    seen = []
+
+    def spy(real):
+        def fn(*a, **kw):
+            seen.append(kw["xt"])
+            return real(*a, **kw)
+        return fn
+    monkeypatch.setattr(kcm, "csr_spmm_t", spy(kcm.csr_spmm_t))
+    monkeypatch.setattr(kem, "ell_spmm_t", spy(kem.ell_spmm_t))
+    a = PATTERNS["powerlaw"]()
+    A = tf.coo_from_dense_np(a, device="cpu")
+    X = _t(np.random.default_rng(31).standard_normal((256, a.shape[1])).astype(np.float32))
+    oracle = X.double().numpy() @ a.T
+    for fmt, old in (("CSR", {"vec": 8, "tt": 4}), ("ELL", {"vec": 8, "tt": 4}),
+                     ("HYB", {"ell": {"vec": 8, "tt": 4}, "csr": {"vec": 4, "tt": 8}})):
+        H = tconv.convert(A, tf.Format[fmt])
+        fn = kops.SPMM_T_CUDA[type(H)]
+        for cfg, want in ((old, 0), (None, 128), (kops.default_config(H, op="spmm_t", ncols=64),
+                                                  64)):
+            seen.clear()
+            np.testing.assert_allclose(fn(H, X, cfg=cfg).numpy(), oracle, **tol("float32"))
+            assert seen == [want] * (2 if fmt == "HYB" else 1), (fmt, cfg, seen)
 
 
 # Stand-ins with the SpMM entry points' C signatures: each records its
@@ -493,6 +571,14 @@ _SIGNATURES = {
     ("ell_spmm", "ell_spmm_t_f32", "_fn_t"): [
         "const void* cols", "const void* data", "const void* x", "void* y", "int64_t m",
         "int32_t n", "int32_t k", "int64_t t", "int vec", "int tt", "int device",
+        "void* stream"],
+    ("csr_spmm", "csr_spmm_xt_f32", "_fn_xt"): [
+        "const void* indptr", "const void* indices", "const void* data", "const void* x",
+        "void* xt_scratch", "void* y", "int64_t m", "int32_t n", "int64_t t", "int xt",
+        "int device", "void* stream"],
+    ("ell_spmm", "ell_spmm_xt_f32", "_fn_xt"): [
+        "const void* cols", "const void* data", "const void* x", "void* xt_scratch", "void* y",
+        "int64_t m", "int32_t n", "int32_t k", "int64_t t", "int xt", "int device",
         "void* stream"],
     ("sell_spmm", "sell_spmm_f32", "_fn"): [
         "const void* ptrs", "const void* cols", "const void* data", "const void* perm",
@@ -562,6 +648,11 @@ def test_each_source_names_its_kernels_and_int64_offsets():
         for k in kernels:
             assert f"int {k}_f32(" in text and f"int {k}_bf16(" in text
         assert "What bounds it on an H100: bytes at T = 1" in text and "int64" in text
-    # only the SELL kernel copies its token tile into shared memory
+    # the SELL kernel copies its token tile into shared memory; CSR and ELL
+    # stage XT chunks on the token-major schedule, in the shared header
     assert "stage_x" in srcs["sell_spmm"].read_text()
-    assert "stage" not in _build.headers()["spmm_common.cuh"].read_text()
+    common = _build.headers()["spmm_common.cuh"].read_text()
+    assert "stage_xt" in common and "tokens_spmm_t" in common and "rows_spmm_t" in common
+    for name in ("csr_spmm", "ell_spmm"):
+        text = srcs[name].read_text()
+        assert f"int {name}_xt_f32(" in text and f"int {name}_xt_bf16(" in text
