@@ -29,12 +29,14 @@ Phases, in order (any failure exits nonzero and prints no result line):
    fault the check must catch, with their times, bounds, plain times and two
    yardsticks (``torch.sparse_csr_tensor`` times X^T or B, and the dense
    X @ W in float32 without TF32), a HYB SpMM line (ell_spmm + csr_spmm)
-   and a token-tile sweep; then csr_spmm_t and ell_spmm_t on both of their
-   schedules (the ``xt`` knob: the row schedule and the token-major one):
-   the token-major one against the plain version at T = 256 and 257 on
+   and a token-tile sweep; then csr_spmm_t, ell_spmm_t, sell_spmm_t and
+   ell_spmm on both of their schedules (the ``xt`` knob: the old schedule,
+   row or SELL slice, and the token-major one): the token-major one against
+   the plain version at width 256 (and 257 on the up weight in float32) on
    both weights in float32 and bfloat16 with a planted fault, against the
-   row schedule, the two timed in turns beside the dense X @ W, and a sweep
-   over T in {8, 16, 32, 64, 128, 256} and the token tile;
+   old schedule, the two timed in turns beside the dense X @ W (sell_spmm_t
+   and ell_spmm in both dtypes and beside the library call), and a sweep
+   over the width in {16, 32, 64, 128, 256} and the tile;
 3. reference check: the port's solve at 16^3 on the card (CUDA kernels)
    against the same solve on the CPU (plain torch path), in every format;
 4. main paths at HPCG's default 104^3 grid, each driven with the launch
@@ -826,14 +828,17 @@ def ragged_spmm_cases(rng, torch, dtype, name):
                       "launches for 2 calls")
         for kb, vec in ((1, 2), (3, 8), (9, 8), (256, 8), (300, 8)):
             B = _rand(rng, torch, (n, kb), dtype)
-            before = kem.launches
-            y1 = kem.ell_spmm(c_t, v_t, B, vec=vec)
-            y2 = kem.ell_spmm(c_t, v_t, B, vec=vec)
-            check(kem.launches - before == (2 if k else 0),
-                  f"ell_spmm K={k}: {kem.launches - before} launches for 2 calls")
-            compare(f"ell_spmm ragged {m}x{n} K={k} Kb={kb} vec={vec}", y1, y2,
-                    ell_spmm_ref(c_t, v_t, B), name,
-                    scale=ell_spmm_ref(c_t, v_t.abs(), B.abs()))
+            y_p, scale = ell_spmm_ref(c_t, v_t, B), ell_spmm_ref(c_t, v_t.abs(), B.abs())
+            for xt in (0,) + (kcm.XT_TILES if kb >= 32 else ()):
+                before = (kem.launches, kem.launches_kxt)
+                y1 = kem.ell_spmm(c_t, v_t, B, vec=vec, xt=xt)
+                y2 = kem.ell_spmm(c_t, v_t, B, vec=vec, xt=xt)
+                launched = (kem.launches - before[0], kem.launches_kxt - before[1])
+                check(launched == ((2, 2 * bool(xt)) if k else (0, 0)),
+                      f"ell_spmm K={k} xt={xt}: {launched} (all, token-major) launches for "
+                      "2 calls")
+                compare(f"ell_spmm ragged {m}x{n} K={k} Kb={kb} vec={vec} xt={xt}", y1, y2,
+                        y_p, name, scale=scale)
     m, n = 301, 120
     a = _ragged_dense(rng, m, n)
     for c, sigma in ((32, 256), (8, 16), (5, 5)):
@@ -848,10 +853,11 @@ def ragged_spmm_cases(rng, torch, dtype, name):
         for t in (1, 3, 256):
             X = _rand(rng, torch, (t, n), dtype)
             s_abs = [args[0], args[1], args[2].abs(), args[3]]  # ghost lanes: dropped
-            compare(f"sell_spmm_t ragged m={m} C={c} T={t} (NaN ghost lanes)",
-                    ksm.sell_spmm_t(*args, X, m, c), ksm.sell_spmm_t(*args, X, m, c),
-                    sell_spmm_t_ref(*args, X, m, c), name,
-                    scale=sell_spmm_t_ref(*s_abs, X.abs(), m, c))
+            y_p, scale = sell_spmm_t_ref(*args, X, m, c), sell_spmm_t_ref(*s_abs, X.abs(), m, c)
+            for xt in (0,) + kcm.XT_TILES:
+                compare(f"sell_spmm_t ragged m={m} C={c} T={t} xt={xt} (NaN ghost lanes)",
+                        ksm.sell_spmm_t(*args, X, m, c, xt=xt),
+                        ksm.sell_spmm_t(*args, X, m, c, xt=xt), y_p, name, scale=scale)
         s_abs = [args[0], args[1], args[2].abs(), args[3]]
         for kb in (1, 3, 9, 256, 300):
             B = _rand(rng, torch, (n, kb), dtype)
@@ -922,8 +928,9 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
                 B = X.T.contiguous()
                 cfg_c = kops.default_config(csr, op="spmm_t", ncols=t)
                 cfg_e = kops.default_config(ell, op="spmm_t", ncols=t)
+                cfg_s = kops.default_config(sell, op="spmm_t", ncols=t)
                 cfg_v = kops.default_config(csr, op="spmm", ncols=t)["vec"]
-                cfg_ev = kops.default_config(ell, op="spmm", ncols=t)["vec"]
+                cfg_eb = kops.default_config(ell, op="spmm", ncols=t)
                 Xa, Ba = X.abs(), B.abs()
                 runs = {
                     "csr_spmm": (lambda: kcm.csr_spmm(csr.indptr, csr.indices, cd, B, m,
@@ -942,16 +949,16 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
                                    lambda: ell_spmm_t_ref(ell.cols, ed.abs(), Xa),
                                    lambda: lib @ X.T, f"T={t} {cfg_e}"),
                     "sell_spmm_t": (lambda: ksm.sell_spmm_t(sell.slice_ptrs, sell.cols, sd,
-                                                            sell.perm, X, m, sell.c),
+                                                            sell.perm, X, m, sell.c, **cfg_s),
                                     lambda: sell_spmm_t_ref(sell.slice_ptrs, sell.cols, sd,
                                                             sell.perm, X, m, sell.c),
                                     lambda: sell_spmm_t_ref(sell.slice_ptrs, sell.cols,
                                                             sd.abs(), sell.perm, Xa, m, sell.c),
-                                    lambda: lib @ X.T, f"T={t}"),
-                    "ell_spmm": (lambda: kem.ell_spmm(ell.cols, ed, B, vec=cfg_ev),
+                                    lambda: lib @ X.T, f"T={t} {cfg_s}"),
+                    "ell_spmm": (lambda: kem.ell_spmm(ell.cols, ed, B, **cfg_eb),
                                  lambda: ell_spmm_ref(ell.cols, ed, B),
                                  lambda: ell_spmm_ref(ell.cols, ed.abs(), Ba),
-                                 lambda: lib @ B, f"K={t} vec={cfg_ev}"),
+                                 lambda: lib @ B, f"K={t} {cfg_eb}"),
                     "sell_spmm": (lambda: ksm.sell_spmm(sell.slice_ptrs, sell.cols, sd,
                                                         sell.perm, B, m, sell.c),
                                   lambda: sell_spmm_ref(sell.slice_ptrs, sell.cols, sd,
@@ -965,6 +972,9 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
                 faults = {"csr_spmm_t": (cd, lambda d: csr_spmm_t_ref(csr.indptr, csr.indices,
                                                                       d, X, m)),
                           "ell_spmm_t": (ed, lambda d: ell_spmm_t_ref(ell.cols, d, X)),
+                          "sell_spmm_t": (sd, lambda d: sell_spmm_t_ref(sell.slice_ptrs,
+                                                                        sell.cols, d, sell.perm,
+                                                                        X, m, sell.c)),
                           "ell_spmm": (ed, lambda d: ell_spmm_ref(ell.cols, d, B)),
                           "sell_spmm": (sd, lambda d: sell_spmm_ref(sell.slice_ptrs, sell.cols,
                                                                     d, sell.perm, B, m,
@@ -1100,87 +1110,126 @@ def sweep_token_tiles(lname, csr, sell, cd, sd, X, vec):
               flush=True)
 
 
-SWEEP_T = (8, 16, 32, 64, 128, 256)  # the widths that place default_config's switch
+SWEEP_T = (16, 32, 64, 128, 256)  # the widths that place default_config's switch
 SWEEP_WARMUP_S = 0.05  # the sweep's cells follow each other on a warm card
+# The token-major kernels timed in both dtypes in phase_token_major, beside
+# the library call (csr_spmm_t and ell_spmm_t: float32 only).
+XT_NEW = ("sell_spmm_t", "ell_spmm")
 
 
 def phase_token_major(torch, np, weights, records):
-    """csr_spmm_t and ell_spmm_t on their two schedules (the ``xt`` knob) at
-    both weights: the token-major schedule against the plain version at T =
-    256 and 257 in float32 and bfloat16 (with a planted fault), against the
-    row schedule at T = 256, the two timed in turns (row, token-major,
-    token-major, row) beside the dense X @ W, and a sweep over T and the
-    token tile. Adds the row schedule's T = 256 time to the up weight's
-    records."""
+    """The four kernels with a token-major schedule (the ``xt`` knob):
+    csr_spmm_t, ell_spmm_t, sell_spmm_t (Y = X @ A^T, T tokens) and ell_spmm
+    (Y = A @ B, Kb columns of B in the tokens' place), at both weights:
+    against the plain version at width 256 (and 257 on the up weight in
+    float32) in float32 and bfloat16 (with a planted fault), against the old
+    schedule (the row schedule; SELL's slice kernel) at 256, the two timed
+    in turns (old, token-major, token-major, old) beside the dense X @ W
+    (and, for sell_spmm_t and ell_spmm, in bfloat16 too and beside the
+    library call), and a sweep over the width and the tile (but for
+    ell_spmm_t, whose switch is csr_spmm_t's). Adds the old schedule's
+    width-256 time to the up weight's records."""
     from repro_torch.core.convert import convert
     from repro_torch.core.formats import Format, coo_from_dense_np
-    from repro_torch.kernels import csr_spmm as kcm, ell_spmm as kem
+    from repro_torch.kernels import csr_spmm as kcm, ell_spmm as kem, sell_spmm as ksm
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.ref import csr_spmm_t_ref, ell_spmm_t_ref
+    from repro_torch.kernels.ref import (csr_spmm_t_ref, ell_spmm_ref, ell_spmm_t_ref,
+                                         sell_spmm_t_ref)
 
-    print("== SpMM_T schedules: token-major (xt) against the row schedule", flush=True)
+    print("== token-major schedule (xt) against the old schedules", flush=True)
     rng = np.random.default_rng(SEED + 4)
     for lname, (w, _) in weights.items():
         coo = coo_from_dense_np(w.T, device="cuda")
-        csr, ell = convert(coo, Format.CSR), convert(coo, Format.ELL)
+        csr, ell, sell = (convert(coo, Format[f]) for f in ("CSR", "ELL", "SELL"))
         del coo
         m, n = csr.shape
         w_dense = torch.from_numpy(w).cuda()
-        run = {"csr_spmm_t": lambda X, d, **kw: kcm.csr_spmm_t(csr.indptr, csr.indices, d, X,
-                                                               m, **kw),
-               "ell_spmm_t": lambda X, d, **kw: kem.ell_spmm_t(ell.cols, d, X, **kw)}
-        plain = {"csr_spmm_t": lambda X, d: csr_spmm_t_ref(csr.indptr, csr.indices, d, X, m),
-                 "ell_spmm_t": lambda X, d: ell_spmm_t_ref(ell.cols, d, X)}
-        vals = {"csr_spmm_t": csr.data, "ell_spmm_t": ell.data}
-        rows = {k: {"vec": kops.default_config(A, op="spmm_t", ncols=PREFILL)["vec"],
-                    "tt": kcm.MAX_TOKEN_TILE}
-                for k, A in (("csr_spmm_t", csr), ("ell_spmm_t", ell))}
+        lib = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data, size=csr.shape)
+        sp = (sell.slice_ptrs, sell.cols)
+        vec_t = {k: kops.default_config(A, op="spmm_t", ncols=PREFILL)["vec"]
+                 for k, A in (("csr", csr), ("ell", ell))}
+        vec_e = kops.default_config(ell, op="spmm", ncols=PREFILL)["vec"]
+        # kernel -> (run(rhs, values, **knobs), plain(rhs, values), stored values,
+        # the old schedule's knobs, the other knobs of the token-major one,
+        # library(rhs)); the rhs is X (T, N), or B = X^T (N, Kb) for ell_spmm
+        kern = {
+            "csr_spmm_t": (lambda R, d, **kw: kcm.csr_spmm_t(csr.indptr, csr.indices, d, R, m,
+                                                             **kw),
+                           lambda R, d: csr_spmm_t_ref(csr.indptr, csr.indices, d, R, m),
+                           csr.data, {"vec": vec_t["csr"], "tt": kcm.MAX_TOKEN_TILE},
+                           {"vec": 32}, lambda R: lib @ R.T),
+            "ell_spmm_t": (lambda R, d, **kw: kem.ell_spmm_t(ell.cols, d, R, **kw),
+                           lambda R, d: ell_spmm_t_ref(ell.cols, d, R), ell.data,
+                           {"vec": vec_t["ell"], "tt": kcm.MAX_TOKEN_TILE}, {"vec": 32},
+                           lambda R: lib @ R.T),
+            "sell_spmm_t": (lambda R, d, **kw: ksm.sell_spmm_t(*sp, d, sell.perm, R, m, sell.c,
+                                                               **kw),
+                            lambda R, d: sell_spmm_t_ref(*sp, d, sell.perm, R, m, sell.c),
+                            sell.data, {"tt": kcm.MAX_TOKEN_TILE}, {}, lambda R: lib @ R.T),
+            "ell_spmm": (lambda R, d, **kw: kem.ell_spmm(ell.cols, d, R, **kw),
+                         lambda R, d: ell_spmm_ref(ell.cols, d, R), ell.data, {"vec": vec_e},
+                         {"vec": vec_e}, lambda R: lib @ R),
+        }
+
+        def rhs_of(kname, X):
+            return X.T.contiguous() if kname == "ell_spmm" else X
         xt = kcm.xt_tile(PREFILL)
         for dtype in (torch.float32, torch.bfloat16):
             name = "float32" if dtype == torch.float32 else "bfloat16"
-            for t in (PREFILL, PREFILL + 1):
+            for t in (PREFILL, PREFILL + 1) if name == "float32" and lname == "up" else (PREFILL,):
                 X = _rand(rng, torch, (t, n), dtype)
-                for kname in run:
-                    d = vals[kname].to(dtype)
-                    y_p, scale = plain[kname](X, d), plain[kname](X.abs(), d.abs())
-                    what = f"{kname} {lname} T={t} xt={xt}"
-                    y = run[kname](X, d, vec=32, xt=xt)
-                    compare(what, y, run[kname](X, d, vec=32, xt=xt), y_p, name, scale=scale,
+                for kname, (run, plain, vals, old, new, _) in kern.items():
+                    R, d = rhs_of(kname, X), vals.to(dtype)
+                    y_p = plain(R, d)
+                    scale = plain(R.abs(), d.abs())
+                    what = f"{kname} {lname} {'Kb' if kname == 'ell_spmm' else 'T'}={t} xt={xt}"
+                    y = run(R, d, xt=xt, **new)
+                    compare(what, y, run(R, d, xt=xt, **new), y_p, name, scale=scale,
                             record=True)
-                    planted_fault(d, lambda dd, k=kname: plain[k](X, dd), y_p, scale, what, name)
+                    planted_fault(d, lambda dd, p=plain, R=R: p(R, dd), y_p, scale, what, name)
                     if t == PREFILL:
-                        y_r = run[kname](X, d, **rows[kname])
-                        reading = spmm_reading(y, y_r, scale, name)
-                        check(reading <= 1.0, f"{what} {name}: against the row schedule "
-                                              f"{rows[kname]}, reading {reading:.3e} <= 1")
-                    del y_p, scale
-        X = _rand(rng, torch, (PREFILL, n), torch.float32)
-        for kname in run:
-            d = vals[kname]
-            t_row = time_ms(lambda: run[kname](X, d, **rows[kname]), 20)
-            t_xt = time_ms(lambda: run[kname](X, d, vec=32, xt=xt), 20)
-            t_xt2 = time_ms(lambda: run[kname](X, d, vec=32, xt=xt), 20)
-            t_row2 = time_ms(lambda: run[kname](X, d, **rows[kname]), 20)
-            dense = time_ms(lambda: X @ w_dense, 20)
-            print(f"  {kname} {lname} float32 T={PREFILL} (ms, in turns): row schedule "
-                  f"{rows[kname]} {t_row:.4f}, token-major xt={xt} {t_xt:.4f}, {t_xt2:.4f}, "
-                  f"row schedule {t_row2:.4f}; dense X @ W f32 {dense:.4f}; token-major / row "
-                  f"{min(t_xt, t_xt2) / min(t_row, t_row2):.3f}, / dense "
-                  f"{min(t_xt, t_xt2) / dense:.3f}", flush=True)
-            if lname == "up" and kname in records:
-                records[kname]["ms_row_schedule"] = min(t_row, t_row2)
+                        reading = spmm_reading(y, run(R, d, **old), scale, name)
+                        check(reading <= 1.0, f"{what} {name}: against the old schedule "
+                                              f"{old}, reading {reading:.3e} <= 1")
+                    del y_p, scale, y
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "float32" if dtype == torch.float32 else "bfloat16"
+            X = _rand(rng, torch, (PREFILL, n), dtype)
+            wd = w_dense.to(dtype)
+            dense = time_ms(lambda: X @ wd, 20)
+            for kname, (run, _, vals, old, new, library) in kern.items():
+                if dtype != torch.float32 and kname not in XT_NEW:
+                    continue
+                R, d = rhs_of(kname, X), vals.to(dtype)
+                t_old = time_ms(lambda: run(R, d, **old), 20)  # then the card is warm
+                t_xt = time_ms(lambda: run(R, d, xt=xt, **new), 20, SWEEP_WARMUP_S)
+                t_xt2 = time_ms(lambda: run(R, d, xt=xt, **new), 20, SWEEP_WARMUP_S)
+                t_old2 = time_ms(lambda: run(R, d, **old), 20, SWEEP_WARMUP_S)
+                lib_ms = (time_ms(lambda: library(R), 5)
+                          if kname in XT_NEW and dtype == torch.float32 else None)
+                print(f"  {kname} {lname} {name} width {PREFILL} (ms, in turns): old schedule "
+                      f"{old} {t_old:.4f}, token-major xt={xt} {t_xt:.4f}, {t_xt2:.4f}, old "
+                      f"schedule {t_old2:.4f}; dense X @ W {name} {dense:.4f}"
+                      + (f"; library sparse_csr @ {lib_ms:.4f}" if lib_ms else "")
+                      + f"; token-major / old {min(t_xt, t_xt2) / min(t_old, t_old2):.3f}, "
+                      f"/ dense {min(t_xt, t_xt2) / dense:.3f}", flush=True)
+                if lname == "up" and dtype == torch.float32 and kname in records:
+                    records[kname]["ms_old_schedule"] = min(t_old, t_old2)
         for t in SWEEP_T:
             Xt = _rand(rng, torch, (t, n), torch.float32)
-            for kname in run:
-                d = vals[kname]
-                cells = [f"row tt={kcm.token_tile(t)} "
-                         + f"{time_ms(lambda: run[kname](Xt, d, vec=rows[kname]['vec']), 10, SWEEP_WARMUP_S):.4f}"]
+            for kname, (run, _, vals, old, new, _) in kern.items():
+                if kname == "ell_spmm_t":
+                    continue  # its switch is csr_spmm_t's
+                R = rhs_of(kname, Xt)
+                base = {k: v for k, v in old.items() if k != "tt"}  # tt follows T
+                cells = [f"old {base} "
+                         + f"{time_ms(lambda: run(R, vals, **base), 10, SWEEP_WARMUP_S):.4f}"]
                 cells += [f"xt={x} "
-                          + f"{time_ms(lambda x=x: run[kname](Xt, d, vec=32, xt=x), 10, SWEEP_WARMUP_S):.4f}"
+                          + f"{time_ms(lambda x=x: run(R, vals, xt=x, **new), 10, SWEEP_WARMUP_S):.4f}"
                           for x in kcm.XT_TILES]
-                print(f"  {kname} {lname} float32 T={t} sweep (ms): " + ", ".join(cells),
+                print(f"  {kname} {lname} float32 width {t} sweep (ms): " + ", ".join(cells),
                       flush=True)
-        del csr, ell, w_dense, vals
+        del csr, ell, sell, w_dense, lib, kern
         torch.cuda.empty_cache()
 
 
@@ -1209,11 +1258,12 @@ def phase_serving(torch, np, weights):
     from repro_torch.models import LinearSparse
     from repro_torch.obs import metrics
 
-    from repro_torch.kernels import csr_spmm as kcm, ell_spmm as kem
+    from repro_torch.kernels import csr_spmm as kcm, ell_spmm as kem, sell_spmm as ksm
     print("== main path (d): sparse-weight serving, LinearSparse at minitron-8b MLP "
           f"width {MINITRON_MLP} density {DENSITY}", flush=True)
     start_path(torch)
-    xt_before = {"csr_spmm_t": kcm.launches_xt, "ell_spmm_t": kem.launches_xt}
+    xt_before = {"csr_spmm_t": kcm.launches_xt, "ell_spmm_t": kem.launches_xt,
+                 "sell_spmm_t": ksm.launches_xt}
     dev_w = {k: (torch.from_numpy(w).cuda().double(), torch.from_numpy(b).cuda().double())
              for k, (w, b) in weights.items()}
     layers = {}
@@ -1329,10 +1379,11 @@ def phase_serving(torch, np, weights):
         del W
     del layers, dev_w
     xt_launches = {"csr_spmm_t": kcm.launches_xt - xt_before["csr_spmm_t"],
-                   "ell_spmm_t": kem.launches_xt - xt_before["ell_spmm_t"]}
+                   "ell_spmm_t": kem.launches_xt - xt_before["ell_spmm_t"],
+                   "sell_spmm_t": ksm.launches_xt - xt_before["sell_spmm_t"]}
     print(f"  token-major (xt) launches over path (d): {xt_launches}", flush=True)
     check(all(v > 0 for v in xt_launches.values()),
-          "csr_spmm_t and ell_spmm_t ran the token-major schedule on path (d)")
+          "csr_spmm_t, ell_spmm_t and sell_spmm_t ran the token-major schedule on path (d)")
     return read_path(torch, "(d)", SPMM_KERNELS)
 
 
@@ -1556,6 +1607,12 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails when run outside the checkout)
 
     t_start = time.perf_counter()
+    laps, t_lap = [], [t_start]
+
+    def lap(label):  # seconds since the last lap, printed before the total
+        now = time.perf_counter()
+        laps.append(f"{label} {now - t_lap[0]:.1f}")
+        t_lap[0] = now
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -1567,6 +1624,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    lap("build")
 
     from repro_torch.core import hpcg
     t0 = time.perf_counter()
@@ -1578,19 +1636,25 @@ def main() -> int:
     print(f"== minitron-8b MLP weights pruned on the host in {time.perf_counter() - t0:.2f} s",
           flush=True)
     records = phase_kernels(torch, np, prob, peak_bw, peak_flops)
+    lap("problem, weights, kernels")
     torch.cuda.empty_cache()
     records.update(phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops))
+    lap("SpMM kernels")
     torch.cuda.empty_cache()
     phase_token_major(torch, np, weights, records)
+    lap("token-major")
     phase_reference(torch)
     A, b, counts_a = phase_main(torch, prob, t_gen)
     counts_b, _ = phase_profile(torch, A, b)
     counts_c = phase_new_formats(torch, A, b)
+    lap("reference, paths (a)-(c)")
     del A, b
     torch.cuda.empty_cache()
     counts_d = phase_serving(torch, np, weights)
+    lap("path (d)")
     torch.cuda.empty_cache()
     counts_e = phase_measured(torch, np, weights, prob)
+    lap("path (e)")
     for name, rec in records.items():
         rec["launches"] = sum(c[name] for c in (counts_a, counts_b, counts_c, counts_d,
                                                 counts_e))
@@ -1598,6 +1662,7 @@ def main() -> int:
     missing = [k for k in kops.LAUNCH_COUNTERS
                if k not in records or records[k]["launches"] <= 0]
     check(not missing, f"every kernel has a record with launches > 0 (missing: {missing})")
+    print(f"== seconds by phase: {', '.join(laps)}")
     print(f"== total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

@@ -69,8 +69,9 @@ template <typename T>
 int mm_xt(const void* indptr, const void* indices, const void* data, const void* X, void* XT,
           void* Y, int64_t m, int32_t n, int64_t t, int xt, int device, void* stream) {
   const spmm::CsrRows rows{static_cast<const int32_t*>(indptr)};
-  return spmm::tokens_spmm_t_launch<T>(rows, indices, data, X, XT, Y, m, n, t, 0, xt, device,
-                                       stream);  // int32 row pointers: positions fit
+  return spmm::tokens_spmm_launch<T, spmm::CsrRows, false>(
+      rows, indices, data, X, XT, Y, m, m, n, t, 0, xt, device,
+      stream);  // int32 row pointers: positions fit
 }
 
 }  // namespace

@@ -29,10 +29,17 @@
 //     broadcast; bound by shared-memory wavefronts. A row's sorted slots
 //     and its trailing padding are two runs of non-decreasing columns, each
 //     walked once over the column chunks;
-//   * ell_spmm (rows_spmm_launch): for Kb > 8, KW lanes own a row and lie
-//     along B's columns (each slot is a broadcast, each B row segment a
-//     coalesced load); for Kb <= 8, VEC lanes lie along the row's slots
-//     with Kb sums a lane;
+//   * ell_spmm, xt = 0 (rows_spmm_launch): for Kb > 8, KW lanes own a row
+//     and lie along B's columns (each slot is a broadcast, each B row
+//     segment a coalesced load); for Kb <= 8, VEC lanes lie along the row's
+//     slots with Kb sums a lane. At Kb = 256 every slot reads 1 KB of B
+//     from L2 (~17 GB a call on the up weight): L2-bound, 1.57 ms;
+//   * ell_spmm, xt = 32/64/128 (tokens_spmm_t with AB, Kb >= 32): B (N, Kb)
+//     is already token-major, so the same schedule runs with no transpose
+//     (B staged straight from device memory, or once padded to a multiple
+//     of xt columns), lanes along xt columns of B, each slot a broadcast,
+//     and lane l stores its xt/32 sums as one vector along row i of Y;
+//     bound by shared-memory wavefronts, as ell_spmm_t is;
 //   * the lanes' f32 sums combine in a fixed order, one rounding to the
 //     output type (bitwise the same from run to run, no atomics). Columns
 //     clamp into [0, n), as the reference's jnp.take(mode="clip") does, so
@@ -65,8 +72,17 @@ int mm_xt(const void* cols, const void* data, const void* X, void* XT, void* Y, 
           int32_t n, int32_t k, int64_t t, int xt, int device, void* stream) {
   if (k == 0) return 0;
   const spmm::EllRows rows{k};
-  return spmm::tokens_spmm_t_launch<T>(rows, cols, data, X, XT, Y, m, n, t, m * k, xt, device,
-                                       stream);
+  return spmm::tokens_spmm_launch<T, spmm::EllRows, false>(rows, cols, data, X, XT, Y, m, m, n,
+                                                          t, m * k, xt, device, stream);
+}
+
+template <typename T>
+int mm_kxt(const void* cols, const void* data, const void* B, void* BP, void* Y, int64_t m,
+           int32_t n, int32_t k, int64_t kb, int xt, int device, void* stream) {
+  if (k == 0) return 0;
+  const spmm::EllRows rows{k};
+  return spmm::tokens_spmm_launch<T, spmm::EllRows, true>(rows, cols, data, B, BP, Y, m, m, n,
+                                                         kb, m * k, xt, device, stream);
 }
 
 }  // namespace
@@ -113,6 +129,22 @@ int ell_spmm_xt_bf16(const void* cols, const void* data, const void* X, void* XT
                      int64_t m, int32_t n, int32_t k, int64_t t, int xt, int device,
                      void* stream) {
   return mm_xt<__nv_bfloat16>(cols, data, X, XT, Y, m, n, k, t, xt, device, stream);
+}
+
+// ell_spmm on the token-major schedule: tiles of `xt` (32, 64 or 128)
+// columns of B; BP is null where B is staged as it is (kb a multiple of xt,
+// B 16-byte aligned), else scratch of (n, kbp) elements, kbp = kb rounded up
+// to xt.
+int ell_spmm_kxt_f32(const void* cols, const void* data, const void* B, void* BP, void* Y,
+                     int64_t m, int32_t n, int32_t k, int64_t kb, int xt, int device,
+                     void* stream) {
+  return mm_kxt<float>(cols, data, B, BP, Y, m, n, k, kb, xt, device, stream);
+}
+
+int ell_spmm_kxt_bf16(const void* cols, const void* data, const void* B, void* BP, void* Y,
+                      int64_t m, int32_t n, int32_t k, int64_t kb, int xt, int device,
+                      void* stream) {
+  return mm_kxt<__nv_bfloat16>(cols, data, B, BP, Y, m, n, k, kb, xt, device, stream);
 }
 
 const char* ell_spmm_error_string(int code) {

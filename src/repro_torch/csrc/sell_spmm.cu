@@ -16,10 +16,27 @@
 // plus perm and the slice pointers), operations at T = 256 (2 flops per live
 // entry and token; the slices' padding, 1% of the slots at the serving
 // shapes, costs its share too). The design:
-//   * the slice kernel (sell_spmm_t, and sell_spmm for Kb <= 8): a block of
-//     1024 threads owns one slice at a time: thread (r, g) takes lane r of
-//     the slice and every G-th plane from plane g (G = 1024 / C plane
-//     groups), so with C = 32 each warp reads whole planes (one coalesced
+//   * sell_spmm_t, xt = 32/64/128 (prefill widths, T >= 32): the token-major
+//     schedule of csr_spmm.cu and ell_spmm.cu (spmm_common.cuh::
+//     tokens_spmm_t over SellRows): X transposed once a call into scratch
+//     XT, a block's xt tokens of it staged in shared memory in column
+//     chunks, lanes along tokens, each slot a broadcast feeding xt
+//     multiply-adds, the grid over the nslices * C sorted rows; bound by
+//     shared-memory wavefronts, as theirs is. A sorted row's slots lie C
+//     apart, so a window of 32 of them touches 32 sectors, on the same
+//     L1/shared-memory data path that bounds the kernel: walked in place,
+//     or loaded 8 rows by 4 planes a load from a window shared by a warp's
+//     rows, SELL ran well above CSR's time (PERF.md). So each call first
+//     repacks the slices row-major into scratch (repack_slices: the weight
+//     read and written once; with the perm scatter, 0.2-0.25 ms a call above
+//     CSR's time at the serving shapes, PERF.md), and the rows are then
+//     walked as CSR's are. Ghost lanes are empty rows; each sum is stored to
+//     Y[t, perm[q]] (a scatter: every row once, no zero fill). Positions
+//     are int32 (capacity below 2^31 - 64);
+//   * the slice kernel (sell_spmm_t at xt = 0, and sell_spmm for Kb <= 8):
+//     a block of 1024 threads owns one slice at a time: thread (r, g) takes
+//     lane r of the slice and every G-th plane from plane g (G = 1024 / C
+//     plane groups), so with C = 32 each warp reads whole planes (one coalesced
 //     load of indices and one of values) and a slice of a pruned weight
 //     (rows of ~1024 to ~4096 entries) is read by 32 warps at once, not by
 //     one thread a row (which left the card nearly idle at the minitron-8b
@@ -297,6 +314,97 @@ int mm_t(const void* ptrs, const void* cols, const void* data, const void* perm,
   });
 }
 
+// Sorted rows of SELL-C-sigma after its slices were repacked row-major
+// (repack_slices), for spmm_common.cuh::tokens_spmm_t: sorted row q, lane
+// q % c of slice s = q / c, holds the slice's w = (ptrs[s+1] - ptrs[s]) / c
+// slots at [ptrs[s] + (q % c) * w, + w). Its sums are row perm[q] of Y; a
+// ghost lane (perm[q] outside [0, m)) has no entries and no row of Y.
+struct SellRows {
+  const int32_t* ptrs;
+  const int32_t* perm;
+  int32_t c;
+  int64_t m;  // rows of Y
+  __device__ __forceinline__ int64_t out(int64_t q) const {
+    const int32_t r = perm[q];
+    return r >= 0 && r < m ? r : -1;
+  }
+  __device__ __forceinline__ int64_t begin(int64_t q) const {
+    const int64_t s = q / c;
+    return ptrs[s] + (q % c) * ((ptrs[s + 1] - ptrs[s]) / c);
+  }
+  __device__ __forceinline__ int64_t end(int64_t q) const {
+    const int64_t s = q / c;
+    return out(q) < 0 ? begin(q) : begin(q) + (ptrs[s + 1] - ptrs[s]) / c;
+  }
+};
+
+// pc/pd[ptrs[s] + r * w + j] = cols/data[ptrs[s] + j * c + r]: slice s's
+// w = (ptrs[s+1] - ptrs[s]) / c planes of c lanes turned row-major, so each
+// sorted row's slots are contiguous (SellRows). Block (s, y) takes slice
+// s's tiles of 32 planes y, y + gridDim.y, ... through a 32x32 shared tile:
+// the reads run along a plane, the writes along a row.
+template <typename T>
+__global__ void __launch_bounds__(256)
+repack_slices(const int32_t* __restrict__ ptrs, const int32_t* __restrict__ cols,
+              const T* __restrict__ data, int32_t* __restrict__ pc, T* __restrict__ pd,
+              int32_t c) {
+  __shared__ int32_t tc[32][33];
+  __shared__ T td[32][33];
+  const int64_t base = ptrs[blockIdx.x];
+  const int64_t w = (ptrs[blockIdx.x + 1] - base) / c;
+  for (int64_t j0 = static_cast<int64_t>(blockIdx.y) * 32; j0 < w;
+       j0 += static_cast<int64_t>(gridDim.y) * 32) {
+    for (int r0 = 0; r0 < c; r0 += 32) {
+      for (int i = threadIdx.y; i < 32; i += 8) {  // plane j0 + i, lane r0 + x
+        const int64_t j = j0 + i;
+        const int r = r0 + threadIdx.x;
+        if (j < w && r < c) {
+          tc[i][threadIdx.x] = cols[base + j * c + r];
+          td[i][threadIdx.x] = data[base + j * c + r];
+        }
+      }
+      __syncthreads();
+      for (int i = threadIdx.y; i < 32; i += 8) {  // row r0 + i, slot j0 + x
+        const int r = r0 + i;
+        const int64_t j = j0 + threadIdx.x;
+        if (j < w && r < c) {
+          pc[base + r * w + j] = tc[threadIdx.x][i];
+          pd[base + r * w + j] = td[threadIdx.x][i];
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+constexpr int kRepackSplit = 8;  // blocks a slice: the down weight has 128 slices
+
+// Y (t, m) = X @ A^T on the token-major schedule: the slices repacked into
+// the caller's scratch pc/pd (capacity slots each), then tokens_spmm_t over
+// the nslices * c sorted rows.
+template <typename T>
+int mm_xt(const void* ptrs, const void* cols, const void* data, const void* perm,
+          const void* X, void* XT, void* pc, void* pd, void* Y, int64_t capacity,
+          int64_t lanes, int32_t c, int64_t m, int32_t n, int64_t t, int xt, int device,
+          void* stream) {
+  if (lanes == 0 || m == 0 || n == 0 || t == 0) return 0;
+  if (c <= 0 || c > kSellBlock) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t nslices = lanes / c;
+  if (nslices > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int err = spmm::on_device(device, [&]() -> cudaError_t {
+    repack_slices<T><<<dim3(static_cast<unsigned>(nslices), kRepackSplit), dim3(32, 8), 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(ptrs), static_cast<const int32_t*>(cols),
+        static_cast<const T*>(data), static_cast<int32_t*>(pc), static_cast<T*>(pd), c);
+    return cudaGetLastError();
+  });
+  if (err) return err;
+  const SellRows rows{static_cast<const int32_t*>(ptrs), static_cast<const int32_t*>(perm),
+                      c, m};
+  return spmm::tokens_spmm_launch<T, SellRows, false>(rows, pc, pd, X, XT, Y, lanes, m, n, t,
+                                                     capacity, xt, device, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -329,6 +437,26 @@ int sell_spmm_t_bf16(const void* ptrs, const void* cols, const void* data, const
                      int64_t t, int tt, int device, void* stream) {
   return mm_t<__nv_bfloat16>(ptrs, cols, data, perm, X, Y, lanes, c, m, n, t, tt, device,
                              stream);
+}
+
+// sell_spmm_t on the token-major schedule: token tiles of `xt` (32, 64 or
+// 128); XT is scratch of (n, tp) elements, tp = t rounded up to xt; pcols
+// and pdata scratch of `capacity` slots each (the length of cols and data),
+// where the slices are repacked row-major.
+int sell_spmm_xt_f32(const void* ptrs, const void* cols, const void* data, const void* perm,
+                     const void* X, void* XT, void* pcols, void* pdata, void* Y,
+                     int64_t capacity, int64_t lanes, int32_t c, int64_t m, int32_t n,
+                     int64_t t, int xt, int device, void* stream) {
+  return mm_xt<float>(ptrs, cols, data, perm, X, XT, pcols, pdata, Y, capacity, lanes, c, m,
+                      n, t, xt, device, stream);
+}
+
+int sell_spmm_xt_bf16(const void* ptrs, const void* cols, const void* data, const void* perm,
+                      const void* X, void* XT, void* pcols, void* pdata, void* Y,
+                      int64_t capacity, int64_t lanes, int32_t c, int64_t m, int32_t n,
+                      int64_t t, int xt, int device, void* stream) {
+  return mm_xt<__nv_bfloat16>(ptrs, cols, data, perm, X, XT, pcols, pdata, Y, capacity, lanes,
+                              c, m, n, t, xt, device, stream);
 }
 
 const char* sell_spmm_error_string(int code) {

@@ -7,14 +7,16 @@
 // wrappers' `xt` knob: rows_spmm_t (decode widths: TT <= 8 tokens, X
 // gathered through L1, as the SpMV kernels do) and tokens_spmm_t (prefill
 // widths: X turned token-major and staged in shared memory, 32 to 128
-// tokens a block). The SELL kernel copies its tile into shared memory where
-// it fits (sell_spmm.cu). Blocks are numbered token tile fastest, so the
-// blocks that run together share their matrix rows in L2.
+// tokens a block). SELL's slice kernel (sell_spmm.cu) copies its tile into
+// shared memory where it fits; its prefill schedule is tokens_spmm_t over
+// its slices repacked row-major. Blocks are numbered token tile fastest, so
+// the blocks that run together share their matrix rows in L2.
 //
 // The row-walking Y = A @ B kernels (B is (N, K) row-major, Y (M, K)) share
 // two row schedules, picked by K (rows_spmm_launch): for K > 8, KW lanes own
 // a row and lie along B's columns; for K <= 8, a sub-warp of VEC lanes lies
-// along the row's entries with K sums a lane.
+// along the row's entries with K sums a lane. tokens_spmm_t with AB is the
+// third, B staged in shared memory in place of XT (ELL's `xt` knob).
 
 #pragma once
 
@@ -87,17 +89,21 @@ int on_device(int device, F&& launch) {
 }
 
 // Matrix rows of the row-walking formats: CSR (its row pointers) and ELL
-// (K slots a row, row-major).
+// (K slots a row, row-major): row i's entries are [begin(i), end(i)) of the
+// matrix's arrays, and its sums are row out(i) of Y (none where out(i) < 0;
+// sell_spmm.cu's SellRows is the third kind).
 struct CsrRows {
   const int32_t* indptr;
   __device__ __forceinline__ int64_t begin(int64_t i) const { return indptr[i]; }
   __device__ __forceinline__ int64_t end(int64_t i) const { return indptr[i + 1]; }
+  __device__ __forceinline__ int64_t out(int64_t i) const { return i; }
 };
 
 struct EllRows {
   int32_t k;
   __device__ __forceinline__ int64_t begin(int64_t i) const { return i * k; }
   __device__ __forceinline__ int64_t end(int64_t i) const { return i * k + k; }
+  __device__ __forceinline__ int64_t out(int64_t i) const { return i; }
 };
 
 // Y[t, i] = sum_p val[p] * X[t, idx[p]] over row i's entries [begin, end).
@@ -204,7 +210,9 @@ int rows_spmm_t_launch(Rows rows, const void* idx, const void* val, const void* 
 }
 
 // ---------------------------------------------------------------------------
-// The token-major transposed-rhs schedule (prefill widths, T >= 32).
+// The token-major schedule (prefill widths, T >= 32), for both rhs
+// orientations: Y (T, M) = X @ A^T (the transposed rhs) and, with the
+// template flag AB, Y (M, Kb) = A @ B.
 //
 // rows_spmm_t above gathers X (T, N) in place: the TT <= 8 tokens of one
 // column lie in TT rows of X and the 32 lanes of a warp on 32 columns, so
@@ -212,11 +220,15 @@ int rows_spmm_t_launch(Rows rows, const void* idx, const void* val, const void* 
 // the weight streams from L2 T/8 times. This schedule turns the rhs around:
 //   * X (T, N) becomes XT (N, Tp) once per call (transpose_tokens; Tp is T
 //     rounded up to the token tile, the extra tokens zero), so the tokens of
-//     one column are contiguous;
+//     one column are contiguous. B (N, Kb) of A @ B already is that layout:
+//     it is staged as it is where Kb is a multiple of the tile and its rows
+//     16-byte aligned, else copied once into (N, Kbp) with zeros past Kb
+//     (pad_columns);
 //   * a block of kXtWarps warps owns 8 matrix rows a warp (4 or 2 where a
-//     short matrix would leave SMs idle) and a tile of TT = 32 * TJ tokens;
-//     lane l holds tokens l*TJ .. l*TJ + TJ - 1, so one stored entry (c, v)
-//     feeds TT multiply-adds: the weight streams from L2 Tp/TT times;
+//     short matrix would leave SMs idle) and a tile of TT = 32 * TJ tokens
+//     (columns of B); lane l holds tokens l*TJ .. l*TJ + TJ - 1, so one
+//     stored entry (c, v) feeds TT multiply-adds: the weight streams from L2
+//     Tp/TT times;
 //   * XT's slice for the block's tokens is staged in shared memory in
 //     column chunks of `nc` (stage_xt, cp.async into two buffers: the next
 //     chunk lands while this one is consumed). A lane reads its TJ tokens of
@@ -225,6 +237,10 @@ int rows_spmm_t_launch(Rows rows, const void* idx, const void* val, const void* 
 //     step (its rows' loads in flight together); a window's entries in the
 //     chunk are parked in a shared slot and read back as one broadcast load
 //     each (a shuffle pair would take two);
+//   * a row's entries must be contiguous (a 32-entry window is then one
+//     coalesced load); SELL's sorted rows lie C apart in its planes, so its
+//     slices are first repacked row-major into scratch (sell_spmm.cu), the
+//     weight read and written once a call;
 //   * what bounds it on an H100 is shared-memory wavefronts, not operations:
 //     per entry, one broadcast and TJ wavefronts of X (4 bytes a f32
 //     multiply-add, 2 in bf16): at one wavefront a clock on each of the
@@ -233,17 +249,20 @@ int rows_spmm_t_launch(Rows rows, const void* idx, const void* val, const void* 
 //     made dense for the tensor cores) would get under it;
 //   * a row is walked chunk by chunk with a cursor: a run of entries whose
 //     (clamped) columns do not decrease is consumed once over all chunks.
-//     A row may be two such runs (ELL's trailing padding, col -1, clamps to
-//     column 0 after the sorted entries), each with its own cursor; a row
-//     with more descents is filtered: each chunk scans the whole row and
-//     takes the entries that fall in it. So any column order is right, and
-//     sorted rows (what convert builds) cost one pass;
+//     A row may be two such runs (ELL's and SELL's trailing padding, col -1,
+//     clamps to column 0 after the sorted entries), each with its own
+//     cursor; a row with more descents is filtered: each chunk scans the
+//     whole row and takes the entries that fall in it. So any column order
+//     is right, and sorted rows (what convert builds) cost one pass;
 //   * each (row, token) sum is f32 in registers across the chunks, in a
 //     fixed order (chunk by chunk, run A then run B, stored order within
 //     each): no atomics, bitwise reruns;
 //   * Y (T, M) is written through shared memory with lanes along M
-//     (coalesced), one rounding to the output type.
-// Columns clamp into [0, n), as in rows_spmm_t. Offsets into X, XT and Y
+//     (coalesced; SELL scatters each sum to row perm[q]), one rounding to
+//     the output type; Y (M, Kb) straight from the registers, lane l's TJ
+//     sums one vector store along the row (columns past Kb are not
+//     stored).
+// Columns clamp into [0, n), as in rows_spmm_t. Offsets into X, XT, B and Y
 // are int64; positions in the matrix's arrays int32.
 
 constexpr int kXtWarps = 16;
@@ -271,6 +290,18 @@ transpose_tokens(const T* __restrict__ X, T* __restrict__ XT, int64_t t, int32_t
   for (int i = threadIdx.y; i < 32; i += 8) {
     const int64_t c = c0 + i, tok = t0 + threadIdx.x;
     if (c < n) XT[c * tp + tok] = from_f32<T>(tile[threadIdx.x][i]);
+  }
+}
+
+// BP (n, kp) = B (n, k) with zeros in columns k..kp-1.
+template <typename T>
+__global__ void __launch_bounds__(256)
+pad_columns(const T* __restrict__ B, T* __restrict__ BP, int32_t n, int64_t k, int64_t kp) {
+  const int64_t total = static_cast<int64_t>(n) * kp;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x; i < total;
+       i += static_cast<int64_t>(gridDim.x) * 256) {
+    const int64_t r = i / kp, c = i % kp;
+    BP[i] = c < k ? B[r * k + c] : from_f32<T>(0.f);
   }
 }
 
@@ -330,6 +361,39 @@ __device__ __forceinline__ void load_tokens(const T* p, float (&x)[TJ]) {
       x[2 * g] = f.x; x[2 * g + 1] = f.y;
     }
   }
+}
+
+// Columns c0 .. c0 + TJ - 1 of one row of Y (M, k) from a lane's sums: one
+// vector store where they are whole and aligned (k a multiple of TJ), else
+// one element at a time; columns past k are not stored.
+template <typename T, int TJ>
+__device__ __forceinline__ void store_tokens(T* __restrict__ yrow, int64_t c0, int64_t k,
+                                             const float (&a)[TJ]) {
+  if constexpr (TJ > 1) {
+    if (c0 + TJ <= k && k % TJ == 0) {
+      if constexpr (std::is_same<T, float>::value) {
+        if constexpr (TJ == 2)
+          *reinterpret_cast<float2*>(yrow + c0) = make_float2(a[0], a[1]);
+        else
+          *reinterpret_cast<float4*>(yrow + c0) = make_float4(a[0], a[1], a[2], a[3]);
+      } else {
+        uint32_t raw[TJ / 2];  // bf16 pairs, rounded as from_f32 rounds
+#pragma unroll
+        for (int g = 0; g < TJ / 2; ++g) {
+          const __nv_bfloat162 h = __floats2bfloat162_rn(a[2 * g], a[2 * g + 1]);
+          raw[g] = *reinterpret_cast<const uint32_t*>(&h);
+        }
+        if constexpr (TJ == 2)
+          *reinterpret_cast<uint32_t*>(yrow + c0) = raw[0];
+        else
+          *reinterpret_cast<uint2*>(yrow + c0) = make_uint2(raw[0], raw[1]);
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TJ; ++i)
+    if (c0 + i < k) yrow[c0 + i] = from_f32<T>(a[i]);
 }
 
 // One window of a row, an entry (c, v) a lane: the entries of lanes with
@@ -418,29 +482,47 @@ __device__ __forceinline__ void take_filtered(const int32_t* __restrict__ idx,
   }
 }
 
-// Y[t, i] = sum_p val[p] * XT[idx[p], t] over the block's kXtWarps * RPW
-// rows (RPW a warp) and TT = 32 * TJ tokens. Every warp walks its RPW rows
-// in lock-step, one 32-entry window of each row a step (so RPW row loads
-// are in flight at once), with the rows' sums in registers across the
-// chunks; a window's entries in this chunk are parked in the warp's
+// Shared memory of tokens_spmm_t at `nc` columns a chunk: two chunks (for
+// Y (T, M) at least the sums' tile), the rows' state and the warps' entry
+// slots.
+template <typename T, int TJ, int RPW, bool AB>
+__host__ __device__ constexpr size_t xt_front(int nc) {
+  constexpr int TT = 32 * TJ;
+  const size_t chunks = 2 * static_cast<size_t>(nc) * TT * sizeof(T);
+  const size_t sums = AB ? 0 : static_cast<size_t>(kXtWarps) * RPW * (TT + 4) * sizeof(float);
+  return chunks > sums ? chunks : sums;
+}
+
+template <typename T, int TJ, int RPW, bool AB>
+__host__ __device__ constexpr size_t xt_smem(int nc) {
+  constexpr size_t rows = kXtWarps * RPW;
+  return xt_front<T, TJ, RPW, AB>(nc) + 4 * rows * sizeof(int32_t) +
+         kXtWarps * 32 * sizeof(int2);
+}
+
+// Y[t, out(i)] (AB: Y[out(i), t]) = sum_p val[p] * XT[idx[p], t] over the
+// block's kXtWarps * RPW rows (RPW a warp) and TT = 32 * TJ tokens. Every
+// warp walks its RPW rows in lock-step, one 32-entry window of each row a
+// step (so RPW row loads are in flight at once), with the rows' sums in
+// registers across the chunks; a window's entries in this chunk are parked in the warp's
 // 32-entry slot (take_window). Shared memory: two XT chunks [nc][TT], the
 // rows' state [4][rows] (run A cursor and end, run B cursor and end; run
 // A's end is -1 for a filtered row, which spans [cursor A, end B)), and the
-// slots [kXtWarps][32]. The sums leave through the chunk buffers
-// ([rows][TT + 4] f32) at the end. Positions are int32 (the launcher
-// checks that they fit).
-template <typename T, typename Rows, int TJ, int RPW>
+// slots [kXtWarps][32]. For Y (T, M) the sums leave through the chunk
+// buffers ([rows][TT + 4] f32) at the end; for Y (M, Kb) straight from the
+// registers. `m` rows are walked; Y (T, M) has `ym` columns, Y (M, Kb) rows
+// of `t` columns. Positions are int32 (the launcher checks that they fit).
+template <typename T, typename Rows, int TJ, int RPW, bool AB>
 __global__ void __launch_bounds__(kXtThreads, 1)
 tokens_spmm_t(Rows rows, const int32_t* __restrict__ idx, const T* __restrict__ val,
-              const T* __restrict__ XT, T* __restrict__ Y, int64_t m, int32_t n, int64_t t,
-              int64_t tp, int64_t t_tiles, int nc) {
+              const T* __restrict__ XT, T* __restrict__ Y, int64_t m, int64_t ym, int32_t n,
+              int64_t t, int64_t tp, int64_t t_tiles, int nc) {
   constexpr int TT = 32 * TJ;
   constexpr int AS = TT + 4;  // row stride of the sums at the end (16-byte aligned)
   constexpr int R = kXtWarps * RPW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xs = reinterpret_cast<T*>(smem_raw);
-  const size_t xs_bytes = 2 * static_cast<size_t>(nc) * TT * sizeof(T);
-  int32_t* st = reinterpret_cast<int32_t*>(smem_raw + xs_bytes);
+  int32_t* st = reinterpret_cast<int32_t*>(smem_raw + xt_front<T, TJ, RPW, AB>(nc));
   int32_t* cur_a = st;
   int32_t* end_a = st + R;
   int32_t* cur_b = st + 2 * R;
@@ -579,72 +661,88 @@ tokens_spmm_t(Rows rows, const int32_t* __restrict__ idx, const T* __restrict__ 
     __syncthreads();  // the buffer of chunk k is refilled with chunk k + 2
   }
 
-  // Y (t, m) through the chunk buffers: lanes along the rows, so each store
-  // runs along M.
-  float* acc_s = reinterpret_cast<float*>(smem_raw);
+  if constexpr (AB) {
+    // Y (m, t): lane l's TJ sums are columns t0 + l*TJ .. of the row
 #pragma unroll
-  for (int q = 0; q < RPW; ++q)
+    for (int q = 0; q < RPW; ++q) {
+      const int64_t row = row0 + r0 + q;
+      if (row < m) {
+        const int64_t o = rows.out(row);
+        if (o >= 0) store_tokens<T, TJ>(Y + o * t, t0 + lane * TJ, t, acc[q]);
+      }
+    }
+  } else {
+    // Y (t, ym) through the chunk buffers: lanes along the rows, so each
+    // store runs along M (SELL: to row perm[q], a scatter)
+    float* acc_s = reinterpret_cast<float*>(smem_raw);
 #pragma unroll
-    for (int i = 0; i < TJ; ++i) acc_s[(r0 + q) * AS + lane * TJ + i] = acc[q][i];
-  __syncthreads();
-  for (int i = threadIdx.x; i < R * TT; i += kXtThreads) {
-    const int tt = i / R, r = i % R;
-    const int64_t row = row0 + r, tok = t0 + tt;
-    if (row < m && tok < t) Y[tok * m + row] = from_f32<T>(acc_s[r * AS + tt]);
+    for (int q = 0; q < RPW; ++q)
+#pragma unroll
+      for (int i = 0; i < TJ; ++i) acc_s[(r0 + q) * AS + lane * TJ + i] = acc[q][i];
+    __syncthreads();
+    for (int i = threadIdx.x; i < R * TT; i += kXtThreads) {
+      const int tt = i / R, r = i % R;
+      const int64_t row = row0 + r, tok = t0 + tt;
+      if (row < m && tok < t) {
+        const int64_t o = rows.out(row);
+        if (o >= 0) Y[tok * ym + o] = from_f32<T>(acc_s[r * AS + tt]);
+      }
+    }
   }
-}
-
-// Shared memory of tokens_spmm_t at `nc` columns a chunk: two chunks (at
-// least the sums' tile), the rows' state and the warps' entry slots.
-template <typename T, int TJ, int RPW>
-constexpr size_t xt_smem(int nc) {
-  constexpr int TT = 32 * TJ;
-  constexpr size_t rows = kXtWarps * RPW;
-  const size_t chunks = 2 * static_cast<size_t>(nc) * TT * sizeof(T);
-  const size_t sums = rows * (TT + 4) * sizeof(float);
-  return (chunks > sums ? chunks : sums) + 4 * rows * sizeof(int32_t) +
-         kXtWarps * 32 * sizeof(int2);
 }
 
 constexpr int kXtRowsPerWarp = 8;  // at most; 4 or 2 on a matrix of few rows
 
-template <typename T, typename Rows, int TJ, int RPW>
-cudaError_t launch_tokens_rpw(Rows rows, const void* idx, const void* val, const void* XT,
-                              void* Y, int64_t m, int32_t n, int64_t t, int64_t tp,
+template <typename T, typename Rows, int TJ, int RPW, bool AB>
+cudaError_t launch_tokens_rpw(Rows rows, const void* idx, const void* val, const T* XT,
+                              void* Y, int64_t m, int64_t ym, int32_t n, int64_t t, int64_t tp,
                               int64_t t_tiles, int nc, cudaStream_t stream) {
   constexpr int R = kXtWarps * RPW;
   const int64_t nblocks = ((m + R - 1) / R) * t_tiles;
   if (nblocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const size_t smem = xt_smem<T, TJ, RPW>(nc);
-  auto kernel = tokens_spmm_t<T, Rows, TJ, RPW>;
+  const size_t smem = xt_smem<T, TJ, RPW, AB>(nc);
+  auto kernel = tokens_spmm_t<T, Rows, TJ, RPW, AB>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(nblocks), kXtThreads, smem, stream>>>(
-      rows, static_cast<const int32_t*>(idx), static_cast<const T*>(val),
-      static_cast<const T*>(XT), static_cast<T*>(Y), m, n, t, tp, t_tiles, nc);
+      rows, static_cast<const int32_t*>(idx), static_cast<const T*>(val), XT,
+      static_cast<T*>(Y), m, ym, n, t, tp, t_tiles, nc);
   return cudaGetLastError();
 }
 
-// Transpose X into the scratch XT (n, tp), then launch tokens_spmm_t.
+// Stage the rhs token-major, then launch tokens_spmm_t. Y (t, ym) = X @
+// A^T: X (t, n) transposed into the scratch XT (n, tp). AB, Y (m, t) = A @
+// B: B (n, t) staged as it is where XT is null (t a multiple of the tile, B
+// 16-byte aligned), else copied into XT (n, tp) with zeros past t.
 // The chunk width is what the card's opt-in shared memory leaves for two
 // buffers, rounded down to 8 columns: it depends on the card, the dtype
 // and TT only. A block takes kXtRowsPerWarp rows a warp, halved (down to
 // 2) while the grid would leave more than half the SMs without a block.
-template <typename T, typename Rows, int TJ>
-cudaError_t launch_tokens_t(Rows rows, const void* idx, const void* val, const void* X,
-                            void* XT, void* Y, int64_t m, int32_t n, int64_t t,
+template <typename T, typename Rows, int TJ, bool AB>
+cudaError_t launch_tokens_t(Rows rows, const void* idx, const void* val, const void* rhs,
+                            void* XT, void* Y, int64_t m, int64_t ym, int32_t n, int64_t t,
                             int64_t entries, int device, cudaStream_t stream) {
   constexpr int TT = 32 * TJ;
   if (entries > 0x7fffffffLL - 64) return cudaErrorInvalidValue;  // int32 positions
   const int64_t t_tiles = (t + TT - 1) / TT;
   const int64_t tp = t_tiles * TT;
-  if (tp / 32 > 65535) return cudaErrorInvalidConfiguration;
-  const dim3 tgrid(static_cast<unsigned>((n + 31) / 32), static_cast<unsigned>(tp / 32));
-  transpose_tokens<T><<<tgrid, dim3(32, 8), 0, stream>>>(
-      static_cast<const T*>(X), static_cast<T*>(XT), t, n, tp);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  const T* xt = static_cast<const T*>(XT);
+  cudaError_t err;
+  if (!AB) {
+    if (tp / 32 > 65535) return cudaErrorInvalidConfiguration;
+    const dim3 tgrid(static_cast<unsigned>((n + 31) / 32), static_cast<unsigned>(tp / 32));
+    transpose_tokens<T><<<tgrid, dim3(32, 8), 0, stream>>>(
+        static_cast<const T*>(rhs), static_cast<T*>(XT), t, n, tp);
+  } else if (XT == nullptr) {
+    if (tp != t || (reinterpret_cast<uintptr_t>(rhs) & 15)) return cudaErrorInvalidValue;
+    xt = static_cast<const T*>(rhs);
+  } else {
+    const int64_t blocks = std::min<int64_t>((static_cast<int64_t>(n) * tp + 255) / 256, 65536);
+    pad_columns<T><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+        static_cast<const T*>(rhs), static_cast<T*>(XT), n, t, tp);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   int sms = 0, optin = 0;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
       cudaSuccess)
@@ -653,47 +751,48 @@ cudaError_t launch_tokens_t(Rows rows, const void* idx, const void* val, const v
                                     device)) != cudaSuccess)
     return err;
   constexpr int kRpw = kXtRowsPerWarp;
-  const int64_t rest = static_cast<int64_t>(xt_smem<T, TJ, kRpw>(0)) -
-                       static_cast<int64_t>(kXtWarps * kRpw * (TT + 4) * sizeof(float));
+  const int64_t rest = static_cast<int64_t>(xt_smem<T, TJ, kRpw, true>(0));  // state, slots
   const int nc = static_cast<int>((optin - rest) / (2 * TT * sizeof(T))) / 8 * 8;
-  if (nc < 8 || xt_smem<T, TJ, kRpw>(nc) > static_cast<size_t>(optin))
+  if (nc < 8 || xt_smem<T, TJ, kRpw, AB>(nc) > static_cast<size_t>(optin))
     return cudaErrorInvalidConfiguration;
   int rpw = kRpw;
   while (rpw > 2 && ((m + kXtWarps * rpw - 1) / (kXtWarps * rpw)) * t_tiles * 2 <= sms)
     rpw /= 2;
   switch (rpw) {
     case 2:
-      return launch_tokens_rpw<T, Rows, TJ, 2>(rows, idx, val, XT, Y, m, n, t, tp, t_tiles, nc,
-                                               stream);
+      return launch_tokens_rpw<T, Rows, TJ, 2, AB>(rows, idx, val, xt, Y, m, ym, n, t, tp,
+                                                   t_tiles, nc, stream);
     case 4:
-      return launch_tokens_rpw<T, Rows, TJ, 4>(rows, idx, val, XT, Y, m, n, t, tp, t_tiles, nc,
-                                               stream);
+      return launch_tokens_rpw<T, Rows, TJ, 4, AB>(rows, idx, val, xt, Y, m, ym, n, t, tp,
+                                                   t_tiles, nc, stream);
     default:
-      return launch_tokens_rpw<T, Rows, TJ, kRpw>(rows, idx, val, XT, Y, m, n, t, tp, t_tiles,
-                                                  nc, stream);
+      return launch_tokens_rpw<T, Rows, TJ, kRpw, AB>(rows, idx, val, xt, Y, m, ym, n, t, tp,
+                                                      t_tiles, nc, stream);
   }
 }
 
-// Y (t, m) = X @ A^T for a row-walking format on the token-major schedule,
-// token tiles of `xt` (32, 64 or 128); XT is the caller's (n, tp) scratch,
-// tp = t rounded up to xt.
-template <typename T, typename Rows>
-int tokens_spmm_t_launch(Rows rows, const void* idx, const void* val, const void* X, void* XT,
-                         void* Y, int64_t m, int32_t n, int64_t t, int64_t entries, int xt,
-                         int device, void* stream) {
+// The token-major schedule, token tiles of `xt` (32, 64 or 128), `entries`
+// the positions the format's arrays hold (checked against int32). Y (t, ym)
+// = X @ A^T over `m` rows (XT: the caller's (n, tp) scratch, tp = t rounded
+// up to xt); AB: Y (m, t) = A @ B (XT: null, or the caller's (n, tp)
+// scratch where B is not staged as it is).
+template <typename T, typename Rows, bool AB>
+int tokens_spmm_launch(Rows rows, const void* idx, const void* val, const void* rhs, void* XT,
+                       void* Y, int64_t m, int64_t ym, int32_t n, int64_t t, int64_t entries,
+                       int xt, int device, void* stream) {
   if (m == 0 || t == 0 || n == 0) return 0;
   return on_device(device, [&]() -> cudaError_t {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (xt) {
       case 32:
-        return launch_tokens_t<T, Rows, 1>(rows, idx, val, X, XT, Y, m, n, t, entries, device,
-                                           s);
+        return launch_tokens_t<T, Rows, 1, AB>(rows, idx, val, rhs, XT, Y, m, ym, n, t, entries,
+                                               device, s);
       case 64:
-        return launch_tokens_t<T, Rows, 2>(rows, idx, val, X, XT, Y, m, n, t, entries, device,
-                                           s);
+        return launch_tokens_t<T, Rows, 2, AB>(rows, idx, val, rhs, XT, Y, m, ym, n, t, entries,
+                                               device, s);
       case 128:
-        return launch_tokens_t<T, Rows, 4>(rows, idx, val, X, XT, Y, m, n, t, entries, device,
-                                           s);
+        return launch_tokens_t<T, Rows, 4, AB>(rows, idx, val, rhs, XT, Y, m, ym, n, t, entries,
+                                               device, s);
       default: return cudaErrorInvalidValue;
     }
   });

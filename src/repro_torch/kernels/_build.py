@@ -23,8 +23,10 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+# --split-compile=0: the device code of one source is optimised on every
+# core (each source instantiates dozens of kernel templates).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0")
 BUILD_ENV = "REPRO_TORCH_BUILD_DIR"
 
 _LOCK = threading.Lock()

@@ -82,7 +82,8 @@ XT_MAX_ENTRIES = 2 ** 31 - 65
 
 def xt_scratch(X: torch.Tensor, xt: int) -> torch.Tensor:
     """The token-major schedule's scratch XT: (N, T rounded up to ``xt``)
-    in X's dtype, on X's device, uninitialised (the kernel fills it)."""
+    in X's dtype, on X's device, uninitialised (the kernel fills it). For
+    Y = A @ B pass B.T: B (N, Kb) padded to (N, Kb rounded up to ``xt``)."""
     t, n = X.shape
     return torch.empty((n, -(-t // xt) * xt), dtype=X.dtype, device=X.device)
 

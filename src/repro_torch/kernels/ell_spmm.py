@@ -8,9 +8,12 @@ launches its kernel (or raises); on a CPU tensor it runs the plain version,
 ``repro_torch.kernels.ref.ell_spmm_ref`` / ``ell_spmm_t_ref``. K = 0 returns
 zeros and launches nothing, as the JAX kernels do. Each kernel has its own
 count: ``launches`` (ell_spmm) and ``launches_t`` (ell_spmm_t), raised where
-the kernel launches and nowhere else. ``ell_spmm_t`` takes the launch knob
-``xt`` as ``csr_spmm.csr_spmm_t`` does: 0 the row schedule, 32, 64 or 128
-the token-major schedule.
+the kernel launches and nowhere else. Both take the launch knob ``xt`` as
+``csr_spmm.csr_spmm_t`` does: 0 the row schedule, 32, 64 or 128 the
+token-major schedule (``spmm_common.cuh::tokens_spmm_t``; for ``ell_spmm``
+its A @ B form, ``xt`` columns of B a block, B staged as it is or padded
+once into scratch). Of those launches, ``launches_xt`` (ell_spmm_t) and
+``launches_kxt`` (ell_spmm) count the token-major ones.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 launches = 0
 launches_t = 0
 launches_xt = 0  # of launches_t, those on the token-major schedule
+launches_kxt = 0  # of launches, those on the token-major schedule
 
 _P, _I64, _I32, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _I64, _I32, _I32, _I64, _INT, _INT, _P]
@@ -49,6 +53,12 @@ def _fn_t(dtype: torch.dtype):
 @functools.lru_cache(maxsize=None)
 def _fn_xt(dtype: torch.dtype):
     return _build.entry_point(NAME, f"ell_spmm_xt_{DTYPES[dtype]}", _ARGTYPES_XT)
+
+
+@functools.lru_cache(maxsize=None)
+def _fn_kxt(dtype: torch.dtype):
+    # (cols, data, B, BP, Y, ...): ell_spmm_xt's signature with B, BP for X, XT
+    return _build.entry_point(NAME, f"ell_spmm_kxt_{DTYPES[dtype]}", _ARGTYPES_XT)
 
 
 def _check(cols, data, X, vec, tt, what="X", n_axis=1):
@@ -79,29 +89,44 @@ def _check(cols, data, X, vec, tt, what="X", n_axis=1):
 
 
 def ell_spmm(cols: torch.Tensor, data: torch.Tensor, B: torch.Tensor,
-             vec: int) -> torch.Tensor:
+             vec: int, xt: int = 0) -> torch.Tensor:
     """Y = A @ B for ELL A given as (cols[M, K], data[M, K]) and B (N, Kb);
-    returns (M, Kb). Columns clamp into [0, N); for Kb <= 8 ``vec`` lanes
-    reduce each row (``kernels.ops.default_config``), wider Kb runs lanes
-    along Kb. f32 accumulation; Y in B's dtype."""
-    global launches
+    returns (M, Kb). Columns clamp into [0, N). ``xt`` 0: the row schedule,
+    for Kb <= 8 ``vec`` lanes reduce each row (``kernels.ops.default_config``),
+    wider Kb runs lanes along Kb; ``xt`` in ``csr_spmm.XT_TILES``: the
+    token-major schedule, ``xt`` columns of B a block (``vec`` unread). f32
+    accumulation; Y in B's dtype."""
+    global launches, launches_kxt
+    xt = check_xt(xt)
     if B.device.type == "cpu":
         return ell_spmm_ref(cols, data, B)
     if B.device.type != "cuda":
         raise ValueError(f"ell_spmm runs on cuda or cpu tensors, got {B.device}")
     _check(cols, data, B, vec, 1, "B", 0)
+    if xt and data.numel() > XT_MAX_ENTRIES:
+        raise ValueError(f"xt={xt} addresses at most {XT_MAX_ENTRIES} stored entries")
     m, k = data.shape
     n, kb = B.shape
     if m == 0 or k == 0 or kb == 0 or n == 0:  # nothing to launch: every row sums nothing
         return torch.zeros((m, kb), dtype=B.dtype, device=B.device)
     y = torch.empty((m, kb), dtype=B.dtype, device=B.device)
-    fn, err_str = _fn(B.dtype)
     stream = torch.cuda.current_stream(B.device).cuda_stream
-    err = fn(cols.data_ptr(), data.data_ptr(), B.data_ptr(), y.data_ptr(), m, n, k, kb,
-             vec, B.device.index, stream)
+    if xt:
+        fn, err_str = _fn_kxt(B.dtype)
+        # B is staged as it is where its rows are whole tiles, 16-byte aligned;
+        # else padded once into (N, Kb rounded up to xt), freed on this stream
+        scratch = None if kb % xt == 0 and B.data_ptr() % 16 == 0 else xt_scratch(B.T, xt)
+        err = fn(cols.data_ptr(), data.data_ptr(), B.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), y.data_ptr(), m, n, k, kb,
+                 xt, B.device.index, stream)
+    else:
+        fn, err_str = _fn(B.dtype)
+        err = fn(cols.data_ptr(), data.data_ptr(), B.data_ptr(), y.data_ptr(), m, n, k, kb,
+                 vec, B.device.index, stream)
     if err:
         raise RuntimeError(f"ell_spmm launch failed: {err_str(err).decode()} ({err})")
     launches += 1
+    launches_kxt += bool(xt)
     return y
 
 

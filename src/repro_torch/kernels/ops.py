@@ -7,10 +7,11 @@ Every entry point takes ``cfg=``, a dict of launch knobs: an explicit
 cached for the matrix's shape bucket (and rhs-width bucket), then
 :func:`default_config`'s choice (:func:`resolve_config`). The knobs are the
 ones the kernels take: DIA ``block``; CSR and ELL ``vec`` (lanes a row);
-``tt`` (tokens a block) of every SpMM_T kernel; ``xt`` of the CSR and ELL
-SpMM_T kernels (HYB's two parts too), which picks their schedule: absent or
-0 the row schedule, 32, 64 or 128 the token-major one with that many tokens
-a block. SELL's ``c``/``sigma``
+``tt`` (tokens a block) of every SpMM_T kernel; ``xt`` of the CSR, ELL and
+SELL SpMM_T kernels (HYB's two parts too) and of the ELL SpMM kernel (HYB's
+ELL part), which picks their schedule: absent or 0 the row (SELL: slice)
+schedule, 32, 64 or 128 the token-major one with that many tokens (columns
+of B) a block. SELL's ``c``/``sigma``
 name a container geometry: the tuner rebuilds the container to time them,
 and no launch reads them. ``repro_torch.core.ops.spmv(backend="auto")``
 threads a measured winner here.
@@ -60,6 +61,13 @@ def _ell_vec(k: int) -> int:
     return _pow2_clamp(k / CSR_ENTRIES_PER_LANE, 2, 32)
 
 
+# SELL's token-major SpMM_T repacks the slices row-major on every call: on
+# an H100 at the minitron-8b MLP shapes (f32; chip_smoke.py's width sweep,
+# PERF.md) it lost to the slice kernel at T = 32 on both weights and won
+# from T = 64.
+SELL_XT_FROM = 64
+
+
 def default_config(A, op: str = "spmv", ncols: Optional[int] = None) -> dict:
     """The untuned launch knobs of ``A``'s kernel for ``op`` ("spmv" |
     "spmm" | "spmm_t") at rhs width ``ncols`` (K of B, or T of X).
@@ -70,9 +78,11 @@ def default_config(A, op: str = "spmv", ncols: Optional[int] = None) -> dict:
     [2, 32]; ELL's SpMM kernels the same from its K (its SpMV kernel takes
     no knob). SpMM_T adds ``tt``, ``csr_spmm.token_tile`` of T, and for CSR
     and ELL ``xt``, ``csr_spmm.xt_tile`` of T where that is not 0 (the
-    token-major schedule from T = 32). HYB:
-    ``{"ell": ..., "csr": ...}``, the CSR part from the tail's average row.
-    SELL (but for ``tt``) and BSR take no launch knob: ``{}``.
+    token-major schedule from T = 32; SELL's from ``SELL_XT_FROM``); ELL's
+    SpMM adds ``xt`` of Kb alike.
+    HYB: ``{"ell": ..., "csr": ...}``, the CSR part from the tail's average
+    row (its SpMM takes no ``xt``). SELL (but for ``tt`` and ``xt``) and BSR
+    take no launch knob: ``{}``.
     """
     if isinstance(A, DIA):
         return {"block": 256}
@@ -92,8 +102,10 @@ def default_config(A, op: str = "spmv", ncols: Optional[int] = None) -> dict:
         return {}
     if op == "spmm_t":
         cfg["tt"] = _csr_mm.token_tile(ncols or 1)
-        if not isinstance(A, SELL):
+        if not isinstance(A, SELL) or (ncols or 1) >= SELL_XT_FROM:
             _add_xt(cfg, ncols)
+    elif op == "spmm" and isinstance(A, ELL):
+        _add_xt(cfg, ncols)
     return cfg
 
 
@@ -205,7 +217,8 @@ def csr_spmm(A: CSR, B: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tenso
 def ell_spmm(A: ELL, B: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
     k = B.shape[1]
     cfg = resolve_config(A, cfg, "spmm", k)
-    return _ell_mm.ell_spmm(A.cols, A.data, B, vec=_pick(cfg, "vec", A, "spmm", k))
+    return _ell_mm.ell_spmm(A.cols, A.data, B, vec=_pick(cfg, "vec", A, "spmm", k),
+                            xt=_xt(cfg))
 
 
 def sell_spmm(A: SELL, B: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
@@ -243,7 +256,7 @@ def sell_spmm_t(A: SELL, X: torch.Tensor, cfg: Optional[dict] = None) -> torch.T
     t = X.shape[0]
     cfg = resolve_config(A, cfg, "spmm_t", t)
     return _sell_mm.sell_spmm_t(A.slice_ptrs, A.cols, A.data, A.perm, X, A.shape[0], A.c,
-                                tt=_pick(cfg, "tt", A, "spmm_t", t))
+                                tt=_pick(cfg, "tt", A, "spmm_t", t), xt=_xt(cfg))
 
 
 def hyb_spmm_t(A: HYB, X: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:

@@ -11,7 +11,11 @@ write each lane's sums straight to row (or column) ``perm[lane]`` of Y, so
 as every SELL container is: every row is then written once and Y needs no
 zero fill. Each kernel has its own count: ``launches`` (sell_spmm) and
 ``launches_t`` (sell_spmm_t), raised where the kernel launches and nowhere
-else.
+else. ``sell_spmm_t`` takes the launch knob ``xt`` as
+``csr_spmm.csr_spmm_t`` does: 0 the slice schedule, 32, 64 or 128 the
+token-major one (``spmm_common.cuh::tokens_spmm_t`` over the sorted rows,
+the slices first repacked row-major into scratch); ``launches_xt`` counts
+the token-major launches among ``launches_t``.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.csr_spmm import TOKEN_TILES, token_tile
+from repro_torch.kernels.csr_spmm import (TOKEN_TILES, XT_MAX_ENTRIES, check_xt, token_tile,
+                                          xt_scratch)
 from repro_torch.kernels.ref import sell_spmm_ref, sell_spmm_t_ref
 
 NAME = "sell_spmm"
@@ -29,10 +34,12 @@ DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_C = 1024  # a slice's lanes share one block of 1024 threads
 launches = 0
 launches_t = 0
+launches_xt = 0  # of launches_t, those on the token-major schedule
 
 _P, _I64, _I32, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I32, _I64, _INT, _P]
 _ARGTYPES_T = [_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I32, _I64, _INT, _INT, _P]
+_ARGTYPES_XT = [_P] * 9 + [_I64, _I64, _I32, _I64, _I32, _I64, _INT, _INT, _P]
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,6 +50,11 @@ def _fn(dtype: torch.dtype):
 @functools.lru_cache(maxsize=None)
 def _fn_t(dtype: torch.dtype):
     return _build.entry_point(NAME, f"sell_spmm_t_{DTYPES[dtype]}", _ARGTYPES_T)
+
+
+@functools.lru_cache(maxsize=None)
+def _fn_xt(dtype: torch.dtype):
+    return _build.entry_point(NAME, f"sell_spmm_xt_{DTYPES[dtype]}", _ARGTYPES_XT)
 
 
 def _check(slice_ptrs, cols, data, perm, X, m, c, tt, what="X", n_axis=1):
@@ -107,29 +119,46 @@ def sell_spmm(slice_ptrs: torch.Tensor, cols: torch.Tensor, data: torch.Tensor,
 
 def sell_spmm_t(slice_ptrs: torch.Tensor, cols: torch.Tensor, data: torch.Tensor,
                 perm: torch.Tensor, X: torch.Tensor, m: int, c: int,
-                tt: int | None = None) -> torch.Tensor:
+                tt: int | None = None, xt: int = 0) -> torch.Tensor:
     """Y = X @ A^T for SELL-C-sigma A given as flat (slice_ptrs, cols, data,
     perm) with slice height ``c``, and activations X (T, N); returns (T, M).
-    ``tt`` tokens a block (default ``csr_spmm.token_tile`` of T), their rows
-    of X copied into shared memory for ``tt`` > 1 where they fit. f32
+    ``xt`` 0: the slice schedule, ``tt`` tokens a block (default
+    ``csr_spmm.token_tile`` of T), their rows of X copied into shared memory
+    for ``tt`` > 1 where they fit; ``xt`` in ``csr_spmm.XT_TILES``: the
+    token-major schedule, ``xt`` tokens a block (``tt`` unread). f32
     accumulation; Y in X's dtype."""
-    global launches_t
+    global launches_t, launches_xt
+    xt = check_xt(xt)
     if X.device.type == "cpu":
         return sell_spmm_t_ref(slice_ptrs, cols, data, perm, X, m, c)
     if X.device.type != "cuda":
         raise ValueError(f"sell_spmm_t runs on cuda or cpu tensors, got {X.device}")
     tt = token_tile(X.shape[0]) if tt is None else tt
     _check(slice_ptrs, cols, data, perm, X, m, c, tt)
+    if xt and data.shape[0] > XT_MAX_ENTRIES:
+        raise ValueError(f"xt={xt} addresses at most {XT_MAX_ENTRIES} stored entries")
     t, n = X.shape
     if m == 0 or t == 0 or n == 0:  # nothing to launch: every output sums nothing
         return torch.zeros((t, m), dtype=X.dtype, device=X.device)
     y = torch.empty((t, m), dtype=X.dtype, device=X.device)
-    fn, err_str = _fn_t(X.dtype)
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    err = fn(slice_ptrs.data_ptr(), cols.data_ptr(), data.data_ptr(), perm.data_ptr(),
-             X.data_ptr(), y.data_ptr(), perm.shape[0], c, m, n, t, tt,
-             X.device.index, stream)
+    if xt:
+        fn, err_str = _fn_xt(X.dtype)
+        # scratch, freed on this stream after the launch (reuse waits): XT and
+        # the slices repacked row-major
+        scratch = xt_scratch(X, xt)
+        pcols, pdata = torch.empty_like(cols), torch.empty_like(data)
+        err = fn(slice_ptrs.data_ptr(), cols.data_ptr(), data.data_ptr(), perm.data_ptr(),
+                 X.data_ptr(), scratch.data_ptr(), pcols.data_ptr(), pdata.data_ptr(),
+                 y.data_ptr(), data.shape[0], perm.shape[0], c, m, n, t, xt, X.device.index,
+                 stream)
+    else:
+        fn, err_str = _fn_t(X.dtype)
+        err = fn(slice_ptrs.data_ptr(), cols.data_ptr(), data.data_ptr(), perm.data_ptr(),
+                 X.data_ptr(), y.data_ptr(), perm.shape[0], c, m, n, t, tt,
+                 X.device.index, stream)
     if err:
         raise RuntimeError(f"sell_spmm_t launch failed: {err_str(err).decode()} ({err})")
     launches_t += 1
+    launches_xt += bool(xt)
     return y

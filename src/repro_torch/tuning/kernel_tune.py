@@ -227,28 +227,35 @@ def default_grid(A, smoke: bool = False, op: str = "spmv",
     choice first, so tuning can only match or beat the untuned path.
 
     ``vec`` brackets the default (half, same, double); ``tt`` takes every
-    token tile up to the default (1, 2, 4, 8 at T >= 8); where the default
-    runs the token-major SpMM_T schedule (``xt``), the grid holds both
-    schedules: every ``xt`` tile, and the row schedule's ``vec`` x ``tt``
-    entries (no ``xt``); HYB's tail takes its ELL part's ``tt`` and ``xt``.
-    SELL adds a second container geometry (``c`` 64, or 32 where it is 64,
-    ``sigma`` 8c), which the tuner rebuilds. ``smoke`` keeps two or three
-    entries.
+    token tile up to the default (1, 2, 4, 8 at T >= 8); where the
+    token-major schedule (``xt``) takes the width (SpMM_T at T >= 32, ELL
+    SpMM at Kb >= 32), the grid holds both schedules: every ``xt`` tile, and
+    the row (SELL: slice) schedule's entries (no ``xt``); HYB's SpMM_T tail
+    takes its ELL part's ``tt`` and ``xt``, its SpMM tail neither. SELL adds
+    a second container geometry (``c`` 64, or 32 where it is 64, ``sigma``
+    8c), which the tuner rebuilds. ``smoke`` keeps two or three entries.
     """
     base = kops.default_config(A, op=op, ncols=ncols)
+    row = {k: v for k, v in base.items() if k != "xt"}  # the default's row schedule
+    takes_xt = "xt" in base or (isinstance(A, SELL) and op == "spmm_t"
+                                and _csr_mm.xt_tile(ncols or 1))
+    xts = [dict(row, xt=xt) for xt in _csr_mm.XT_TILES] if takes_xt else []
     if isinstance(A, HYB):
         sub = default_grid(A.ell, smoke=smoke, op=op, ncols=ncols)
-        tail = {k: v for k, v in base["csr"].items() if k not in ("tt", "xt")}
-        grid = [{"ell": g, "csr": dict(tail, **{k: g[k] for k in ("tt", "xt") if k in g})}
+        shared = ("tt", "xt") if op == "spmm_t" else ()
+        tail = {k: v for k, v in base["csr"].items() if k not in shared}
+        grid = [{"ell": g, "csr": dict(tail, **{k: g[k] for k in shared if k in g})}
                 for g in sub]
     elif isinstance(A, SELL):
-        own = dict({"c": A.c, "sigma": A.sigma}, **base)
+        geometry = {"c": A.c, "sigma": A.sigma}
+        own, own_row = dict(geometry, **base), dict(geometry, **row)
         alt_c = 32 if A.c == 64 else 64
         alt = dict({"c": alt_c, "sigma": 8 * alt_c}, **base)
         tts = [tt for tt in _csr_mm.TOKEN_TILES if tt <= base.get("tt", 0)]
-        grid = [own] + [dict(own, tt=tt) for tt in tts] + [alt]
+        grid = ([own] + [dict(geometry, **x) for x in xts] + [own_row]
+                + [dict(own_row, tt=tt) for tt in tts] + [alt])
         if smoke:
-            grid = [own, alt]
+            grid = [own, own_row, alt]
     else:
         vecs = _bracket(base["vec"], _csr_mm.VEC_WIDTHS) if "vec" in base else [None]
         tts = ([tt for tt in _csr_mm.TOKEN_TILES if tt <= base["tt"]] if "tt" in base
@@ -256,13 +263,10 @@ def default_grid(A, smoke: bool = False, op: str = "spmv",
         if isinstance(A, DIA):
             grid = [base] + [{"block": b} for b in (128, 256, 512, 1024)]
         elif op == "spmm" and (ncols or 1) > 8:
-            grid = [base]  # lanes lie along K: no knob is read
+            grid = [base, row] + xts  # vec is unread: lanes along Kb
         else:
-            tiles = []
-            if "xt" in base:  # the row schedule's default next, then every tile
-                tiles = [{k: v for k, v in base.items() if k != "xt"}] + [
-                    dict(base, xt=xt) for xt in _csr_mm.XT_TILES]
-            grid = [base] + tiles + [
+            # the row schedule's default next, then every tile
+            grid = [base, row] + xts + [
                 {k: v for k, v in (("vec", vec), ("tt", tt)) if v is not None}
                 for vec in vecs for tt in tts]
         if smoke:

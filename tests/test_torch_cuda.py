@@ -579,6 +579,146 @@ def test_token_major_with_full_blocks_and_the_layer_route(card):
             assert err <= 1e-5, (fmt, cfg, err)
 
 
+# SELL-C-sigma on the token-major schedule: containers built from rows in
+# the three column orders (convert builds sorted rows only), sigma-sorted
+# slices, ghost lanes (M % C != 0) holding NaN, empty rows and short rows
+# with trailing padding (col -1, val 0).
+SELL_XT_TOKENS = (31, 32, 33, 256, 257)
+
+
+def _xt_sell(rng, layout, n, c, sigma, dt, dev, m=301):
+    """SELL-C-sigma of ``m`` rows in ``layout`` column order: rows sorted by
+    length (descending) within windows of ``sigma``, each slice as wide as
+    its longest row, padding trailing each shorter row, ghost lanes past M
+    holding NaN values."""
+    lens = rng.integers(0, 80, m)
+    lens[::7] = 0
+    lens[5], lens[11] = 2 * n + 3, 33
+    rows = [(_row_cols(rng, layout, int(ln), n).astype(np.int32),
+             rng.standard_normal(int(ln)).astype(np.float32)) for ln in lens]
+    nslices = -(-m // c)
+    perm = np.full(nslices * c, m, np.int32)
+    order = np.concatenate([w0 + np.argsort(-lens[w0:w0 + sigma], kind="stable")
+                            for w0 in range(0, m, sigma)])
+    perm[:m] = order
+    widths = [max([int(lens[r]) for r in perm[s * c:(s + 1) * c] if r < m] + [0])
+              for s in range(nslices)]
+    ptrs = np.concatenate([[0], np.cumsum(np.array(widths) * c)]).astype(np.int32)
+    cols = np.full(int(ptrs[-1]), -1, np.int32)
+    vals = np.zeros(int(ptrs[-1]), np.float32)
+    for q, r in enumerate(perm):
+        s, lane = divmod(q, c)
+        if r < m:
+            at = ptrs[s] + lane + c * np.arange(lens[r])
+            cols[at], vals[at] = rows[r]
+        else:
+            vals[ptrs[s] + lane:ptrs[s + 1]:c] = np.nan
+    return [torch.from_numpy(ptrs).to(dev), torch.from_numpy(cols).to(dev),
+            torch.from_numpy(vals).to(dev, dt), torch.from_numpy(perm).to(dev)], m
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("layout", XT_LAYOUTS)
+@pytest.mark.parametrize("n", XT_WIDTHS)
+@pytest.mark.parametrize("c,sigma", [(32, 256), (64, 64)])
+def test_token_major_sell_spmm_t_matches_plain(card, dtype_name, layout, n, c, sigma):
+    rng = np.random.default_rng(43)
+    dt = DTYPES[dtype_name]
+    args, m = _xt_sell(rng, layout, n, c, sigma, dt, card)
+    assert int(args[3].max()) == m  # the case has ghost lanes
+    empty = [i for i in range(m) if i % 7 == 0]
+
+    def run(X, vec=None, **kw):  # vec: the CSR/ELL knob, not SELL's
+        return ksm.sell_spmm_t(*args, X, m, c, **kw)
+
+    def plain(X, absolute):
+        return sell_spmm_t_ref(args[0], args[1], args[2].abs() if absolute else args[2],
+                               args[3], X.abs() if absolute else X, m, c)
+    for t in SELL_XT_TOKENS:
+        X = _rand(rng, (t, n), dt, card)
+        _check_xt(run, plain, X, {"tt": 8}, dtype_name,
+                  [(ksm, "launches_t"), (ksm, "launches_xt")])
+        assert not bool(run(X, xt=32)[:, empty].any())  # empty rows write zeros
+
+
+# Y = A @ B widths of the token-major ELL SpMM: one tile, one column past
+# it, ragged, several tiles, one past; B also one element off its
+# allocation's 16-byte alignment (staged through the padded scratch).
+ELL_XT_WIDTHS = (32, 33, 100, 256, 257)
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("layout", XT_LAYOUTS)
+@pytest.mark.parametrize("n", XT_WIDTHS)
+def test_token_major_ell_spmm_matches_plain(card, dtype_name, layout, n):
+    rng = np.random.default_rng(44)
+    dt = DTYPES[dtype_name]
+    for k in (0, 70):
+        cols, vals = _xt_ell(rng, layout, n, k, dt, card)
+
+        def run(B, **kw):
+            return kem.ell_spmm(cols, vals, B, **kw)
+
+        def plain(B, absolute):
+            return ell_spmm_ref(cols, vals.abs() if absolute else vals,
+                                B.abs() if absolute else B)
+        for kb in ELL_XT_WIDTHS:
+            B = _rand(rng, (n, kb), dt, card)
+            off = torch.empty(n * kb + 1, dtype=dt, device=card)[1:].view(n, kb)
+            off.copy_(B)
+            assert off.data_ptr() % 16 and off.is_contiguous()
+            for Bv in (B, off):
+                _check_xt(run, plain, Bv, {"vec": 8}, dtype_name,
+                          [(kem, "launches"), (kem, "launches_kxt")], expect_launch=k > 0)
+            if k:
+                assert not bool(run(B, vec=8, xt=64)[::7].any())  # padding-only rows
+
+
+def test_token_major_sell_spmm_t_and_ell_spmm_with_full_blocks_and_the_route(card):
+    """A matrix of enough rows for blocks of 8 rows a warp, through the
+    entry points: the default cfg at width 256 runs the token-major
+    schedule, a cfg without ``xt`` the old one (SELL's slice kernel, ELL's
+    rows), HYB's ELL part the token-major one beside its CSR tail; and the
+    check catches a planted fault (every 64th stored entry dropped)."""
+    rng = np.random.default_rng(45)
+    a = np.where(rng.random((9000, 700)) < 0.05, rng.standard_normal((9000, 700)), 0)
+    A = coo_from_dense_np(a.astype(np.float32), device=card)
+    X = _rand(rng, (256, 700), torch.float32, card)
+    B = X.T.contiguous()
+    oracle = torch.from_numpy(a).to(card) @ B.double()
+    for fmt, op, rhs, want, old, counters in (
+            (Format.SELL, spmm_t, X, oracle.T, {"tt": 8}, (ksm, "launches_t", "launches_xt")),
+            (Format.ELL, spmm, B, oracle, {"vec": 8}, (kem, "launches", "launches_kxt")),
+            (Format.HYB, spmm, B, oracle, {"ell": {"vec": 8}, "csr": {"vec": 8}},
+             (kem, "launches", "launches_kxt"))):
+        M = convert(A, fmt)
+        mod, total, xt = counters
+        for cfg, xt_launches in ((None, 1), (old, 0)):
+            before = (getattr(mod, total), getattr(mod, xt), kcm.launches)
+            y = op(M, rhs, backend="cuda", cfg=cfg)
+            torch.cuda.synchronize()
+            assert (getattr(mod, total) - before[0], getattr(mod, xt) - before[1]) == \
+                (1, xt_launches), (fmt, cfg)
+            assert kcm.launches - before[2] == int(fmt == Format.HYB)  # the CSR tail
+            err = float((y.double() - want).abs().max() / want.abs().max())
+            assert err <= 1e-5, (fmt, cfg, err)
+    # the planted fault reads above the SpMM limit for both kernels
+    S, E = convert(A, Format.SELL), convert(A, Format.ELL)
+    sargs = (S.slice_ptrs, S.cols, S.data, S.perm)
+    for y, plain_of, vals, absolute in (
+            (ksm.sell_spmm_t(*sargs, X, 9000, S.c, xt=128),
+             lambda d: sell_spmm_t_ref(S.slice_ptrs, S.cols, d, S.perm, X, 9000, S.c), S.data,
+             sell_spmm_t_ref(S.slice_ptrs, S.cols, S.data.abs(), S.perm, X.abs(), 9000, S.c)),
+            (kem.ell_spmm(E.cols, E.data, B, vec=8, xt=128),
+             lambda d: ell_spmm_ref(E.cols, d, B), E.data,
+             ell_spmm_ref(E.cols, E.data.abs(), B.abs()))):
+        torch.cuda.synchronize()
+        assert _spmm_reading(y, plain_of(vals), absolute, "float32") <= 1.0
+        dropped = vals.clone()
+        dropped.view(-1)[::64] = 0
+        assert _spmm_reading(y, plain_of(dropped), absolute, "float32") > 1.0
+
+
 def test_spmm_on_formats_without_a_ported_kernel_raises(card):
     """Every SpMM kernel is ported now: on the card ELL, SELL and HYB SpMM
     launch their kernels (HYB: ell_spmm and csr_spmm over the tail), as do

@@ -195,11 +195,11 @@ def test_default_grid_contains_default_config(fmt):
                 assert tts == ({1, 2, 4, 8} if w == 256 else {1, 2, 4} if w == 3 else {1})
 
 
-@pytest.mark.parametrize("fmt", ["CSR", "ELL", "HYB"])
+@pytest.mark.parametrize("fmt", ["CSR", "ELL", "HYB", "SELL"])
 def test_default_grid_holds_both_spmm_t_schedules(fmt):
     """At ncols = 256 the grid times the token-major schedule at every tile
-    and the row schedule (entries without ``xt``); at ncols = 1 only the row
-    schedule. HYB's tail runs its ELL part's schedule."""
+    and the row (SELL: slice) schedule (entries without ``xt``); at ncols =
+    1 only the row schedule. HYB's tail runs its ELL part's schedule."""
     A = tconv.convert(coo_pair(PATTERNS["powerlaw"]())[1], tf.Format[fmt])
 
     def knobs(g):
@@ -214,6 +214,28 @@ def test_default_grid_holds_both_spmm_t_schedules(fmt):
             assert len({kops._xt(k) for k in knobs(g)}) == 1
     assert all(kops._xt(k) == 0 for g in kt.default_grid(A, op="spmm_t", ncols=1)
                for k in knobs(g))
+
+
+@pytest.mark.parametrize("fmt", ["ELL", "HYB"])
+def test_default_grid_holds_both_ell_spmm_schedules(fmt):
+    """ELL's Y = A @ B at Kb = 256: the default (``xt`` 128) first, then
+    the row schedule (no ``xt``) and every tile; HYB's ELL part the same,
+    its CSR tail never an ``xt``. At Kb = 4 only the row schedule."""
+    A = tconv.convert(coo_pair(PATTERNS["powerlaw"]())[1], tf.Format[fmt])
+
+    def ell(g):
+        return g["ell"] if fmt == "HYB" else g
+    for smoke in (False, True):
+        grid = kt.default_grid(A, smoke=smoke, op="spmm", ncols=256)
+        assert grid[0] == kops.default_config(A, op="spmm", ncols=256)
+        assert kops._xt(ell(grid[0])) == 128 and kops._xt(ell(grid[1])) == 0
+        xts = [kops._xt(ell(g)) for g in grid]
+        assert xts == ([128, 0, 32, 64] if not smoke else [128, 0, 32])
+        if fmt == "HYB":
+            assert all("xt" not in g["csr"] and "tt" not in g["csr"] for g in grid)
+    grid = kt.default_grid(A, op="spmm", ncols=4)
+    assert grid[0] == kops.default_config(A, op="spmm", ncols=4)
+    assert all(kops._xt(ell(g)) == 0 for g in grid) and len(grid) > 1  # vec brackets
 
 
 def test_tune_kernel_persists_its_winner(tmp_path, monkeypatch):
@@ -356,6 +378,27 @@ def test_xt_round_trips_through_the_selection_cache(tmp_path, card_tag):
     assert SelectionCache(path).get_decision("k-xt") == (tf.Format.ELL, "cuda", {"ell": cfg},
                                                          kt.CUDA_TAG)
     assert jcache.SelectionCache(path).get_decision("k-xt")[2] == {"ell": cfg}
+
+
+def test_sell_xt_record_round_trips_through_the_selection_cache(tmp_path, card_tag):
+    """A SELL SpMM_T record with ``xt`` (and its container geometry)
+    survives the record JSON, a fresh store handle and a pinned decision,
+    and the JAX package reads both back."""
+    path = str(tmp_path / "sel.json")
+    A = tconv.convert(coo_pair(PATTERNS["powerlaw"]())[1], tf.Format.SELL)
+    cfg = {"c": A.c, "sigma": A.sigma, "tt": 8, "xt": 128}
+    rec = _seed(A, "spmm_t", 900.0, 45000.0, cfg, ncols=256, path=path)
+    fresh = kt.best_config(A, op="spmm_t", ncols=256, cache=SelectionCache(path))
+    assert fresh == rec and fresh.cfg == cfg and kops._xt(fresh.cfg) == 128
+    assert KernelRecord.from_json(rec.to_json()).cfg == cfg
+    assert kt.best_config(A, op="spmm_t", ncols=1, cache=SelectionCache(path)) is None
+    key = kt.kernel_key(A.format, A.shape[0], A.shape[1], A.nnz, op="spmm_t", ncols=256,
+                        device=A.device)
+    assert jkt.KernelRecord.from_json(jcache.SelectionCache(path).get_raw(key)).cfg == cfg
+    SelectionCache(path).put_decision("k-sell-xt", tf.Format.SELL, "cuda", cfg, kt.CUDA_TAG)
+    assert SelectionCache(path).get_decision("k-sell-xt") == (tf.Format.SELL, "cuda", cfg,
+                                                              kt.CUDA_TAG)
+    assert jcache.SelectionCache(path).get_decision("k-sell-xt")[2] == cfg
 
 
 def test_operator_and_dynamic_matrix_thread_cfg(monkeypatch):

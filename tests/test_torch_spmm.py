@@ -473,20 +473,28 @@ def test_spmm_t_config_takes_up_to_eight_tokens_a_block():
                                   (127, 64), (128, 128), (256, 128), (257, 128)])
 def test_spmm_t_config_picks_its_schedule_from_t(t, xt):
     """The row schedule below 32 tokens (no ``xt`` key), else the largest
-    token-major tile <= T; CSR, ELL and both HYB parts alike, SELL never."""
+    token-major tile <= T; CSR, ELL and both HYB parts alike, SELL from
+    ``SELL_XT_FROM`` tokens (its slice kernel ran faster at T = 32). For
+    Y = A @ B at Kb = t, ELL (and HYB's ELL part) the same, CSR and SELL
+    never."""
     assert kcm.xt_tile(t) == xt
     a = PATTERNS["powerlaw"]()
     A = tf.coo_from_dense_np(a, device="cpu")
-    for fmt in ("CSR", "ELL"):
+    for fmt in ("CSR", "ELL", "SELL"):
+        want = xt if fmt != "SELL" or t >= kops.SELL_XT_FROM else 0
         cfg = kops.default_config(tconv.convert(A, tf.Format[fmt]), op="spmm_t", ncols=t)
-        assert cfg.get("xt", 0) == xt and ("xt" in cfg) == bool(xt)
-        assert kops._xt(cfg) == xt
+        assert cfg.get("xt", 0) == want and ("xt" in cfg) == bool(want)
+        assert kops._xt(cfg) == want
     hyb = kops.default_config(tconv.convert(A, tf.Format.HYB), op="spmm_t", ncols=t)
     assert kops._xt(hyb["ell"]) == kops._xt(hyb["csr"]) == xt
-    assert "xt" not in kops.default_config(tconv.convert(A, tf.Format.SELL), op="spmm_t",
-                                           ncols=t)
+    ell = kops.default_config(tconv.convert(A, tf.Format.ELL), op="spmm", ncols=t)
+    assert ell.get("xt", 0) == xt and ("xt" in ell) == bool(xt)
+    hyb = kops.default_config(tconv.convert(A, tf.Format.HYB), op="spmm", ncols=t)
+    assert kops._xt(hyb["ell"]) == xt and "xt" not in hyb["csr"]
     for op in ("spmv", "spmm"):
         assert "xt" not in kops.default_config(tconv.convert(A, tf.Format.CSR), op=op, ncols=t)
+    assert "xt" not in kops.default_config(tconv.convert(A, tf.Format.SELL), op="spmm",
+                                           ncols=t)
 
 
 @pytest.mark.parametrize("bad", [48, -1, 1, 256, True, 64.0, "64", None])
@@ -514,6 +522,35 @@ def test_spmm_t_wrappers_reject_a_bad_xt_before_any_launch(bad):
                            csr_spmm_t_ref(ip, ix, torch.ones(3), X, 2))
     assert all(v == 0 for v in kops.launch_counts().values())
     assert kcm.launches_xt == kem.launches_xt == 0
+
+
+@pytest.mark.parametrize("bad", [48, -1, 1, 256, True, 64.0, "64", None])
+def test_sell_spmm_t_and_ell_spmm_reject_a_bad_xt_before_any_launch(bad):
+    """The two wrappers that gained ``xt`` check it first too, on any
+    device; a valid knob on the CPU runs the plain version, uncounted."""
+    ptrs = torch.tensor([0, 4], dtype=torch.int32)
+    cols = torch.tensor([0, 1, 2, -1], dtype=torch.int32)
+    perm = torch.tensor([0, 1, 2, 3], dtype=torch.int32)
+    X, B = torch.ones(4, 5), torch.ones(5, 4)
+    ecols = torch.zeros(3, 2, dtype=torch.int32)
+    kops.reset_launches()
+    with pytest.raises(ValueError, match="xt must be"):
+        ksm.sell_spmm_t(ptrs, cols, torch.ones(4), perm, X, 4, 4, xt=bad)
+    with pytest.raises(ValueError, match="xt must be"):
+        kem.ell_spmm(ecols, torch.ones(3, 2), B, vec=4, xt=bad)
+    with pytest.raises(ValueError, match="xt must be"):  # a meta tensor: no device at all
+        kem.ell_spmm(ecols.to("meta"), torch.zeros(3, 2, device="meta"),
+                     torch.zeros(5, 4, device="meta"), vec=2, xt=bad)
+    with pytest.raises(ValueError, match="xt must be"):
+        ksm.sell_spmm_t(ptrs.to("meta"), cols.to("meta"), torch.zeros(4, device="meta"),
+                        perm.to("meta"), torch.zeros(4, 5, device="meta"), 4, 4, xt=bad)
+    for xt in (0,) + kcm.XT_TILES:
+        assert torch.equal(ksm.sell_spmm_t(ptrs, cols, torch.ones(4), perm, X, 4, 4, xt=xt),
+                           sell_spmm_t_ref(ptrs, cols, torch.ones(4), perm, X, 4, 4))
+        assert torch.equal(kem.ell_spmm(ecols, torch.ones(3, 2), B, vec=4, xt=xt),
+                           ell_spmm_ref(ecols, torch.ones(3, 2), B))
+    assert all(v == 0 for v in kops.launch_counts().values())
+    assert ksm.launches_xt == kem.launches_kxt == 0
 
 
 def test_spmm_t_entry_points_pass_xt_and_read_a_missing_knob_as_the_row_schedule(
@@ -544,6 +581,75 @@ def test_spmm_t_entry_points_pass_xt_and_read_a_missing_knob_as_the_row_schedule
             seen.clear()
             np.testing.assert_allclose(fn(H, X, cfg=cfg).numpy(), oracle, **tol("float32"))
             assert seen == [want] * (2 if fmt == "HYB" else 1), (fmt, cfg, seen)
+
+
+def test_sell_spmm_t_and_ell_spmm_entry_points_pass_xt(monkeypatch, tmp_path):
+    """``kernels.ops`` hands SELL SpMM_T and ELL SpMM (HYB's ELL part too)
+    the cfg's ``xt``; a cfg or record without it means the old schedule, 0;
+    the default at width 256 is the token-major tile 128. HYB's CSR tail
+    takes no ``xt`` in Y = A @ B."""
+    monkeypatch.setenv("REPRO_TUNING_CACHE", str(tmp_path / "empty.json"))
+    seen = []
+
+    def spy(real):
+        def fn(*a, **kw):
+            seen.append(kw["xt"])
+            return real(*a, **kw)
+        return fn
+    monkeypatch.setattr(ksm, "sell_spmm_t", spy(ksm.sell_spmm_t))
+    monkeypatch.setattr(kem, "ell_spmm", spy(kem.ell_spmm))
+    a = PATTERNS["powerlaw"]()
+    A = tf.coo_from_dense_np(a, device="cpu")
+    rng = np.random.default_rng(34)
+    X = _t(rng.standard_normal((256, a.shape[1])).astype(np.float32))
+    B = _t(rng.standard_normal((a.shape[1], 256)).astype(np.float32))
+    cases = (("SELL", "spmm_t", X, X.double().numpy() @ a.T, {"tt": 4}),
+             ("ELL", "spmm", B, a @ B.double().numpy(), {"vec": 8}),
+             ("HYB", "spmm", B, a @ B.double().numpy(), {"ell": {"vec": 8}, "csr": {"vec": 4}}))
+    for fmt, op, rhs, oracle, old in cases:
+        H = tconv.convert(A, tf.Format[fmt], **FORMATS[fmt])
+        fn = kops.cuda_registry(op)[type(H)]
+        for cfg, want in ((old, 0), (None, 128),
+                          (kops.default_config(H, op=op, ncols=64), 64)):
+            seen.clear()
+            np.testing.assert_allclose(fn(H, rhs, cfg=cfg).numpy(), oracle, **tol("float32"))
+            assert seen == [want], (fmt, cfg, seen)
+
+
+@pytest.mark.parametrize("dtype_name", DTYPE_NAMES)
+@pytest.mark.parametrize("xt", [0, 32, 128])
+def test_sell_spmm_t_and_ell_spmm_plain_match_jax_with_and_without_xt(xt, dtype_name):
+    """On the CPU the entry points run the plain versions whatever the cfg
+    says: SELL SpMM_T against ``repro.core.ops.spmm_t(backend="ref")`` and
+    ELL SpMM against ``repro.core.ops._spmm_ell`` on the same containers
+    (bf16 JAX sums in bf16: it gets the values widened to f32), within
+    ``tests/test_kernels.py::_tol``."""
+    rng = np.random.default_rng(35)
+    for pattern in ("powerlaw", "random"):
+        a = PATTERNS[pattern]()
+        m, n = a.shape
+        Jc, _ = coo_pair(a)
+        X = _t(rng.standard_normal((40, n)).astype(np.float32), dtype_name)
+        B = _t(rng.standard_normal((n, 40)).astype(np.float32), dtype_name)
+        for fmt, op in (("SELL", "spmm_t"), ("ELL", "spmm")):
+            Jf = jconv.convert(Jc, jf.Format[fmt], **FORMATS[fmt])
+            P = port_from_jax(Jf)
+            P = dataclasses.replace(P, data=P.data.to(TORCH_DTYPES[dtype_name]))
+            cfg = kops.default_config(P, op=op, ncols=40)
+            cfg = {k: v for k, v in cfg.items() if k != "xt"}
+            if xt:
+                cfg["xt"] = xt
+            y = kops.cuda_registry(op)[type(P)](P, X if op == "spmm_t" else B, cfg=cfg)
+            assert y.dtype == TORCH_DTYPES[dtype_name]
+            Jw = dataclasses.replace(Jf, data=jnp.asarray(_f(P.data)))
+            if op == "spmm_t":
+                yj = jops.spmm_t(Jw, jnp.asarray(_f(X)), backend="ref")
+                oracle = _f(X).astype(np.float64) @ _rounded(a, dtype_name).T
+            else:
+                yj = jops._spmm_ell(Jw, jnp.asarray(_f(B)))
+                oracle = _rounded(a, dtype_name) @ _f(B).astype(np.float64)
+            np.testing.assert_allclose(_f(y), np.asarray(yj, np.float32), **tol(dtype_name))
+            np.testing.assert_allclose(_f(y), oracle, **tol(dtype_name))
 
 
 # Stand-ins with the SpMM entry points' C signatures: each records its
@@ -588,6 +694,15 @@ _SIGNATURES = {
         "const void* ptrs", "const void* cols", "const void* data", "const void* perm",
         "const void* x", "void* y", "int64_t lanes", "int32_t c", "int64_t m", "int32_t n",
         "int64_t t", "int tt", "int device", "void* stream"],
+    ("sell_spmm", "sell_spmm_xt_f32", "_fn_xt"): [
+        "const void* ptrs", "const void* cols", "const void* data", "const void* perm",
+        "const void* x", "void* xt_scratch", "void* pcols", "void* pdata", "void* y",
+        "int64_t capacity", "int64_t lanes", "int32_t c", "int64_t m", "int32_t n",
+        "int64_t t", "int xt", "int device", "void* stream"],
+    ("ell_spmm", "ell_spmm_kxt_f32", "_fn_kxt"): [
+        "const void* cols", "const void* data", "const void* b", "void* b_scratch", "void* y",
+        "int64_t m", "int32_t n", "int32_t k", "int64_t kb", "int xt", "int device",
+        "void* stream"],
 }
 
 
@@ -653,6 +768,11 @@ def test_each_source_names_its_kernels_and_int64_offsets():
     assert "stage_x" in srcs["sell_spmm"].read_text()
     common = _build.headers()["spmm_common.cuh"].read_text()
     assert "stage_xt" in common and "tokens_spmm_t" in common and "rows_spmm_t" in common
-    for name in ("csr_spmm", "ell_spmm"):
+    for name in ("csr_spmm", "ell_spmm", "sell_spmm"):
         text = srcs[name].read_text()
         assert f"int {name}_xt_f32(" in text and f"int {name}_xt_bf16(" in text
+    text = srcs["ell_spmm"].read_text()
+    assert "int ell_spmm_kxt_f32(" in text and "int ell_spmm_kxt_bf16(" in text
+    assert "bool AB" in common
+    assert "SellRows" in srcs["sell_spmm"].read_text()
+    assert "repack_slices" in srcs["sell_spmm"].read_text()
