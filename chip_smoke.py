@@ -29,14 +29,21 @@ Phases, in order (any failure exits nonzero and prints no result line):
    fault the check must catch, with their times, bounds, plain times and two
    yardsticks (``torch.sparse_csr_tensor`` times X^T or B, and the dense
    X @ W in float32 without TF32), a HYB SpMM line (ell_spmm + csr_spmm)
-   and a token-tile sweep; then csr_spmm_t, ell_spmm_t, sell_spmm_t and
-   ell_spmm on both of their schedules (the ``xt`` knob: the old schedule,
-   row or SELL slice, and the token-major one): the token-major one against
-   the plain version at width 256 (and 257 on the up weight in float32) on
-   both weights in float32 and bfloat16 with a planted fault, against the
-   old schedule, the two timed in turns beside the dense X @ W (sell_spmm_t
-   and ell_spmm in both dtypes and beside the library call), and a sweep
-   over the width in {16, 32, 64, 128, 256} and the tile;
+   and a token-tile sweep; then csr_spmm_t, ell_spmm_t, sell_spmm_t,
+   ell_spmm, csr_spmm and sell_spmm on each of their schedules (the ``xt``
+   knob: the old schedule, row or SELL slice, and the token-major one; for
+   csr_spmm and sell_spmm also the ``tc`` knob, the dense-tile schedule on
+   the tensor cores): each new schedule against the plain version at width
+   256 (and 257 on the up weight in float32) on both weights in float32 and
+   bfloat16 with a planted fault, and against the old schedule, all timed
+   in turns (old, new..., ...new, old) beside the dense X @ W (csr_spmm and
+   sell_spmm on both weights, in both dtypes and beside the library call;
+   the earlier four on the up weight in float32), a sweep over the width
+   (float32, {16, 32, 64, 128, 256}; the earlier kernels around their
+   switches, {16, 32, 64}, on the up weight; bfloat16 {64, 128, 256} for
+   tc) and the tile, and
+   for csr_spmm and sell_spmm a density sweep at width 256 (the up weight
+   pruned on the card to 0.05 and 0.01, checked and timed in turns);
 3. reference check: the port's solve at 16^3 on the card (CUDA kernels)
    against the same solve on the CPU (plain torch path), in every format;
 4. main paths at HPCG's default 104^3 grid, each driven with the launch
@@ -59,7 +66,7 @@ Phases, in order (any failure exits nonzero and prints no result line):
       their kernels.
    e. the measured route, on a fresh store (``REPRO_TUNING_CACHE``):
       kernel_tune records (iters 3, inner 2) for spmm on the up weight in
-      ELL, SELL and HYB, spmm_t on both weights in CSR, ELL and SELL, at
+      CSR, ELL, SELL and HYB, spmm_t on both weights in CSR, ELL and SELL, at
       widths 1 and 256, and spmv at 104^3 in DIA and CSR; each record
       round-trips, routes ``auto`` to its kernel exactly where it beat the
       reference (bitwise equal to backend="cuda" with its cfg), a width-1
@@ -70,7 +77,8 @@ Phases, in order (any failure exits nonzero and prints no result line):
       the SpMM profile pick through every kernel.
 
 The last three lines of standard output are the kernels' JSON record (all
-eleven kernels, launches summed over paths (a)-(e)), the ``nvidia-smi``
+eleven kernels, launches summed over paths (a)-(e), and each kernel's
+launches on its token-major and dense-tile schedules), the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -602,11 +610,12 @@ def read_path(torch, label, expect):
     runs must have launched."""
     from repro_torch.kernels import ops as kops
     counts = kops.launch_counts()
-    print(f"  launches over path {label}: {counts}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    scheds = kops.schedule_counts()
+    print(f"  launches over path {label}: {counts}; by schedule {scheds}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     for name in expect:
         check(counts[name] > 0, f"{name} launched on path {label} ({counts[name]})")
-    return counts
+    return dict(counts, **scheds)
 
 
 def start_path(torch):
@@ -929,15 +938,16 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
                 cfg_c = kops.default_config(csr, op="spmm_t", ncols=t)
                 cfg_e = kops.default_config(ell, op="spmm_t", ncols=t)
                 cfg_s = kops.default_config(sell, op="spmm_t", ncols=t)
-                cfg_v = kops.default_config(csr, op="spmm", ncols=t)["vec"]
+                cfg_cb = kops.default_config(_with_values(csr, cd), op="spmm", ncols=t)
+                cfg_sb = kops.default_config(_with_values(sell, sd), op="spmm", ncols=t)
                 cfg_eb = kops.default_config(ell, op="spmm", ncols=t)
                 Xa, Ba = X.abs(), B.abs()
                 runs = {
                     "csr_spmm": (lambda: kcm.csr_spmm(csr.indptr, csr.indices, cd, B, m,
-                                                      vec=cfg_v),
+                                                      **cfg_cb),
                                  lambda: csr_spmm_ref(csr.indptr, csr.indices, cd, B, m),
                                  lambda: csr_spmm_ref(csr.indptr, csr.indices, cd.abs(), Ba, m),
-                                 lambda: lib @ B, f"K={t}"),
+                                 lambda: lib @ B, f"K={t} {cfg_cb}"),
                     "csr_spmm_t": (lambda: kcm.csr_spmm_t(csr.indptr, csr.indices, cd, X, m,
                                                           **cfg_c),
                                    lambda: csr_spmm_t_ref(csr.indptr, csr.indices, cd, X, m),
@@ -960,12 +970,12 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
                                  lambda: ell_spmm_ref(ell.cols, ed.abs(), Ba),
                                  lambda: lib @ B, f"K={t} {cfg_eb}"),
                     "sell_spmm": (lambda: ksm.sell_spmm(sell.slice_ptrs, sell.cols, sd,
-                                                        sell.perm, B, m, sell.c),
+                                                        sell.perm, B, m, sell.c, **cfg_sb),
                                   lambda: sell_spmm_ref(sell.slice_ptrs, sell.cols, sd,
                                                         sell.perm, B, m, sell.c),
                                   lambda: sell_spmm_ref(sell.slice_ptrs, sell.cols, sd.abs(),
                                                         sell.perm, Ba, m, sell.c),
-                                  lambda: lib @ B, f"K={t}"),
+                                  lambda: lib @ B, f"K={t} {cfg_sb}"),
                 }
                 # the planted fault: each checked kernel's plain version on its
                 # values with every FAULT_EVERY-th stored entry dropped
@@ -1027,7 +1037,7 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
                         records[kname][f"max_abs_err_bf16{'' if t == PREFILL else '_t1'}"] = err
                 if dtype == torch.float32:
                     hyb_spmm_line(torch, hyb, B, lib, peak_bw, peak_flops, f"{lname} K={t}")
-                if dtype == torch.float32 and t == PREFILL:
+                if dtype == torch.float32 and t == PREFILL and lname == "up":
                     sweep_token_tiles(lname, csr, sell, cd, sd, X, cfg_c["vec"])
                 if dtype == torch.float32 and t == DECODE:
                     from repro_torch.kernels import csr_spmv as kc
@@ -1094,9 +1104,10 @@ def hyb_spmm_line(torch, hyb, B, lib, peak_bw, peak_flops, what):
 
 
 def sweep_token_tiles(lname, csr, sell, cd, sd, X, vec):
-    """Median times over the token tile at T = 256 (information for tuning;
-    the main path takes ``csr_spmm.token_tile`` of T). The SELL kernel copies
-    its tile into shared memory where it fits."""
+    """Median times over the token tile at T = 256, tt = 4 and 8 (the main
+    path takes ``csr_spmm.token_tile`` of T; the smaller tiles lost by 2-3x,
+    PERF.md). The SELL kernel copies its tile into shared memory where it
+    fits."""
     from repro_torch.kernels import csr_spmm as kcm, sell_spmm as ksm
     m = csr.shape[0]
     runs = {"csr_spmm_t": lambda tt: kcm.csr_spmm_t(csr.indptr, csr.indices, cd, X, m,
@@ -1105,132 +1116,243 @@ def sweep_token_tiles(lname, csr, sell, cd, sd, X, vec):
                                                       sell.perm, X, m, sell.c, tt=tt)}
     for kname, run in runs.items():
         times = ", ".join(f"tt={tt} {time_ms(lambda tt=tt: run(tt), 10):.4f}"
-                          for tt in kcm.TOKEN_TILES)
+                          for tt in kcm.TOKEN_TILES if tt >= 4)  # the two contenders
         print(f"  {kname} {lname} float32 T={X.shape[0]} token-tile sweep (ms): {times}",
               flush=True)
 
 
-SWEEP_T = (16, 32, 64, 128, 256)  # the widths that place default_config's switch
+SWEEP_T = (16, 32, 64, 128, 256)  # the widths that place default_config's switches
+SWEEP_T_PLACED = (16, 32, 64)  # around the switches placed by earlier runs (PERF.md)
+SWEEP_T_TC = (64, 128, 256)  # bfloat16 cells that place TC_FROM
 SWEEP_WARMUP_S = 0.05  # the sweep's cells follow each other on a warm card
-# The token-major kernels timed in both dtypes in phase_token_major, beside
-# the library call (csr_spmm_t and ell_spmm_t: float32 only).
-XT_NEW = ("sell_spmm_t", "ell_spmm")
+# The Y = A @ B kernels of the dense-tile schedule (``tc``): timed in both
+# dtypes in phase_token_major, beside the library call, and in the density
+# sweep; the earlier token-major kernels in float32 only.
+TC_KERNELS = ("csr_spmm", "sell_spmm")
+AB_KERNELS = ("ell_spmm",) + TC_KERNELS  # rhs B = X^T (N, Kb)
+# Densities of the sweep that places kernels/ops.py::TC_MIN_DENSITY and
+# AB_XT_MIN_DENSITY: the up weight pruned further (its 0.25 is the main one).
+SWEEP_DENSITY = (0.05, 0.01)
+
+
+def _schedule_knobs(kname, A, width):
+    """The new schedules of a kernel at ``width``: the token-major tile
+    ``xt_tile(width)``, and for CSR/SELL SpMM the dense-tile strip the
+    default takes at this shape (``tc_tile``, else 128)."""
+    from repro_torch.kernels import csr_spmm as kcm
+    from repro_torch.kernels import ops as kops
+    knobs = [{"xt": kcm.xt_tile(width)}]
+    if kname in TC_KERNELS:
+        knobs.append({"tc": kops.tc_tile(A, width) or max(kcm.TC_TILES)})
+    return knobs
+
+
+def _knob_str(k):
+    return ",".join(f"{a}={b}" for a, b in k.items()) or "row"
 
 
 def phase_token_major(torch, np, weights, records):
-    """The four kernels with a token-major schedule (the ``xt`` knob):
-    csr_spmm_t, ell_spmm_t, sell_spmm_t (Y = X @ A^T, T tokens) and ell_spmm
-    (Y = A @ B, Kb columns of B in the tokens' place), at both weights:
-    against the plain version at width 256 (and 257 on the up weight in
-    float32) in float32 and bfloat16 (with a planted fault), against the old
-    schedule (the row schedule; SELL's slice kernel) at 256, the two timed
-    in turns (old, token-major, token-major, old) beside the dense X @ W
-    (and, for sell_spmm_t and ell_spmm, in bfloat16 too and beside the
-    library call), and a sweep over the width and the tile (but for
-    ell_spmm_t, whose switch is csr_spmm_t's). Adds the old schedule's
-    width-256 time to the up weight's records."""
+    """The six kernels with a token-major schedule (the ``xt`` knob):
+    csr_spmm_t, ell_spmm_t, sell_spmm_t (Y = X @ A^T, T tokens) and ell_spmm,
+    csr_spmm, sell_spmm (Y = A @ B, Kb columns of B in the tokens' place),
+    the last two also on the dense-tile schedule (the ``tc`` knob), at both
+    weights: each new schedule against the plain version at width 256 (and
+    257 on the up weight in float32) in float32 and bfloat16 (with a planted
+    fault), against the old schedule (the row schedule; SELL's slice kernel)
+    at 256; all timed in turns (old, new..., ...new, old) beside the dense X
+    @ W (csr_spmm and sell_spmm in bfloat16 too and beside the library
+    call); a sweep over the width and the tile (but for ell_spmm_t, whose
+    switch is csr_spmm_t's); and for csr_spmm and sell_spmm a sweep over the
+    density at width 256. Adds the old schedule's width-256 time (and the
+    new schedules') to the up weight's records."""
     from repro_torch.core.convert import convert
     from repro_torch.core.formats import Format, coo_from_dense_np
     from repro_torch.kernels import csr_spmm as kcm, ell_spmm as kem, sell_spmm as ksm
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.ref import (csr_spmm_t_ref, ell_spmm_ref, ell_spmm_t_ref,
-                                         sell_spmm_t_ref)
+    from repro_torch.kernels.ref import (csr_spmm_ref, csr_spmm_t_ref, ell_spmm_ref,
+                                         ell_spmm_t_ref, sell_spmm_ref, sell_spmm_t_ref)
 
-    print("== token-major schedule (xt) against the old schedules", flush=True)
+    print("== token-major (xt) and dense-tile (tc) schedules against the old schedules",
+          flush=True)
     rng = np.random.default_rng(SEED + 4)
-    for lname, (w, _) in weights.items():
-        coo = coo_from_dense_np(w.T, device="cuda")
-        csr, ell, sell = (convert(coo, Format[f]) for f in ("CSR", "ELL", "SELL"))
-        del coo
-        m, n = csr.shape
-        w_dense = torch.from_numpy(w).cuda()
-        lib = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data, size=csr.shape)
+
+    def kernels_of(csr, ell, sell):
+        """kernel -> (run(rhs, values, **knobs), plain(rhs, values), stored
+        values, the old schedule's knobs, the other knobs of the new ones,
+        library(rhs), its matrix); the rhs is X (T, N), or B = X^T (N, Kb)
+        for the A @ B kernels."""
+        m = csr.shape[0]
         sp = (sell.slice_ptrs, sell.cols)
+        lib = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data, size=csr.shape)
         vec_t = {k: kops.default_config(A, op="spmm_t", ncols=PREFILL)["vec"]
                  for k, A in (("csr", csr), ("ell", ell))}
         vec_e = kops.default_config(ell, op="spmm", ncols=PREFILL)["vec"]
-        # kernel -> (run(rhs, values, **knobs), plain(rhs, values), stored values,
-        # the old schedule's knobs, the other knobs of the token-major one,
-        # library(rhs)); the rhs is X (T, N), or B = X^T (N, Kb) for ell_spmm
-        kern = {
+        vec_c = kops.default_config(csr, op="spmm", ncols=PREFILL)["vec"]
+        return {
             "csr_spmm_t": (lambda R, d, **kw: kcm.csr_spmm_t(csr.indptr, csr.indices, d, R, m,
                                                              **kw),
                            lambda R, d: csr_spmm_t_ref(csr.indptr, csr.indices, d, R, m),
                            csr.data, {"vec": vec_t["csr"], "tt": kcm.MAX_TOKEN_TILE},
-                           {"vec": 32}, lambda R: lib @ R.T),
+                           {"vec": 32}, lambda R: lib @ R.T, csr),
             "ell_spmm_t": (lambda R, d, **kw: kem.ell_spmm_t(ell.cols, d, R, **kw),
                            lambda R, d: ell_spmm_t_ref(ell.cols, d, R), ell.data,
                            {"vec": vec_t["ell"], "tt": kcm.MAX_TOKEN_TILE}, {"vec": 32},
-                           lambda R: lib @ R.T),
+                           lambda R: lib @ R.T, ell),
             "sell_spmm_t": (lambda R, d, **kw: ksm.sell_spmm_t(*sp, d, sell.perm, R, m, sell.c,
                                                                **kw),
                             lambda R, d: sell_spmm_t_ref(*sp, d, sell.perm, R, m, sell.c),
-                            sell.data, {"tt": kcm.MAX_TOKEN_TILE}, {}, lambda R: lib @ R.T),
+                            sell.data, {"tt": kcm.MAX_TOKEN_TILE}, {}, lambda R: lib @ R.T,
+                            sell),
             "ell_spmm": (lambda R, d, **kw: kem.ell_spmm(ell.cols, d, R, **kw),
                          lambda R, d: ell_spmm_ref(ell.cols, d, R), ell.data, {"vec": vec_e},
-                         {"vec": vec_e}, lambda R: lib @ R),
+                         {"vec": vec_e}, lambda R: lib @ R, ell),
+            "csr_spmm": (lambda R, d, **kw: kcm.csr_spmm(csr.indptr, csr.indices, d, R, m,
+                                                         **kw),
+                         lambda R, d: csr_spmm_ref(csr.indptr, csr.indices, d, R, m),
+                         csr.data, {"vec": vec_c}, {"vec": vec_c}, lambda R: lib @ R, csr),
+            "sell_spmm": (lambda R, d, **kw: ksm.sell_spmm(*sp, d, sell.perm, R, m, sell.c,
+                                                           **kw),
+                          lambda R, d: sell_spmm_ref(*sp, d, sell.perm, R, m, sell.c),
+                          sell.data, {}, {}, lambda R: lib @ R, sell),
         }
 
-        def rhs_of(kname, X):
-            return X.T.contiguous() if kname == "ell_spmm" else X
-        xt = kcm.xt_tile(PREFILL)
+    def rhs_of(kname, X):
+        return X.T.contiguous() if kname in AB_KERNELS else X
+
+    for lname, (w, _) in weights.items():
+        coo = coo_from_dense_np(w.T, device="cuda")
+        csr, ell, sell = (convert(coo, Format[f]) for f in ("CSR", "ELL", "SELL"))
+        del coo
+        n = csr.shape[1]
+        w_dense = torch.from_numpy(w).cuda()
+        kern = kernels_of(csr, ell, sell)
         for dtype in (torch.float32, torch.bfloat16):
             name = "float32" if dtype == torch.float32 else "bfloat16"
             for t in (PREFILL, PREFILL + 1) if name == "float32" and lname == "up" else (PREFILL,):
                 X = _rand(rng, torch, (t, n), dtype)
-                for kname, (run, plain, vals, old, new, _) in kern.items():
+                for kname, (run, plain, vals, old, new, _, A) in kern.items():
                     R, d = rhs_of(kname, X), vals.to(dtype)
                     y_p = plain(R, d)
                     scale = plain(R.abs(), d.abs())
-                    what = f"{kname} {lname} {'Kb' if kname == 'ell_spmm' else 'T'}={t} xt={xt}"
-                    y = run(R, d, xt=xt, **new)
-                    compare(what, y, run(R, d, xt=xt, **new), y_p, name, scale=scale,
-                            record=True)
-                    planted_fault(d, lambda dd, p=plain, R=R: p(R, dd), y_p, scale, what, name)
-                    if t == PREFILL:
-                        reading = spmm_reading(y, run(R, d, **old), scale, name)
-                        check(reading <= 1.0, f"{what} {name}: against the old schedule "
-                                              f"{old}, reading {reading:.3e} <= 1")
-                    del y_p, scale, y
+                    width = f"{'Kb' if kname in AB_KERNELS else 'T'}={t}"
+                    y_old = run(R, d, **old) if t == PREFILL else None
+                    for knob in _schedule_knobs(kname, A, t):
+                        what = f"{kname} {lname} {width} {_knob_str(knob)}"
+                        y = run(R, d, **knob, **new)
+                        compare(what, y, run(R, d, **knob, **new), y_p, name, scale=scale,
+                                record=True)
+                        if y_old is not None:
+                            reading = spmm_reading(y, y_old, scale, name)
+                            check(reading <= 1.0, f"{what} {name}: against the old schedule "
+                                                  f"{old}, reading {reading:.3e} <= 1")
+                        del y
+                    planted_fault(d, lambda dd, p=plain, R=R: p(R, dd), y_p, scale,
+                                  f"{kname} {lname} {width}", name)
+                    del y_p, scale, y_old
         for dtype in (torch.float32, torch.bfloat16):
             name = "float32" if dtype == torch.float32 else "bfloat16"
             X = _rand(rng, torch, (PREFILL, n), dtype)
             wd = w_dense.to(dtype)
             dense = time_ms(lambda: X @ wd, 20)
-            for kname, (run, _, vals, old, new, library) in kern.items():
-                if dtype != torch.float32 and kname not in XT_NEW:
-                    continue
+            for kname, (run, _, vals, old, new, library, A) in kern.items():
+                if kname not in TC_KERNELS and (dtype != torch.float32 or lname != "up"):
+                    continue  # the earlier kernels' other turns are in PERF.md
                 R, d = rhs_of(kname, X), vals.to(dtype)
-                t_old = time_ms(lambda: run(R, d, **old), 20)  # then the card is warm
-                t_xt = time_ms(lambda: run(R, d, xt=xt, **new), 20, SWEEP_WARMUP_S)
-                t_xt2 = time_ms(lambda: run(R, d, xt=xt, **new), 20, SWEEP_WARMUP_S)
-                t_old2 = time_ms(lambda: run(R, d, **old), 20, SWEEP_WARMUP_S)
+                knobs = _schedule_knobs(kname, A, PREFILL)
+                turns = [old] + [dict(k, **new) for k in knobs]
+                turns += turns[:0:-1] + [old]  # old, new..., ...new, old
+                times = [time_ms(lambda k=k: run(R, d, **k), 20,
+                                 WARMUP_S if i == 0 else SWEEP_WARMUP_S)
+                         for i, k in enumerate(turns)]  # the first warms the card
                 lib_ms = (time_ms(lambda: library(R), 5)
-                          if kname in XT_NEW and dtype == torch.float32 else None)
-                print(f"  {kname} {lname} {name} width {PREFILL} (ms, in turns): old schedule "
-                      f"{old} {t_old:.4f}, token-major xt={xt} {t_xt:.4f}, {t_xt2:.4f}, old "
-                      f"schedule {t_old2:.4f}; dense X @ W {name} {dense:.4f}"
+                          if kname in TC_KERNELS and dtype == torch.float32 else None)
+                best = {}
+                for k, tm in zip(turns, times):
+                    key = _knob_str({a: b for a, b in k.items() if a in ("xt", "tc")})
+                    best[key] = min(best.get(key, tm), tm)
+                t_old = best.pop("row")
+                print(f"  {kname} {lname} {name} width {PREFILL} (ms, in turns): "
+                      + ", ".join(f"{_knob_str(k)} {tm:.4f}" for k, tm in zip(turns, times))
+                      + f"; dense X @ W {name} {dense:.4f}"
                       + (f"; library sparse_csr @ {lib_ms:.4f}" if lib_ms else "")
-                      + f"; token-major / old {min(t_xt, t_xt2) / min(t_old, t_old2):.3f}, "
-                      f"/ dense {min(t_xt, t_xt2) / dense:.3f}", flush=True)
+                      + "; " + ", ".join(f"{k} / old {tm / t_old:.3f}, / dense {tm / dense:.3f}"
+                                         for k, tm in best.items()), flush=True)
                 if lname == "up" and dtype == torch.float32 and kname in records:
-                    records[kname]["ms_old_schedule"] = min(t_old, t_old2)
-        for t in SWEEP_T:
-            Xt = _rand(rng, torch, (t, n), torch.float32)
-            for kname, (run, _, vals, old, new, _) in kern.items():
-                if kname == "ell_spmm_t":
-                    continue  # its switch is csr_spmm_t's
-                R = rhs_of(kname, Xt)
-                base = {k: v for k, v in old.items() if k != "tt"}  # tt follows T
-                cells = [f"old {base} "
-                         + f"{time_ms(lambda: run(R, vals, **base), 10, SWEEP_WARMUP_S):.4f}"]
-                cells += [f"xt={x} "
-                          + f"{time_ms(lambda x=x: run(R, vals, xt=x, **new), 10, SWEEP_WARMUP_S):.4f}"
-                          for x in kcm.XT_TILES]
-                print(f"  {kname} {lname} float32 width {t} sweep (ms): " + ", ".join(cells),
-                      flush=True)
-        del csr, ell, sell, w_dense, lib, kern
+                    records[kname]["ms_old_schedule"] = t_old
+                    if kname in TC_KERNELS:
+                        for k, tm in best.items():
+                            records[kname][f"ms_{k.split('=')[0]}"] = tm
+        for dtype, widths in ((torch.float32, SWEEP_T), (torch.bfloat16, SWEEP_T_TC)):
+            name = "float32" if dtype == torch.float32 else "bfloat16"
+            for t in widths:
+                Xt = _rand(rng, torch, (t, n), dtype)
+                for kname, (run, _, vals, old, new, _, A) in kern.items():
+                    if kname == "ell_spmm_t":
+                        continue  # its switch is csr_spmm_t's
+                    if kname not in TC_KERNELS and (dtype != torch.float32 or lname != "up"
+                                                    or t not in SWEEP_T_PLACED):
+                        continue  # placed in earlier runs (PERF.md): the up weight's cells
+                    R, d = rhs_of(kname, Xt), vals.to(dtype)
+                    if dtype == torch.float32:
+                        knobs = [{k: v for k, v in old.items() if k != "tt"}]  # tt follows T
+                        knobs += [{"xt": x} for x in kcm.XT_TILES]
+                        knobs += [{"tc": x} for x in kcm.TC_TILES] if kname in TC_KERNELS else []
+                    else:
+                        knobs = [{"xt": kcm.xt_tile(t)}, {"tc": max(kcm.TC_TILES)}]
+                    cells = [f"{_knob_str({a: b for a, b in k.items() if a in ('xt', 'tc')})} "
+                             + f"{time_ms(lambda k=k: run(R, d, **dict(new, **k)), 10, SWEEP_WARMUP_S):.4f}"
+                             for k in knobs]
+                    op = "spmm" if kname in AB_KERNELS else "spmm_t"
+                    cfg = kops.default_config(_with_values(A, d), op=op, ncols=t)
+                    print(f"  {kname} {lname} {name} width {t} sweep (ms): " + ", ".join(cells)
+                          + f"; default {cfg}", flush=True)
+        del csr, ell, sell, w_dense, kern
         torch.cuda.empty_cache()
+    # the density sweep: csr_spmm and sell_spmm at width 256 on the up weight
+    # pruned further (on the card: the largest |w| of the 0.25 weight, which
+    # is prune_magnitude's cut of the same seed), each schedule in turns
+    # (row, xt, tc, tc, xt, row); density 0.25 is timed in turns above
+    coo = coo_from_dense_np(weights["up"][0].T, device="cuda")
+    for density in SWEEP_DENSITY:
+        keep = coo.data.abs() >= torch.topk(coo.data.abs(), int(density * coo.data.numel()
+                                                                / DENSITY)).values.min()
+        pruned = type(coo)(coo.row[keep], coo.col[keep], coo.data[keep], coo.shape,
+                           int(keep.sum()))
+        csr, sell = convert(pruned, Format.CSR), convert(pruned, Format.SELL)
+        del keep, pruned
+        kern = kernels_of(csr, csr, sell)  # ELL unbuilt: its entries go unused
+        n = csr.shape[1]
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "float32" if dtype == torch.float32 else "bfloat16"
+            X = _rand(rng, torch, (PREFILL, n), dtype)
+            B = X.T.contiguous()
+            for kname in TC_KERNELS:
+                run, plain, vals, old, new, _, A = kern[kname]
+                d = vals.to(dtype)
+                knobs = [old] + [dict(k, **new) for k in _schedule_knobs(kname, A, PREFILL)]
+                y_p, scale = plain(B, d), plain(B.abs(), d.abs())
+                for k in knobs[1:]:
+                    compare(f"{kname} up density {density} Kb={PREFILL} {_knob_str(k)}",
+                            run(B, d, **k), run(B, d, **k), y_p, name, scale=scale)
+                del y_p, scale
+                turns = knobs + knobs[::-1]
+                times = [time_ms(lambda k=k: run(B, d, **k), 10,
+                                 WARMUP_S if i == 0 else SWEEP_WARMUP_S)
+                         for i, k in enumerate(turns)]
+                cfg = kops.default_config(_with_values(A, d), op="spmm", ncols=PREFILL)
+                print(f"  {kname} up {name} density {density} (nnz {A.nnz}) width {PREFILL} "
+                      "(ms, in turns): "
+                      + ", ".join(f"{_knob_str(k)} {tm:.4f}" for k, tm in zip(turns, times))
+                      + f"; default {cfg}", flush=True)
+        del csr, sell, kern
+        torch.cuda.empty_cache()
+    del coo
+
+
+def _with_values(A, data):
+    """``A`` holding ``data`` (default_config reads the values' dtype)."""
+    import dataclasses
+    return dataclasses.replace(A, data=data)
 
 
 def recorded_policy(mode):
@@ -1392,7 +1514,7 @@ def phase_serving(torch, np, weights):
 # ---------------------------------------------------------------------------
 
 # What path (e) tunes: (weight, format, op) at both widths, and HPCG SpMV.
-TUNED_SPMM = [("up", f, "spmm") for f in ("ELL", "SELL", "HYB")] + \
+TUNED_SPMM = [("up", f, "spmm") for f in ("CSR", "ELL", "SELL", "HYB")] + \
     [(w, f, "spmm_t") for w in ("up", "down") for f in ("CSR", "ELL", "SELL")]
 TUNED_SPMV = ("DIA", "CSR")
 TUNE_ITERS, TUNE_INNER = 3, 2
@@ -1655,13 +1777,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts_e = phase_measured(torch, np, weights, prob)
     lap("path (e)")
+    paths = (counts_a, counts_b, counts_c, counts_d, counts_e)
     for name, rec in records.items():
-        rec["launches"] = sum(c[name] for c in (counts_a, counts_b, counts_c, counts_d,
-                                                counts_e))
+        rec["launches"] = sum(c[name] for c in paths)
     from repro_torch.kernels import ops as kops
+    for sched in kops.SCHEDULE_COUNTERS:  # "kernel:schedule"
+        kname, knob = sched.split(":")
+        if kname in records:
+            records[kname][f"launches_{knob}"] = sum(c[sched] for c in paths)
     missing = [k for k in kops.LAUNCH_COUNTERS
                if k not in records or records[k]["launches"] <= 0]
     check(not missing, f"every kernel has a record with launches > 0 (missing: {missing})")
+    idle = [f"{k}:{s}" for k in TC_KERNELS for s in ("xt", "tc")
+            if records[k].get(f"launches_{s}", 0) <= 0]
+    check(not idle, f"csr_spmm and sell_spmm ran both new schedules on the main paths "
+                    f"(idle: {idle})")
     print(f"== seconds by phase: {', '.join(laps)}")
     print(f"== total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))

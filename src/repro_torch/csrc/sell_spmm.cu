@@ -52,9 +52,23 @@
 //     limit (stage_x), which measured faster than gathering through L1
 //     (these blocks hold 1024 threads anyway); a tile too large (the down
 //     weight's 16384-wide X at 8 tokens) is gathered through L1;
-//   * sell_spmm for Kb > 8 (sell_spmm_kw): KW lanes own one sorted row and
-//     walk its slice's planes, lying along B's columns as csr_spmm.cu does:
-//     each slot is a broadcast, each B row segment a coalesced load;
+//   * sell_spmm for Kb > 8, xt = tc = 0 (sell_spmm_kw): KW lanes own one
+//     sorted row and walk its slice's planes, lying along B's columns as
+//     csr_spmm.cu does: each slot is a broadcast, each B row segment a
+//     coalesced load; at Kb = 256 each slot pulls 1 KB of B through L1/L2:
+//     L2-bound;
+//   * sell_spmm, xt = 32/64/128 (tokens_spmm_t with AB): the slices repacked
+//     row-major as for sell_spmm_t, then the token-major schedule with B
+//     staged in place of XT (ell_spmm.cu's A @ B form), each sum stored to
+//     row perm[q]; bound by shared-memory wavefronts plus the repack;
+//   * sell_spmm, tc = 128 (spmm_common.cuh::tiles_spmm_ab over SellRows):
+//     the slices repacked as for xt, then 64 sorted rows a block scattered
+//     into dense tiles of A in shared memory and multiplied on the tensor
+//     cores against cp.async-staged panels of B. Reading the planes in
+//     place (a lane a sorted row, the warp walking planes in lock-step, each
+//     plane one coalesced load) ran slower than the repack plus CSR's row
+//     walk on both weights (PERF.md): the lanes' cursors drift tens of
+//     planes apart, so each panel walks many planes to take a few entries;
 //   * the sums go straight to row perm[lane] of Y: no sorted buffer and no
 //     second pass; perm is a permutation of the rows plus ghost lanes, so
 //     every row is written exactly once (no zero fill); ghost lanes (perm
@@ -379,30 +393,43 @@ repack_slices(const int32_t* __restrict__ ptrs, const int32_t* __restrict__ cols
 
 constexpr int kRepackSplit = 8;  // blocks a slice: the down weight has 128 slices
 
-// Y (t, m) = X @ A^T on the token-major schedule: the slices repacked into
-// the caller's scratch pc/pd (capacity slots each), then tokens_spmm_t over
-// the nslices * c sorted rows.
+// The slices repacked row-major into the caller's scratch pc/pd (capacity
+// slots each), on `stream`.
 template <typename T>
-int mm_xt(const void* ptrs, const void* cols, const void* data, const void* perm,
-          const void* X, void* XT, void* pc, void* pd, void* Y, int64_t capacity,
-          int64_t lanes, int32_t c, int64_t m, int32_t n, int64_t t, int xt, int device,
-          void* stream) {
-  if (lanes == 0 || m == 0 || n == 0 || t == 0) return 0;
-  if (c <= 0 || c > kSellBlock) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t nslices = lanes / c;
-  if (nslices > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int err = spmm::on_device(device, [&]() -> cudaError_t {
+int repack(const void* ptrs, const void* cols, const void* data, void* pc, void* pd,
+           int64_t nslices, int32_t c, int device, void* stream) {
+  return spmm::on_device(device, [&]() -> cudaError_t {
     repack_slices<T><<<dim3(static_cast<unsigned>(nslices), kRepackSplit), dim3(32, 8), 0,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(ptrs), static_cast<const int32_t*>(cols),
         static_cast<const T*>(data), static_cast<int32_t*>(pc), static_cast<T*>(pd), c);
     return cudaGetLastError();
   });
+}
+
+// The slices repacked, then over the nslices * c sorted rows the
+// token-major schedule (TC false: AB false, Y (t, m) = X @ A^T with rhs = X,
+// XT its scratch; AB true, Y (m, t) = A @ B with rhs = B, XT null or its
+// padded copy; `knob` = xt) or the dense-tile one (TC: Y (m, t) = A @ B,
+// `knob` = tc).
+template <typename T, bool AB, bool TC = false>
+int mm_rows(const void* ptrs, const void* cols, const void* data, const void* perm,
+            const void* rhs, void* XT, void* pc, void* pd, void* Y, int64_t capacity,
+            int64_t lanes, int32_t c, int64_t m, int32_t n, int64_t t, int knob, int device,
+            void* stream) {
+  if (lanes == 0 || m == 0 || n == 0 || t == 0) return 0;
+  if (c <= 0 || c > kSellBlock) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t nslices = lanes / c;
+  if (nslices > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int err = repack<T>(ptrs, cols, data, pc, pd, nslices, c, device, stream);
   if (err) return err;
   const SellRows rows{static_cast<const int32_t*>(ptrs), static_cast<const int32_t*>(perm),
                       c, m};
-  return spmm::tokens_spmm_launch<T, SellRows, false>(rows, pc, pd, X, XT, Y, lanes, m, n, t,
-                                                     capacity, xt, device, stream);
+  if constexpr (TC)
+    return spmm::tiles_spmm_launch<T>(rows, pc, pd, rhs, XT, Y, lanes, n, t, capacity, knob,
+                                      device, stream);
+  return spmm::tokens_spmm_launch<T, SellRows, AB>(rows, pc, pd, rhs, XT, Y, lanes, m, n, t,
+                                                  capacity, knob, device, stream);
 }
 
 }  // namespace
@@ -447,16 +474,57 @@ int sell_spmm_xt_f32(const void* ptrs, const void* cols, const void* data, const
                      const void* X, void* XT, void* pcols, void* pdata, void* Y,
                      int64_t capacity, int64_t lanes, int32_t c, int64_t m, int32_t n,
                      int64_t t, int xt, int device, void* stream) {
-  return mm_xt<float>(ptrs, cols, data, perm, X, XT, pcols, pdata, Y, capacity, lanes, c, m,
-                      n, t, xt, device, stream);
+  return mm_rows<float, false>(ptrs, cols, data, perm, X, XT, pcols, pdata, Y, capacity,
+                                 lanes, c, m, n, t, xt, device, stream);
 }
 
 int sell_spmm_xt_bf16(const void* ptrs, const void* cols, const void* data, const void* perm,
                       const void* X, void* XT, void* pcols, void* pdata, void* Y,
                       int64_t capacity, int64_t lanes, int32_t c, int64_t m, int32_t n,
                       int64_t t, int xt, int device, void* stream) {
-  return mm_xt<__nv_bfloat16>(ptrs, cols, data, perm, X, XT, pcols, pdata, Y, capacity, lanes,
-                              c, m, n, t, xt, device, stream);
+  return mm_rows<__nv_bfloat16, false>(ptrs, cols, data, perm, X, XT, pcols, pdata, Y,
+                                         capacity, lanes, c, m, n, t, xt, device, stream);
+}
+
+// sell_spmm on the token-major schedule: tiles of `xt` (32, 64 or 128)
+// columns of B; BP is null where B is staged as it is (kb a multiple of xt,
+// B 16-byte aligned), else scratch of (n, kbp) elements, kbp = kb rounded up
+// to xt; pcols and pdata as for sell_spmm_xt.
+int sell_spmm_kxt_f32(const void* ptrs, const void* cols, const void* data, const void* perm,
+                      const void* B, void* BP, void* pcols, void* pdata, void* Y,
+                      int64_t capacity, int64_t lanes, int32_t c, int64_t m, int32_t n,
+                      int64_t kb, int xt, int device, void* stream) {
+  return mm_rows<float, true>(ptrs, cols, data, perm, B, BP, pcols, pdata, Y, capacity,
+                                lanes, c, m, n, kb, xt, device, stream);
+}
+
+int sell_spmm_kxt_bf16(const void* ptrs, const void* cols, const void* data, const void* perm,
+                       const void* B, void* BP, void* pcols, void* pdata, void* Y,
+                       int64_t capacity, int64_t lanes, int32_t c, int64_t m, int32_t n,
+                       int64_t kb, int xt, int device, void* stream) {
+  return mm_rows<__nv_bfloat16, true>(ptrs, cols, data, perm, B, BP, pcols, pdata, Y,
+                                        capacity, lanes, c, m, n, kb, xt, device, stream);
+}
+
+// sell_spmm on the dense-tile schedule: strips of `tc` (128) columns
+// of B over the repacked slices; BP is null where B is multiplied in place
+// (kb a whole number of 16-byte pieces, B 16-byte aligned), else scratch of
+// (n, kbp) elements, kbp = kb rounded up to 16 bytes; pcols and pdata as for
+// sell_spmm_xt.
+int sell_spmm_tc_f32(const void* ptrs, const void* cols, const void* data, const void* perm,
+                     const void* B, void* BP, void* pcols, void* pdata, void* Y,
+                     int64_t capacity, int64_t lanes, int32_t c, int64_t m, int32_t n,
+                     int64_t kb, int tc, int device, void* stream) {
+  return mm_rows<float, true, true>(ptrs, cols, data, perm, B, BP, pcols, pdata, Y, capacity,
+                                    lanes, c, m, n, kb, tc, device, stream);
+}
+
+int sell_spmm_tc_bf16(const void* ptrs, const void* cols, const void* data, const void* perm,
+                      const void* B, void* BP, void* pcols, void* pdata, void* Y,
+                      int64_t capacity, int64_t lanes, int32_t c, int64_t m, int32_t n,
+                      int64_t kb, int tc, int device, void* stream) {
+  return mm_rows<__nv_bfloat16, true, true>(ptrs, cols, data, perm, B, BP, pcols, pdata, Y,
+                                            capacity, lanes, c, m, n, kb, tc, device, stream);
 }
 
 const char* sell_spmm_error_string(int code) {

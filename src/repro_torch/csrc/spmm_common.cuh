@@ -16,7 +16,9 @@
 // two row schedules, picked by K (rows_spmm_launch): for K > 8, KW lanes own
 // a row and lie along B's columns; for K <= 8, a sub-warp of VEC lanes lies
 // along the row's entries with K sums a lane. tokens_spmm_t with AB is the
-// third, B staged in shared memory in place of XT (ELL's `xt` knob).
+// third, B staged in shared memory in place of XT (the `xt` knob of ELL,
+// CSR and SELL); tiles_spmm_ab the fourth, dense tiles of A on the tensor
+// cores (the `tc` knob of CSR and SELL).
 
 #pragma once
 
@@ -482,6 +484,61 @@ __device__ __forceinline__ void take_filtered(const int32_t* __restrict__ idx,
   }
 }
 
+// The runs of rows first .. first + RPW - 1 (fewer past m), one warp, all
+// RPW rows a window at a time: the first descent of the clamped columns
+// splits a row in two; a second descent makes it a filtered row. Lane 0
+// writes row q's state to cur_a[q], end_a[q] (-1: filtered, spanning
+// [cur_a, end_b)), cur_b[q] and end_b[q].
+template <int RPW, typename Rows>
+__device__ __forceinline__ void scan_runs(Rows rows, const int32_t* __restrict__ idx, int32_t n,
+                                          int64_t m, int64_t first, int lane, int32_t* cur_a,
+                                          int32_t* end_a, int32_t* cur_b, int32_t* end_b) {
+  int32_t b[RPW], e[RPW], split[RPW], prev[RPW];
+  int desc[RPW];
+  int32_t longest = 0;
+#pragma unroll
+  for (int q = 0; q < RPW; ++q) {
+    const int64_t row = first + q;
+    b[q] = e[q] = 0;
+    if (row < m) {
+      b[q] = static_cast<int32_t>(rows.begin(row));
+      e[q] = static_cast<int32_t>(rows.end(row));
+    }
+    split[q] = e[q];
+    prev[q] = -1;
+    desc[q] = 0;
+    longest = max(longest, e[q] - b[q]);
+  }
+  for (int32_t w = 0; w < longest; w += 32) {
+    int32_t c[RPW];
+#pragma unroll
+    for (int q = 0; q < RPW; ++q) {
+      const int32_t p = b[q] + w + lane;
+      c[q] = p < e[q] ? clamp_col(idx[p], n) : kPastAll;
+    }
+#pragma unroll
+    for (int q = 0; q < RPW; ++q) {
+      int32_t before = __shfl_up_sync(0xffffffffu, c[q], 1);
+      if (lane == 0) before = prev[q];
+      prev[q] = __shfl_sync(0xffffffffu, c[q], 31);
+      const unsigned mask = __ballot_sync(0xffffffffu, b[q] + w + lane < e[q] && c[q] < before);
+      if (mask) {
+        if (desc[q] == 0) split[q] = b[q] + w + __ffs(mask) - 1;
+        desc[q] += __popc(mask);
+      }
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int q = 0; q < RPW; ++q) {
+      cur_a[q] = b[q];
+      end_a[q] = desc[q] >= 2 ? -1 : split[q];
+      cur_b[q] = split[q];
+      end_b[q] = e[q];
+    }
+  }
+}
+
 // Shared memory of tokens_spmm_t at `nc` columns a chunk: two chunks (for
 // Y (T, M) at least the sums' tile), the rows' state and the warps' entry
 // slots.
@@ -536,57 +593,8 @@ tokens_spmm_t(Rows rows, const int32_t* __restrict__ idx, const T* __restrict__ 
 
   stage_xt<T, TT>(xs, XT, tp, t0, 0, min(n, nc));  // lands during the row scan
   cp_async_commit();
-
-  // Each row's runs, all RPW rows of the warp a window at a time: the first
-  // descent of the clamped columns splits a row in two; a second descent
-  // makes it a filtered row.
-  {
-    int32_t b[RPW], e[RPW], split[RPW], prev[RPW];
-    int desc[RPW];
-    int32_t longest = 0;
-#pragma unroll
-    for (int q = 0; q < RPW; ++q) {
-      const int64_t row = row0 + r0 + q;
-      b[q] = e[q] = 0;
-      if (row < m) {
-        b[q] = static_cast<int32_t>(rows.begin(row));
-        e[q] = static_cast<int32_t>(rows.end(row));
-      }
-      split[q] = e[q];
-      prev[q] = -1;
-      desc[q] = 0;
-      longest = max(longest, e[q] - b[q]);
-    }
-    for (int32_t w = 0; w < longest; w += 32) {
-      int32_t c[RPW];
-#pragma unroll
-      for (int q = 0; q < RPW; ++q) {
-        const int32_t p = b[q] + w + lane;
-        c[q] = p < e[q] ? clamp_col(idx[p], n) : kPastAll;
-      }
-#pragma unroll
-      for (int q = 0; q < RPW; ++q) {
-        int32_t before = __shfl_up_sync(0xffffffffu, c[q], 1);
-        if (lane == 0) before = prev[q];
-        prev[q] = __shfl_sync(0xffffffffu, c[q], 31);
-        const unsigned mask =
-            __ballot_sync(0xffffffffu, b[q] + w + lane < e[q] && c[q] < before);
-        if (mask) {
-          if (desc[q] == 0) split[q] = b[q] + w + __ffs(mask) - 1;
-          desc[q] += __popc(mask);
-        }
-      }
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int q = 0; q < RPW; ++q) {
-        cur_a[r0 + q] = b[q];
-        end_a[r0 + q] = desc[q] >= 2 ? -1 : split[q];
-        cur_b[r0 + q] = split[q];
-        end_b[r0 + q] = e[q];
-      }
-    }
-  }
+  scan_runs<RPW>(rows, idx, n, m, row0 + r0, lane, cur_a + r0, end_a + r0, cur_b + r0,
+                 end_b + r0);
 
   float acc[RPW][TJ];
 #pragma unroll
@@ -795,6 +803,573 @@ int tokens_spmm_launch(Rows rows, const void* idx, const void* val, const void* 
                                                device, s);
       default: return cudaErrorInvalidValue;
     }
+  });
+}
+
+// ---------------------------------------------------------------------------
+// The dense-tile schedule (Y (M, Kb) = A @ B at wide B; the wrappers' `tc`
+// knob), on the tensor cores.
+//
+// tokens_spmm_t with AB is bound by shared-memory wavefronts (one broadcast
+// and Kb/32 wavefronts of B an entry, ~0.64-0.73 ms for the 16.8M-entry
+// weight at Kb = 256 in f32, PERF.md), because nothing it loads serves more
+// than one entry. This schedule gives up the sparsity inside a tile to reuse
+// B in registers:
+//   * a block of kTcWarps warps owns kTcRows = 64 rows of A (SELL: 64 sorted
+//     rows of its repacked slices) and a strip of kTcStrip = `tc` = 128
+//     columns of B and Y, and walks N in panels of kTcDepth = 64;
+//   * per panel it zero-fills a 64 x 64 f32 tile of A in shared memory and
+//     adds into it the stored entries of its rows that fall in the panel; a
+//     panel with no entry in the block's rows is skipped, products and all;
+//   * the B panels (64 x 128) are staged by cp.async tc_stages - 1 ahead, so
+//     they land while earlier panels are multiplied; rows past N and columns
+//     past B's data land as zeros;
+//   * the products run on the tensor cores with mma.sync, the warps 2 x 4
+//     over the block's 64 x 128 outputs, the sums in f32 registers across all
+//     panels. bf16: m16n8k16 on the tile rounded to bf16, exact (every entry
+//     is a bf16 value) unless a panel added two entries into one slot: then
+//     the remainder lo = a - bf16(a) is multiplied too (lo, then hi). f32:
+//     3xTF32 on m16n8k8, each value split into big = tf32(v) and small =
+//     tf32(v - big), summed small*big + big*small + big*big in that order;
+//   * densify_rows: a warp owns 8 rows, walked as tokens_spmm_t walks them (a
+//     cursor a non-decreasing run, filtered rows scanned whole each panel), a
+//     32-entry window a row a step, a lane an entry. Each row's next window
+//     is loaded a panel ahead, while the current panel is multiplied. In a
+//     sorted run each lane stores its own slot; a column repeated in the
+//     panel (adjacent in the run) is added in stored order by one lane; run
+//     B and filtered rows add, lanes whose columns meet summed in lane order
+//     by the lowest of them first. No shared atomics: bitwise reruns;
+//   * what bounds it: the tensor work of the dense tiles, 2 * M * N * Kb
+//     multiply-adds (3x in f32) whatever the density, the densify, and the
+//     staging of B, read from L2 once per 64 rows; the densify overlaps the
+//     products only across the two blocks a multiprocessor holds. On an
+//     H100 it beat tokens_spmm_t only in bf16, above a density, on a matrix
+//     of many row tiles (kernels/ops.py::TC_*, PERF.md). A dense tile also
+//     multiplies B's entries by
+//     structural zeros: a non-finite B gives NaN where the other schedules'
+//     gathered products give a finite sum;
+//   * Y is stored once, straight from the accumulator fragments, a row's two
+//     adjacent columns as one vector where Kb is even; rows past M, ghost
+//     lanes and columns past Kb store nothing.
+// Positions in the matrix's arrays are int32 (the launcher checks), offsets
+// into B and Y int64.
+
+constexpr int kTcWarps = 8;
+constexpr int kTcThreads = kTcWarps * 32;
+constexpr int kTcRows = 64;                         // rows of A a block (32 a warp row)
+constexpr int kTcDepth = 64;                        // columns of A (rows of B) a panel
+constexpr int kTcStrip = 128;                       // columns of B and Y a block (the `tc` knob)
+constexpr int kTcRowsPerWarp = kTcRows / kTcWarps;  // densify_rows
+static_assert(kTcRows == 32 * (kTcWarps / 4), "warps 4 wide, 32 rows a warp row");
+
+// B panels in flight: 3 in bf16; 2 in f32, whose third would leave room
+// for one block a multiprocessor.
+template <typename T>
+__host__ __device__ constexpr int tc_stages() {
+  return std::is_same<T, float>::value ? 2 : 3;
+}
+
+// Row strides: A's tile in f32 words (4 mod 32 for tf32's single loads, 8
+// mod 32 for bf16's pair loads: conflict-free), B's panel in elements
+// (kTcBStride, 8 past the strip: conflict-free fragment loads and ldmatrix
+// rows).
+template <typename T>
+__host__ __device__ constexpr int tc_a_stride() {
+  return kTcDepth + (std::is_same<T, float>::value ? 4 : 8);
+}
+constexpr int kTcBStride = kTcStrip + 8;
+
+// Shared memory: two A tiles, tc_stages B panels, the panels' flags
+// [2][warps], the rows' run state [4][kTcRows] and the warps' window slots
+// [warps][32].
+template <typename T>
+__host__ __device__ constexpr size_t tc_smem() {
+  return 2 * static_cast<size_t>(kTcRows) * tc_a_stride<T>() * sizeof(float) +
+         tc_stages<T>() * static_cast<size_t>(kTcDepth) * kTcBStride * sizeof(T) +
+         (2 * kTcWarps + 4 * kTcRows) * sizeof(int32_t) + kTcWarps * 32 * sizeof(float);
+}
+
+// cp.async of 16 bytes, of which the first `bytes` (0 or 16) are read and
+// the rest zero-filled.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+}
+
+// Start copying rows [lo, lo + kTcDepth) and columns [c0, c0 + kTcStrip) of
+// B (n rows of ldb elements, a whole number of 16-byte pieces) into `buf`
+// ([kTcDepth][kTcBStride]); rows past n and columns past ldb land as zeros.
+template <typename T>
+__device__ __forceinline__ void stage_b(T* buf, const T* __restrict__ B, int32_t n, int64_t ldb,
+                                        int32_t lo, int64_t c0) {
+  constexpr int kPer = 16 / sizeof(T);
+  constexpr int kPieces = kTcStrip / kPer;
+  for (int i = threadIdx.x; i < kTcDepth * kPieces; i += kTcThreads) {
+    const int r = i / kPieces, piece = i % kPieces;
+    const int64_t row = static_cast<int64_t>(lo) + r, col = c0 + piece * kPer;
+    const bool in = row < n && col < ldb;
+    cp_async16_zfill(buf + r * kTcBStride + piece * kPer, in ? B + row * ldb + col : B,
+                     in ? 16 : 0);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void zero_tile(float* a) {
+  constexpr int kVec = kTcRows * tc_a_stride<T>() / 4;
+  float4* a4 = reinterpret_cast<float4*>(a);
+  for (int i = threadIdx.x; i < kVec; i += kTcThreads) a4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Add one window of a row (an entry a lane; `in`: its column falls in the
+// panel, at offset `off`) to the row's tile slots `arow`. Lanes whose
+// offsets meet are summed in lane order by the lowest of them first,
+// through the warp's 32 slots. Sets `dup` where a slot takes a second
+// entry. Returns the count taken (a prefix of the window in a sorted run).
+__device__ __forceinline__ int add_window(float* arow, float* slot, bool in, int32_t off,
+                                          float v, int lane, bool& dup) {
+  const unsigned mask = __ballot_sync(0xffffffffu, in);
+  if (mask == 0u) return 0;
+  const unsigned grp = __match_any_sync(0xffffffffu, in ? off : -1 - lane);
+  const bool lead = in && (grp & ((1u << lane) - 1u)) == 0u;
+  float s = v;
+  if (__any_sync(0xffffffffu, in && grp != (1u << lane))) {
+    __syncwarp();  // every lane is done with the slots' last use
+    slot[lane] = v;
+    __syncwarp();
+    if (lead) {
+      s = 0.f;
+      for (unsigned rest = grp; rest; rest &= rest - 1u) s += slot[__ffs(rest) - 1];
+    }
+    dup = true;
+  }
+  if (lead) {
+    const float old = arow[off];
+    arow[off] = old + s;
+    dup |= old != 0.f;
+  }
+  return __popc(mask);
+}
+
+// Add one window of a sorted run to the row's tile slots: the entries in
+// the panel (lanes with `in`) are a prefix of the window, and a column's
+// repeats are adjacent. With no repeat each lane stores its own slot; a
+// repeat (two lanes on one column, or lane 0 on a slot the run filled from
+// an earlier window: non-zero, since the tile was zero) makes lane 0 add
+// the window's entries in order, and sets `dup`. Returns the count taken.
+__device__ __forceinline__ int add_run_window(float* arow, bool in, int32_t off, float v,
+                                              int lane, bool& dup) {
+  const unsigned mask = __ballot_sync(0xffffffffu, in);
+  if (mask == 0u) return 0;
+  const int cnt = __popc(mask);
+  const int32_t before = __shfl_up_sync(0xffffffffu, off, 1);
+  const bool rep = in && (lane == 0 ? arow[off] != 0.f : off == before);
+  if (__any_sync(0xffffffffu, rep)) {
+    for (int j = 0; j < cnt; ++j) {
+      const int32_t o = __shfl_sync(0xffffffffu, off, j);
+      const float x = __shfl_sync(0xffffffffu, v, j);
+      if (lane == 0) arow[o] += x;
+    }
+    dup = true;
+  } else if (in) {
+    arow[off] = v;
+  }
+  return cnt;
+}
+
+// The window of run A at each row's cursor cur[q] (run end end[q]), an
+// entry a lane: loaded one panel ahead, so the loads are in flight while
+// the current panel is multiplied.
+template <typename T>
+__device__ __forceinline__ void load_windows(const int32_t* __restrict__ idx,
+                                             const T* __restrict__ val, int32_t n,
+                                             const int32_t (&cur)[kTcRowsPerWarp],
+                                             const int32_t (&end)[kTcRowsPerWarp], int lane,
+                                             int32_t (&c)[kTcRowsPerWarp],
+                                             float (&v)[kTcRowsPerWarp]) {
+#pragma unroll
+  for (int q = 0; q < kTcRowsPerWarp; ++q) {
+    const int32_t p = cur[q] + lane;
+    c[q] = kPastAll;
+    v[q] = 0.f;
+    if (p < end[q]) {
+      c[q] = clamp_col(idx[p], n);
+      v[q] = to_f32(val[p]);
+    }
+  }
+}
+
+// Add the entries in columns [lo, hi) of the warp's kTcRowsPerWarp rows
+// (tile rows r0 .., run state at cur_a[r0] ..) to tile `a`: run A of every
+// row in lock-step, a window a row a step, the first window the one held in
+// (c, v); then run B and the filtered rows (general windows). Leaves in
+// (c, v) the windows of the next panel. Returns whether any entry fell in
+// the panel (the same on every lane).
+template <typename T>
+__device__ bool densify_rows(const int32_t* __restrict__ idx, const T* __restrict__ val,
+                             int32_t n, int32_t lo, int32_t hi, float* a, int32_t* cur_a,
+                             int32_t* end_a, int32_t* cur_b, int32_t* end_b, float* slot, int r0,
+                             int lane, int32_t (&c)[kTcRowsPerWarp], float (&v)[kTcRowsPerWarp],
+                             bool& dup) {
+  constexpr int RPW = kTcRowsPerWarp;
+  constexpr int SA = tc_a_stride<T>();
+  bool any = false;
+  int32_t cur[RPW], end[RPW];
+  unsigned live = 0;
+#pragma unroll
+  for (int q = 0; q < RPW; ++q) {
+    cur[q] = cur_a[r0 + q];
+    end[q] = end_a[r0 + q];
+    if (cur[q] < end[q]) live |= 1u << q;
+  }
+  for (bool ahead = true; live; ahead = false) {
+    if (!ahead) {  // a row whose whole window fell in the panel reads on
+#pragma unroll
+      for (int q = 0; q < RPW; ++q) {
+        const int32_t p = cur[q] + lane;
+        c[q] = kPastAll;
+        v[q] = 0.f;
+        if (((live >> q) & 1u) && p < end[q]) {
+          c[q] = clamp_col(idx[p], n);
+          v[q] = to_f32(val[p]);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < RPW; ++q) {
+      if ((live >> q) & 1u) {
+        const int cnt = add_run_window(a + (r0 + q) * SA, c[q] < hi, c[q] - lo, v[q], lane, dup);
+        any |= cnt > 0;
+        cur[q] += cnt;
+        if (cnt < 32 || cur[q] >= end[q]) live &= ~(1u << q);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < RPW; ++q) {
+    const int r = r0 + q;
+    float* arow = a + r * SA;
+    if (end[q] < 0) {  // filtered: the whole row, every panel
+      const int32_t e = end_b[r];
+      for (int32_t p0 = cur_a[r]; p0 < e; p0 += 32) {
+        const int32_t p = p0 + lane;
+        int32_t cc = -1;
+        float vv = 0.f;
+        if (p < e) {
+          cc = clamp_col(idx[p], n);
+          vv = to_f32(val[p]);
+        }
+        any |= add_window(arow, slot, cc >= lo && cc < hi, cc - lo, vv, lane, dup) > 0;
+      }
+    } else if (cur_b[r] < end_b[r]) {
+      int32_t cb = cur_b[r];
+      const int32_t eb = end_b[r];
+      while (cb < eb) {
+        const int32_t p = cb + lane;
+        int32_t cc = kPastAll;
+        float vv = 0.f;
+        if (p < eb) {
+          cc = clamp_col(idx[p], n);
+          vv = to_f32(val[p]);
+        }
+        const int cnt = add_window(arow, slot, cc < hi, cc - lo, vv, lane, dup);
+        any |= cnt > 0;
+        cb += cnt;
+        if (cnt < 32) break;
+      }
+      __syncwarp();
+      if (lane == 0) cur_b[r] = cb;
+    }
+  }
+  __syncwarp();
+  if (lane == 0) {
+#pragma unroll
+    for (int q = 0; q < RPW; ++q)
+      if (end[q] >= 0) cur_a[r0 + q] = cur[q];
+  }
+  load_windows<T>(idx, val, n, cur, end, lane, c, v);
+  return any;
+}
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(v));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(v - __uint_as_float(big)));
+}
+
+// Two adjacent f32 values of the tile as a bf16 pair (the lower column in
+// the low half) and the pair of their remainders.
+__device__ __forceinline__ void split_bf16(const float* p, uint32_t& hi, uint32_t& lo) {
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x.x - __low2float(h), x.y - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8x8 bf16 matrices of B's panel, transposed on the way: lane l gives
+// the address of row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldmatrix_x4_trans(const void* p, uint32_t& r0, uint32_t& r1,
+                                                  uint32_t& r2, uint32_t& r3) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(s));
+}
+
+// acc += the warp's part of tile `a` (kTcRows x kTcDepth, f32) times panel
+// `b` (kTcDepth x kTcStrip): warp (wm, wn) of 2 x 4 owns rows wm*32 .. +31
+// and columns wn*kTcStrip/4 .., as 2 x kTcStrip/32 fragments of 16 x 8.
+// `lo_pass` (bf16 only): a slot of the tile holds a sum, multiply its
+// remainder too.
+template <typename T>
+__device__ __forceinline__ void mma_panel(const float* a, const T* b,
+                                          float (&acc)[2][kTcStrip / 32][4],
+                                          bool lo_pass, int warp, int lane) {
+  constexpr int SA = tc_a_stride<T>(), SB = kTcBStride, NT = kTcStrip / 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = (warp >> 2) * 32, wn = (warp & 3) * (kTcStrip / 4);
+  if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int kk = 0; kk < kTcDepth; kk += 8) {
+      uint32_t ab[2][4], asm_[2][4], bb[NT][2], bsm[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* p = a + (wm + mt * 16 + g) * SA + kk + t4;
+        split_tf32(p[0], ab[mt][0], asm_[mt][0]);            // (g, t)
+        split_tf32(p[8 * SA], ab[mt][1], asm_[mt][1]);       // (g + 8, t)
+        split_tf32(p[4], ab[mt][2], asm_[mt][2]);            // (g, t + 4)
+        split_tf32(p[8 * SA + 4], ab[mt][3], asm_[mt][3]);   // (g + 8, t + 4)
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const T* q = b + (kk + t4) * SB + wn + nt * 8 + g;
+        split_tf32(q[0], bb[nt][0], bsm[nt][0]);       // (k = t, n = g)
+        split_tf32(q[4 * SB], bb[nt][1], bsm[nt][1]);  // (k = t + 4, n = g)
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          mma_tf32(acc[mt][nt], asm_[mt], bb[nt]);
+          mma_tf32(acc[mt][nt], ab[mt], bsm[nt]);
+          mma_tf32(acc[mt][nt], ab[mt], bb[nt]);
+        }
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < kTcDepth; kk += 16) {
+      uint32_t ah[2][4], al[2][4], bf[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* p = a + (wm + mt * 16 + g) * SA + kk + 2 * t4;
+        split_bf16(p, ah[mt][0], al[mt][0]);                // (g, 2t ..)
+        split_bf16(p + 8 * SA, ah[mt][1], al[mt][1]);       // (g + 8, 2t ..)
+        split_bf16(p + 8, ah[mt][2], al[mt][2]);            // (g, 2t + 8 ..)
+        split_bf16(p + 8 * SA + 8, ah[mt][3], al[mt][3]);   // (g + 8, 2t + 8 ..)
+      }
+      const int j = lane >> 3, r = lane & 7;
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np)
+        ldmatrix_x4_trans(b + (kk + ((j & 1) << 3) + r) * SB + wn + np * 16 + ((j >> 1) << 3),
+                          bf[2 * np][0], bf[2 * np][1], bf[2 * np + 1][0], bf[2 * np + 1][1]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if (lo_pass) mma_bf16(acc[mt][nt], al[mt], bf[nt]);
+          mma_bf16(acc[mt][nt], ah[mt], bf[nt]);
+        }
+    }
+  }
+}
+
+// Columns col, col + 1 of one row of Y (k columns): one vector where both
+// are in and k is even (so the pair is aligned), else each alone.
+template <typename T>
+__device__ __forceinline__ void store_pair(T* __restrict__ yrow, int64_t col, int64_t k,
+                                           float v0, float v1) {
+  if (col + 1 < k && (k & 1) == 0) {
+    if constexpr (std::is_same<T, float>::value)
+      *reinterpret_cast<float2*>(yrow + col) = make_float2(v0, v1);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(yrow + col) = __floats2bfloat162_rn(v0, v1);
+    return;
+  }
+  if (col < k) yrow[col] = from_f32<T>(v0);
+  if (col + 1 < k) yrow[col + 1] = from_f32<T>(v1);
+}
+
+// Y[out(i), c0 + j] = sum over row i's entries of val[p] * B[idx[p], c0 + j]
+// for the block's kTcRows rows and strip of kTcStrip columns (blocks numbered
+// strip fastest: the blocks of one row tile run together and share its
+// entries in L2). B is (n, ldb) row-major, the first kb columns data and the
+// rest zero; Y (rows, kb). `m` rows are walked (SELL: sorted rows).
+template <typename T, typename Rows>
+__global__ void __launch_bounds__(kTcThreads, 2)
+tiles_spmm_ab(Rows rows, const int32_t* __restrict__ idx, const T* __restrict__ val,
+              const T* __restrict__ B, T* __restrict__ Y, int64_t m, int32_t n, int64_t kb,
+              int64_t ldb, int64_t strips) {
+  constexpr int SA = tc_a_stride<T>(), SB = kTcBStride, NT = kTcStrip / 32;
+  constexpr int RPW = kTcRowsPerWarp, kStages = tc_stages<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* as = reinterpret_cast<float*>(smem_raw);  // [2][kTcRows][SA]
+  T* bs = reinterpret_cast<T*>(smem_raw + 2 * kTcRows * SA * sizeof(float));  // [stages][kTcDepth][SB]
+  int32_t* flags = reinterpret_cast<int32_t*>(bs + kStages * kTcDepth * SB);  // [2][kTcWarps]
+  int32_t* st = flags + 2 * kTcWarps;                                          // [4][kTcRows]
+  float* slots = reinterpret_cast<float*>(st + 4 * kTcRows);                   // [kTcWarps][32]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t c0 = (blockIdx.x % strips) * kTcStrip;
+  const int64_t row0 = (blockIdx.x / strips) * kTcRows;
+  const int npanels = (n + kTcDepth - 1) / kTcDepth;
+
+  // B panels 0 .. kStages - 2 land during the row scan; every step then
+  // commits one group (empty past the last panel), so panel k's group is
+  // done once at most kStages - 2 younger ones are pending
+#pragma unroll
+  for (int s = 0; s + 1 < kStages; ++s) {
+    if (s < npanels) stage_b<T>(bs + s * kTcDepth * SB, B, n, ldb, s * kTcDepth, c0);
+    cp_async_commit();
+  }
+  zero_tile<T>(as);
+  zero_tile<T>(as + kTcRows * SA);
+  const int r0 = warp * RPW;
+  scan_runs<RPW>(rows, idx, n, m, row0 + r0, lane, st + r0, st + kTcRows + r0,
+                 st + 2 * kTcRows + r0, st + 3 * kTcRows + r0);
+  __syncthreads();  // the tiles are zero, the run state written
+
+  // run A's next window of each of the warp's rows, loaded a panel ahead
+  int32_t wc[RPW], wcur[RPW], wend[RPW];
+  float wv[RPW];
+#pragma unroll
+  for (int q = 0; q < RPW; ++q) {
+    wcur[q] = st[r0 + q];
+    wend[q] = st[kTcRows + r0 + q];
+  }
+  load_windows<T>(idx, val, n, wcur, wend, lane, wc, wv);
+
+  // panel p's entries into tile `a`; each warp flags whether it took any
+  // (bit 0) and whether a slot took two (bit 1)
+  auto densify = [&](int p, float* a) {
+    const int32_t lo = p * kTcDepth, hi = min(n, lo + kTcDepth);
+    bool dup = false;
+    const bool took = densify_rows<T>(idx, val, n, lo, hi, a, st, st + kTcRows,
+                                      st + 2 * kTcRows, st + 3 * kTcRows, slots + warp * 32,
+                                      r0, lane, wc, wv, dup);
+    dup = __any_sync(0xffffffffu, dup);
+    if (lane == 0) flags[(p & 1) * kTcWarps + warp] = (took ? 1 : 0) | (dup ? 2 : 0);
+  };
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  densify(0, as);
+  bool prev_took = false;  // panel k - 1 left entries in its tile
+  for (int k = 0; k < npanels; ++k) {
+    const int cur = k & 1;
+    float* a_nxt = as + (cur ^ 1) * kTcRows * SA;
+    const int ahead = k + kStages - 1;  // its buffer was last read by panel k - 1
+    if (ahead < npanels)
+      stage_b<T>(bs + (ahead % kStages) * kTcDepth * SB, B, n, ldb, ahead * kTcDepth, c0);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    if (prev_took) zero_tile<T>(a_nxt);  // panel k - 1's tile, multiplied by every warp
+    __syncthreads();  // panel k's B landed and its tile is whole; the other tile is zero
+    int f = 0;
+#pragma unroll
+    for (int w = 0; w < kTcWarps; ++w) f |= flags[cur * kTcWarps + w];
+    prev_took = (f & 1) != 0;
+    if (prev_took)
+      mma_panel<T>(as + cur * kTcRows * SA, bs + (k % kStages) * kTcDepth * SB, acc,
+                       (f & 2) != 0, warp, lane);
+    if (k + 1 < npanels) densify(k + 1, a_nxt);
+    __syncthreads();  // panel k's tile and B are consumed; panel k + 1's tile is whole
+  }
+
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = (warp >> 2) * 32, wn = (warp & 3) * (kTcStrip / 4);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t row = row0 + wm + mt * 16 + g + h * 8;
+      if (row >= m) continue;
+      const int64_t o = rows.out(row);
+      if (o < 0) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        store_pair<T>(Y + o * kb, c0 + wn + nt * 8 + 2 * t4, kb, acc[mt][nt][2 * h],
+                      acc[mt][nt][2 * h + 1]);
+    }
+}
+
+template <typename T, typename Rows>
+cudaError_t launch_tiles(Rows rows, const void* idx, const void* val, const T* B, void* Y,
+                         int64_t m, int32_t n, int64_t kb, int64_t ldb, cudaStream_t stream) {
+  const int64_t strips = (kb + kTcStrip - 1) / kTcStrip;
+  const int64_t nblocks = ((m + kTcRows - 1) / kTcRows) * strips;
+  if (nblocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  constexpr size_t smem = tc_smem<T>();
+  auto kernel = tiles_spmm_ab<T, Rows>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(nblocks), kTcThreads, smem, stream>>>(
+      rows, static_cast<const int32_t*>(idx), static_cast<const T*>(val), B, static_cast<T*>(Y),
+      m, n, kb, ldb, strips);
+  return cudaGetLastError();
+}
+
+// The dense-tile schedule, strips of `tc` (128) columns: Y (rows,
+// kb) = A @ B over `m` rows of A (SELL: its sorted rows), `entries` the
+// positions the format's arrays hold (checked against int32). B (n, kb) is
+// multiplied in place where BP is null (kb a whole number of 16-byte pieces,
+// B 16-byte aligned), else first copied into BP (n, kbp), kbp = kb rounded
+// up to 16 bytes, with zeros past kb.
+template <typename T, typename Rows>
+int tiles_spmm_launch(Rows rows, const void* idx, const void* val, const void* B, void* BP,
+                      void* Y, int64_t m, int32_t n, int64_t kb, int64_t entries, int tc,
+                      int device, void* stream) {
+  if (m == 0 || kb == 0 || n == 0) return 0;
+  if (entries > 0x7fffffffLL - 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (tc != kTcStrip) return static_cast<int>(cudaErrorInvalidValue);
+  return on_device(device, [&]() -> cudaError_t {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    constexpr int64_t kPer = 16 / sizeof(T);
+    const int64_t kbp = (kb + kPer - 1) / kPer * kPer;
+    const T* b = static_cast<const T*>(B);
+    if (BP == nullptr) {
+      if (kbp != kb || (reinterpret_cast<uintptr_t>(B) & 15)) return cudaErrorInvalidValue;
+    } else {
+      const int64_t blocks = std::min<int64_t>((static_cast<int64_t>(n) * kbp + 255) / 256, 65536);
+      pad_columns<T><<<static_cast<unsigned>(blocks), 256, 0, s>>>(b, static_cast<T*>(BP), n, kb,
+                                                                   kbp);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      b = static_cast<const T*>(BP);
+    }
+    return launch_tiles<T, Rows>(rows, idx, val, b, Y, m, n, kb, kbp, s);
   });
 }
 

@@ -15,6 +15,14 @@ a row, ``tt`` <= 8 tokens a block, X gathered through L1); 32, 64 or 128
 runs the token-major schedule (``tokens_spmm_t``: X transposed into a
 scratch XT once a call, ``xt`` tokens a block staged in shared memory).
 Both count in ``launches_t``.
+
+``csr_spmm`` has three, picked by ``xt`` and ``tc`` (at most one of them
+non-zero): both 0 the row schedule (``rows_spmm_launch``); ``xt`` in
+``XT_TILES`` the token-major one with B in XT's place (``xt`` columns of B a
+block); ``tc`` in ``TC_TILES`` the dense-tile one (``tiles_spmm_ab``: 64
+rows of A a block made dense in shared memory, strips of ``tc`` columns of
+B, the products on the tensor cores). All count in ``launches``; of them
+``launches_kxt`` the token-major and ``launches_tc`` the dense-tile ones.
 """
 from __future__ import annotations
 
@@ -43,9 +51,16 @@ MAX_TOKEN_TILE = 8
 # the row schedule and the other tiles on both weights at T = 32, 64, 128
 # and 256, and lost to the row schedule at T = 8 and 16.
 XT_TILES = (32, 64, 128)
+# Strips of B's columns a block of the dense-tile schedule (``tc``; 0 is
+# another schedule). 64-column strips gave a short matrix twice the blocks
+# but densified A twice as often; on an H100 they won no cell of
+# chip_smoke.py's sweeps (PERF.md), so 128 is the one strip built.
+TC_TILES = (128,)
 launches = 0
 launches_t = 0
 launches_xt = 0  # of launches_t, those on the token-major schedule
+launches_kxt = 0  # of launches, those on the token-major schedule
+launches_tc = 0  # of launches, those on the dense-tile schedule
 
 _P, _I64, _I32, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _P, _I64, _I32, _I64, _INT, _INT, _P]
@@ -76,16 +91,47 @@ def check_xt(xt: int) -> int:
     return xt
 
 
-# Stored entries the token-major schedule addresses (int32 positions).
+def check_tc(tc: int) -> int:
+    """``tc`` as an int if the kernels take it (0 or one of ``TC_TILES``),
+    else ValueError. The wrappers call it before anything else."""
+    if isinstance(tc, bool) or not isinstance(tc, int) or tc not in (0,) + TC_TILES:
+        raise ValueError(f"tc must be 0 (another schedule) or one of {TC_TILES}, got {tc!r}")
+    return tc
+
+
+def check_ab_schedule(xt: int, tc: int) -> tuple:
+    """``(xt, tc)`` of a Y = A @ B wrapper, each checked; both non-zero
+    names two schedules at once: ValueError."""
+    xt, tc = check_xt(xt), check_tc(tc)
+    if xt and tc:
+        raise ValueError(f"xt={xt} and tc={tc} name two schedules: give at most one")
+    return xt, tc
+
+
+# Stored entries the token-major and dense-tile schedules address (int32
+# positions).
 XT_MAX_ENTRIES = 2 ** 31 - 65
 
 
 def xt_scratch(X: torch.Tensor, xt: int) -> torch.Tensor:
     """The token-major schedule's scratch XT: (N, T rounded up to ``xt``)
-    in X's dtype, on X's device, uninitialised (the kernel fills it). For
-    Y = A @ B pass B.T: B (N, Kb) padded to (N, Kb rounded up to ``xt``)."""
+    in X's dtype, on X's device, uninitialised (the kernel fills it)."""
     t, n = X.shape
     return torch.empty((n, -(-t // xt) * xt), dtype=X.dtype, device=X.device)
+
+
+def ab_scratch(B: torch.Tensor, xt: int):
+    """The scratch of a Y = A @ B launch on the token-major schedule (tiles
+    of ``xt`` columns) or, for ``xt`` = 0, the dense-tile one, or None where
+    B is read in place: its rows must be whole tiles (dense-tile: whole
+    16-byte pieces) and 16-byte aligned; else B is padded once into (N, Kb
+    rounded up) by the kernel's launcher. Freed on this stream after the
+    launch: reuse waits."""
+    per = xt or 16 // B.element_size()
+    if B.shape[1] % per == 0 and B.data_ptr() % 16 == 0:
+        return None
+    return torch.empty((B.shape[0], -(-B.shape[1] // per) * per), dtype=B.dtype,
+                       device=B.device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,6 +147,17 @@ def _fn_t(dtype: torch.dtype):
 @functools.lru_cache(maxsize=None)
 def _fn_xt(dtype: torch.dtype):
     return _build.entry_point(NAME, f"csr_spmm_xt_{DTYPES[dtype]}", _ARGTYPES_XT)
+
+
+@functools.lru_cache(maxsize=None)
+def _fn_kxt(dtype: torch.dtype):
+    # (indptr, indices, data, B, BP, Y, ...): csr_spmm_xt's signature with B, BP for X, XT
+    return _build.entry_point(NAME, f"csr_spmm_kxt_{DTYPES[dtype]}", _ARGTYPES_XT)
+
+
+@functools.lru_cache(maxsize=None)
+def _fn_tc(dtype: torch.dtype):  # csr_spmm_kxt's signature, tc for xt
+    return _build.entry_point(NAME, f"csr_spmm_tc_{DTYPES[dtype]}", _ARGTYPES_XT)
 
 
 def _check(indptr, indices, data, rhs, m, what, n_axis):
@@ -127,12 +184,17 @@ def _check(indptr, indices, data, rhs, m, what, n_axis):
 
 
 def csr_spmm(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
-             B: torch.Tensor, m: int, vec: int) -> torch.Tensor:
+             B: torch.Tensor, m: int, vec: int, xt: int = 0, tc: int = 0) -> torch.Tensor:
     """Y = A @ B for CSR A given as (indptr[M+1], indices[cap], data[cap])
-    and B (N, K); returns (M, K). For K <= 8 ``vec`` lanes reduce each row
-    (``kernels.ops.default_config`` picks it); wider K runs lanes along K.
-    f32 accumulation; Y in B's dtype."""
-    global launches
+    and B (N, K); returns (M, K). ``xt`` = ``tc`` = 0: the row schedule, for
+    K <= 8 ``vec`` lanes reduce each row (``kernels.ops.default_config``
+    picks it), wider K runs lanes along K; ``xt`` in ``XT_TILES``: the
+    token-major schedule, ``xt`` columns of B a block; ``tc`` in
+    ``TC_TILES``: the dense-tile schedule on the tensor cores, strips of
+    ``tc`` columns (``vec`` unread by both). f32 accumulation; Y in B's
+    dtype."""
+    global launches, launches_kxt, launches_tc
+    xt, tc = check_ab_schedule(xt, tc)
     if B.device.type == "cpu":
         return csr_spmm_ref(indptr, indices, data, B, m)
     if B.device.type != "cuda":
@@ -140,17 +202,28 @@ def csr_spmm(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
     _check(indptr, indices, data, B, m, "B", 0)
     if vec not in VEC_WIDTHS:
         raise ValueError(f"vec must be one of {VEC_WIDTHS}, got {vec}")
+    if (xt or tc) and data.shape[0] > XT_MAX_ENTRIES:
+        raise ValueError(f"xt={xt}, tc={tc} address at most {XT_MAX_ENTRIES} stored entries")
     n, k = B.shape
     if m == 0 or k == 0 or n == 0:  # nothing to launch: every output sums nothing
         return torch.zeros((m, k), dtype=B.dtype, device=B.device)
     y = torch.empty((m, k), dtype=B.dtype, device=B.device)
-    fn, err_str = _fn(B.dtype)
     stream = torch.cuda.current_stream(B.device).cuda_stream
-    err = fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(), B.data_ptr(),
-             y.data_ptr(), m, n, k, vec, B.device.index, stream)
+    if xt or tc:
+        fn, err_str = (_fn_kxt if xt else _fn_tc)(B.dtype)
+        scratch = ab_scratch(B, xt)
+        err = fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(), B.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), y.data_ptr(), m, n, k,
+                 xt or tc, B.device.index, stream)
+    else:
+        fn, err_str = _fn(B.dtype)
+        err = fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(), B.data_ptr(),
+                 y.data_ptr(), m, n, k, vec, B.device.index, stream)
     if err:
         raise RuntimeError(f"csr_spmm launch failed: {err_str(err).decode()} ({err})")
     launches += 1
+    launches_kxt += bool(xt)
+    launches_tc += bool(tc)
     return y
 
 

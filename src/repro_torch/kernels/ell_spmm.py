@@ -23,8 +23,8 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.csr_spmm import (TOKEN_TILES, VEC_WIDTHS, XT_MAX_ENTRIES, check_xt,
-                                          token_tile, xt_scratch)
+from repro_torch.kernels.csr_spmm import (TOKEN_TILES, VEC_WIDTHS, XT_MAX_ENTRIES, ab_scratch,
+                                          check_xt, token_tile, xt_scratch)
 from repro_torch.kernels.ref import ell_spmm_ref, ell_spmm_t_ref
 
 NAME = "ell_spmm"
@@ -113,9 +113,7 @@ def ell_spmm(cols: torch.Tensor, data: torch.Tensor, B: torch.Tensor,
     stream = torch.cuda.current_stream(B.device).cuda_stream
     if xt:
         fn, err_str = _fn_kxt(B.dtype)
-        # B is staged as it is where its rows are whole tiles, 16-byte aligned;
-        # else padded once into (N, Kb rounded up to xt), freed on this stream
-        scratch = None if kb % xt == 0 and B.data_ptr() % 16 == 0 else xt_scratch(B.T, xt)
+        scratch = ab_scratch(B, xt)  # None: B staged as it is
         err = fn(cols.data_ptr(), data.data_ptr(), B.data_ptr(),
                  None if scratch is None else scratch.data_ptr(), y.data_ptr(), m, n, k, kb,
                  xt, B.device.index, stream)

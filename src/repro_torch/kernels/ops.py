@@ -8,11 +8,13 @@ cached for the matrix's shape bucket (and rhs-width bucket), then
 :func:`default_config`'s choice (:func:`resolve_config`). The knobs are the
 ones the kernels take: DIA ``block``; CSR and ELL ``vec`` (lanes a row);
 ``tt`` (tokens a block) of every SpMM_T kernel; ``xt`` of the CSR, ELL and
-SELL SpMM_T kernels (HYB's two parts too) and of the ELL SpMM kernel (HYB's
-ELL part), which picks their schedule: absent or 0 the row (SELL: slice)
-schedule, 32, 64 or 128 the token-major one with that many tokens (columns
-of B) a block. SELL's ``c``/``sigma``
-name a container geometry: the tuner rebuilds the container to time them,
+SELL SpMM_T kernels (HYB's two parts too) and of the CSR, ELL and SELL SpMM
+kernels (HYB's ELL part), which picks their schedule: absent or 0 the row
+(SELL: slice) schedule, 32, 64 or 128 the token-major one with that many
+tokens (columns of B) a block; ``tc`` of the CSR and SELL SpMM kernels,
+128: the dense-tile schedule on the tensor cores, strips of that many
+columns of B (a cfg gives at most one of ``xt`` and ``tc``). SELL's
+``c``/``sigma`` name a container geometry: the tuner rebuilds the container to time them,
 and no launch reads them. ``repro_torch.core.ops.spmv(backend="auto")``
 threads a measured winner here.
 
@@ -66,6 +68,23 @@ def _ell_vec(k: int) -> int:
 # PERF.md) it lost to the slice kernel at T = 32 on both weights and won
 # from T = 64.
 SELL_XT_FROM = 64
+# Y = A @ B of CSR and SELL on the token-major schedule stages all of B for
+# every 128 rows, whatever the density nnz / (M * N): on an H100 at the
+# up weight's shape (chip_smoke.py's sweeps, PERF.md) it won from width 32
+# (SELL lost at 16) at densities 0.25 and 0.05 and lost 2x to the row
+# schedule at 0.01, in float32 and bfloat16.
+AB_XT_MIN_DENSITY = 0.03
+# The dense-tile schedule (``tc``) multiplies every slot of each 64 x 64
+# tile of A. At the up weight's shape and width 256 it beat the token-major
+# one only in bfloat16 at density 0.25 (both the CSR and the SELL kernel),
+# lost 3x at 0.05, and lost in float32 (three tensor products a slot) and on
+# the down weight (64 row tiles: a block walks all of N, so a short matrix
+# leaves multiprocessors idle); in bfloat16 it won from width 128 (lost at
+# 64). So: from TC_FROM columns, above the density of the dtype (None:
+# never), on TC_MIN_ROW_TILES 64-row tiles.
+TC_FROM = 128
+TC_MIN_DENSITY = {torch.float32: None, torch.bfloat16: 0.2}
+TC_MIN_ROW_TILES = 132  # one a multiprocessor of an H100
 
 
 def default_config(A, op: str = "spmv", ncols: Optional[int] = None) -> dict:
@@ -79,10 +98,11 @@ def default_config(A, op: str = "spmv", ncols: Optional[int] = None) -> dict:
     no knob). SpMM_T adds ``tt``, ``csr_spmm.token_tile`` of T, and for CSR
     and ELL ``xt``, ``csr_spmm.xt_tile`` of T where that is not 0 (the
     token-major schedule from T = 32; SELL's from ``SELL_XT_FROM``); ELL's
-    SpMM adds ``xt`` of Kb alike.
+    SpMM adds ``xt`` of Kb alike, CSR's and SELL's too at a density of at
+    least ``AB_XT_MIN_DENSITY`` unless they take ``tc`` (:func:`tc_tile`).
     HYB: ``{"ell": ..., "csr": ...}``, the CSR part from the tail's average
-    row (its SpMM takes no ``xt``). SELL (but for ``tt`` and ``xt``) and BSR
-    take no launch knob: ``{}``.
+    row (its SpMM takes neither ``xt`` nor ``tc``). SELL (but for ``tt``,
+    ``xt`` and ``tc``) and BSR take no launch knob: ``{}``.
     """
     if isinstance(A, DIA):
         return {"block": 256}
@@ -106,7 +126,26 @@ def default_config(A, op: str = "spmv", ncols: Optional[int] = None) -> dict:
             _add_xt(cfg, ncols)
     elif op == "spmm" and isinstance(A, ELL):
         _add_xt(cfg, ncols)
+    elif op == "spmm":
+        tc = tc_tile(A, ncols)
+        if tc:
+            cfg["tc"] = tc
+        elif A.nnz >= AB_XT_MIN_DENSITY * A.shape[0] * A.shape[1]:
+            _add_xt(cfg, ncols)
     return cfg
+
+
+def tc_tile(A, ncols: Optional[int]) -> int:
+    """The ``tc`` knob of CSR or SELL Y = A @ B at width ``ncols``: 128 from
+    ``TC_FROM`` columns, at ``TC_MIN_DENSITY`` of A's dtype and
+    ``TC_MIN_ROW_TILES`` 64-row tiles; else 0. Host ints only: no device
+    access."""
+    m, n = A.shape
+    least = TC_MIN_DENSITY.get(A.dtype)
+    if ((ncols or 1) < TC_FROM or least is None or A.nnz < least * m * n
+            or -(-m // 64) < TC_MIN_ROW_TILES):
+        return 0
+    return 128
 
 
 def _add_xt(cfg: dict, ncols: Optional[int]) -> None:
@@ -115,10 +154,10 @@ def _add_xt(cfg: dict, ncols: Optional[int]) -> None:
         cfg["xt"] = xt
 
 
-def _xt(cfg: Optional[dict]) -> int:
-    """``cfg``'s schedule knob: absent (a cfg or record from before the
-    token-major schedule) is 0, the row schedule."""
-    return int((cfg or {}).get("xt") or 0)
+def _xt(cfg: Optional[dict], key: str = "xt") -> int:
+    """``cfg``'s schedule knob ``key`` ("xt" or "tc"): absent (a cfg or
+    record from before that schedule) is 0, the row schedule."""
+    return int((cfg or {}).get(key) or 0)
 
 
 _best_config = None  # repro_torch.tuning.kernel_tune.best_config
@@ -211,7 +250,8 @@ def csr_spmm(A: CSR, B: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tenso
     k = B.shape[1]
     cfg = resolve_config(A, cfg, "spmm", k)
     return _csr_mm.csr_spmm(A.indptr, A.indices, A.data, B, A.shape[0],
-                            vec=_pick(cfg, "vec", A, "spmm", k))
+                            vec=_pick(cfg, "vec", A, "spmm", k), xt=_xt(cfg),
+                            tc=_xt(cfg, "tc"))
 
 
 def ell_spmm(A: ELL, B: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
@@ -222,8 +262,11 @@ def ell_spmm(A: ELL, B: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tenso
 
 
 def sell_spmm(A: SELL, B: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
-    """No launch knob (``cfg``'s ``c``/``sigma`` name the container)."""
-    return _sell_mm.sell_spmm(A.slice_ptrs, A.cols, A.data, A.perm, B, A.shape[0], A.c)
+    """Launch knobs ``xt`` and ``tc`` (``cfg``'s ``c``/``sigma`` name the
+    container)."""
+    cfg = resolve_config(A, cfg, "spmm", B.shape[1])
+    return _sell_mm.sell_spmm(A.slice_ptrs, A.cols, A.data, A.perm, B, A.shape[0], A.c,
+                              xt=_xt(cfg), tc=_xt(cfg, "tc"))
 
 
 def hyb_spmm(A: HYB, B: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
@@ -303,10 +346,25 @@ LAUNCH_COUNTERS = {
 }
 
 
+# "kernel:schedule" -> (module, its count): the launches of each kernel on
+# its token-major (xt) and dense-tile (tc) schedules, counted apart as well.
+SCHEDULE_COUNTERS = {
+    "csr_spmm_t:xt": (_csr_mm, "launches_xt"), "ell_spmm_t:xt": (_ell_mm, "launches_xt"),
+    "sell_spmm_t:xt": (_sell_mm, "launches_xt"), "ell_spmm:xt": (_ell_mm, "launches_kxt"),
+    "csr_spmm:xt": (_csr_mm, "launches_kxt"), "csr_spmm:tc": (_csr_mm, "launches_tc"),
+    "sell_spmm:xt": (_sell_mm, "launches_kxt"), "sell_spmm:tc": (_sell_mm, "launches_tc"),
+}
+
+
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
-    for mod, attr in LAUNCH_COUNTERS.values():
+    """Set every kernel's launch count, and every schedule's, to 0."""
+    for mod, attr in (*LAUNCH_COUNTERS.values(), *SCHEDULE_COUNTERS.values()):
         setattr(mod, attr, 0)
+
+
+def schedule_counts() -> dict:
+    """"kernel:schedule" -> launches on that schedule since the last reset."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in SCHEDULE_COUNTERS.items()}
 
 
 def launch_counts() -> dict:

@@ -15,7 +15,12 @@ else. ``sell_spmm_t`` takes the launch knob ``xt`` as
 ``csr_spmm.csr_spmm_t`` does: 0 the slice schedule, 32, 64 or 128 the
 token-major one (``spmm_common.cuh::tokens_spmm_t`` over the sorted rows,
 the slices first repacked row-major into scratch); ``launches_xt`` counts
-the token-major launches among ``launches_t``.
+the token-major launches among ``launches_t``. ``sell_spmm`` takes ``xt``
+and ``tc`` as ``csr_spmm.csr_spmm`` does (at most one non-zero): 0 the
+slice (Kb <= 8) or row (wider) kernel, ``xt`` the token-major schedule over
+the repacked slices with B in XT's place, ``tc`` the dense-tile schedule
+over 64 of the repacked sorted rows a block; ``launches_kxt`` and
+``launches_tc`` count those among ``launches``.
 """
 from __future__ import annotations
 
@@ -25,8 +30,8 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.csr_spmm import (TOKEN_TILES, XT_MAX_ENTRIES, check_xt, token_tile,
-                                          xt_scratch)
+from repro_torch.kernels.csr_spmm import (TOKEN_TILES, XT_MAX_ENTRIES, ab_scratch,
+                                          check_ab_schedule, check_xt, token_tile, xt_scratch)
 from repro_torch.kernels.ref import sell_spmm_ref, sell_spmm_t_ref
 
 NAME = "sell_spmm"
@@ -35,6 +40,8 @@ MAX_C = 1024  # a slice's lanes share one block of 1024 threads
 launches = 0
 launches_t = 0
 launches_xt = 0  # of launches_t, those on the token-major schedule
+launches_kxt = 0  # of launches, those on the token-major schedule
+launches_tc = 0  # of launches, those on the dense-tile schedule
 
 _P, _I64, _I32, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I32, _I64, _INT, _P]
@@ -55,6 +62,17 @@ def _fn_t(dtype: torch.dtype):
 @functools.lru_cache(maxsize=None)
 def _fn_xt(dtype: torch.dtype):
     return _build.entry_point(NAME, f"sell_spmm_xt_{DTYPES[dtype]}", _ARGTYPES_XT)
+
+
+@functools.lru_cache(maxsize=None)
+def _fn_kxt(dtype: torch.dtype):
+    # (ptrs, cols, data, perm, B, BP, ...): sell_spmm_xt's signature with B, BP for X, XT
+    return _build.entry_point(NAME, f"sell_spmm_kxt_{DTYPES[dtype]}", _ARGTYPES_XT)
+
+
+@functools.lru_cache(maxsize=None)
+def _fn_tc(dtype: torch.dtype):  # sell_spmm_kxt's signature, tc for xt
+    return _build.entry_point(NAME, f"sell_spmm_tc_{DTYPES[dtype]}", _ARGTYPES_XT)
 
 
 def _check(slice_ptrs, cols, data, perm, X, m, c, tt, what="X", n_axis=1):
@@ -91,29 +109,50 @@ def _check(slice_ptrs, cols, data, perm, X, m, c, tt, what="X", n_axis=1):
 
 
 def sell_spmm(slice_ptrs: torch.Tensor, cols: torch.Tensor, data: torch.Tensor,
-              perm: torch.Tensor, B: torch.Tensor, m: int, c: int) -> torch.Tensor:
+              perm: torch.Tensor, B: torch.Tensor, m: int, c: int, xt: int = 0,
+              tc: int = 0) -> torch.Tensor:
     """Y = A @ B for SELL-C-sigma A given as flat (slice_ptrs, cols, data,
-    perm) with slice height ``c``, and B (N, Kb); returns (M, Kb). For
-    Kb <= 8 a block of 1024 threads sums a slice's planes (``c`` at most
-    ``MAX_C``); wider Kb runs lanes along Kb, one group a sorted row. f32
-    accumulation; Y in B's dtype."""
-    global launches
+    perm) with slice height ``c``, and B (N, Kb); returns (M, Kb). ``xt`` =
+    ``tc`` = 0: for Kb <= 8 a block of 1024 threads sums a slice's planes
+    (``c`` at most ``MAX_C``), wider Kb runs lanes along Kb, one group a
+    sorted row; ``xt`` in ``csr_spmm.XT_TILES``: the token-major schedule,
+    the slices repacked row-major into scratch; ``tc`` in
+    ``csr_spmm.TC_TILES``: the dense-tile schedule on the tensor cores over
+    the repacked slices. f32 accumulation; Y in B's dtype."""
+    global launches, launches_kxt, launches_tc
+    xt, tc = check_ab_schedule(xt, tc)
     if B.device.type == "cpu":
         return sell_spmm_ref(slice_ptrs, cols, data, perm, B, m, c)
     if B.device.type != "cuda":
         raise ValueError(f"sell_spmm runs on cuda or cpu tensors, got {B.device}")
     _check(slice_ptrs, cols, data, perm, B, m, c, 1, "B", 0)
+    if (xt or tc) and data.shape[0] > XT_MAX_ENTRIES:
+        raise ValueError(f"xt={xt}, tc={tc} address at most {XT_MAX_ENTRIES} stored entries")
     n, kb = B.shape
     if m == 0 or kb == 0 or n == 0:  # nothing to launch: every output sums nothing
         return torch.zeros((m, kb), dtype=B.dtype, device=B.device)
     y = torch.empty((m, kb), dtype=B.dtype, device=B.device)
-    fn, err_str = _fn(B.dtype)
     stream = torch.cuda.current_stream(B.device).cuda_stream
-    err = fn(slice_ptrs.data_ptr(), cols.data_ptr(), data.data_ptr(), perm.data_ptr(),
-             B.data_ptr(), y.data_ptr(), perm.shape[0], c, m, n, kb, B.device.index, stream)
+    if xt or tc:
+        fn, err_str = (_fn_kxt if xt else _fn_tc)(B.dtype)
+        # scratch, freed on this stream after the launch (reuse waits): B
+        # padded where it is not read in place, the slices repacked row-major
+        scratch = ab_scratch(B, xt)
+        pcols, pdata = torch.empty_like(cols), torch.empty_like(data)
+        err = fn(slice_ptrs.data_ptr(), cols.data_ptr(), data.data_ptr(), perm.data_ptr(),
+                 B.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                 pcols.data_ptr(), pdata.data_ptr(), y.data_ptr(), data.shape[0],
+                 perm.shape[0], c, m, n, kb, xt or tc, B.device.index, stream)
+    else:
+        fn, err_str = _fn(B.dtype)
+        err = fn(slice_ptrs.data_ptr(), cols.data_ptr(), data.data_ptr(), perm.data_ptr(),
+                 B.data_ptr(), y.data_ptr(), perm.shape[0], c, m, n, kb, B.device.index,
+                 stream)
     if err:
         raise RuntimeError(f"sell_spmm launch failed: {err_str(err).decode()} ({err})")
     launches += 1
+    launches_kxt += bool(xt)
+    launches_tc += bool(tc)
     return y
 
 

@@ -65,7 +65,7 @@ class KernelRecord:
 
     fmt: str            # Format name
     op: str             # "spmv" | "spmm" | "spmm_t"
-    cfg: dict           # launch knobs (block / vec / tt / xt; SELL c, sigma)
+    cfg: dict           # launch knobs (block / vec / tt / xt / tc; SELL c, sigma)
     kernel_us: float    # best measured time of cfg, microseconds
     ref_us: float       # reference-route time on the same matrix
 
@@ -228,18 +228,21 @@ def default_grid(A, smoke: bool = False, op: str = "spmv",
 
     ``vec`` brackets the default (half, same, double); ``tt`` takes every
     token tile up to the default (1, 2, 4, 8 at T >= 8); where the
-    token-major schedule (``xt``) takes the width (SpMM_T at T >= 32, ELL
-    SpMM at Kb >= 32), the grid holds both schedules: every ``xt`` tile, and
-    the row (SELL: slice) schedule's entries (no ``xt``); HYB's SpMM_T tail
-    takes its ELL part's ``tt`` and ``xt``, its SpMM tail neither. SELL adds
+    token-major schedule (``xt``) takes the width (SpMM_T at T >= 32, SpMM
+    at Kb >= 32), the grid holds both schedules: every ``xt`` tile, and the
+    row (SELL: slice) schedule's entries (no ``xt``); CSR and SELL SpMM at
+    Kb >= 32 add the dense-tile schedule, every ``tc`` strip; HYB's SpMM_T
+    tail takes its ELL part's ``tt`` and ``xt``, its SpMM tail neither. SELL adds
     a second container geometry (``c`` 64, or 32 where it is 64, ``sigma``
     8c), which the tuner rebuilds. ``smoke`` keeps two or three entries.
     """
     base = kops.default_config(A, op=op, ncols=ncols)
-    row = {k: v for k, v in base.items() if k != "xt"}  # the default's row schedule
-    takes_xt = "xt" in base or (isinstance(A, SELL) and op == "spmm_t"
-                                and _csr_mm.xt_tile(ncols or 1))
-    xts = [dict(row, xt=xt) for xt in _csr_mm.XT_TILES] if takes_xt else []
+    row = {k: v for k, v in base.items() if k not in ("xt", "tc")}  # the row schedule
+    wide = bool(_csr_mm.xt_tile(ncols or 1))
+    takes_tc = op == "spmm" and isinstance(A, (CSR, SELL)) and wide
+    takes_xt = "xt" in base or takes_tc or (isinstance(A, SELL) and op == "spmm_t" and wide)
+    wide_cfgs = [dict(row, xt=xt) for xt in _csr_mm.XT_TILES] if takes_xt else []
+    wide_cfgs += [dict(row, tc=tc) for tc in _csr_mm.TC_TILES] if takes_tc else []
     if isinstance(A, HYB):
         sub = default_grid(A.ell, smoke=smoke, op=op, ncols=ncols)
         shared = ("tt", "xt") if op == "spmm_t" else ()
@@ -252,7 +255,7 @@ def default_grid(A, smoke: bool = False, op: str = "spmv",
         alt_c = 32 if A.c == 64 else 64
         alt = dict({"c": alt_c, "sigma": 8 * alt_c}, **base)
         tts = [tt for tt in _csr_mm.TOKEN_TILES if tt <= base.get("tt", 0)]
-        grid = ([own] + [dict(geometry, **x) for x in xts] + [own_row]
+        grid = ([own] + [dict(geometry, **x) for x in wide_cfgs] + [own_row]
                 + [dict(own_row, tt=tt) for tt in tts] + [alt])
         if smoke:
             grid = [own, own_row, alt]
@@ -263,10 +266,10 @@ def default_grid(A, smoke: bool = False, op: str = "spmv",
         if isinstance(A, DIA):
             grid = [base] + [{"block": b} for b in (128, 256, 512, 1024)]
         elif op == "spmm" and (ncols or 1) > 8:
-            grid = [base, row] + xts  # vec is unread: lanes along Kb
+            grid = [base, row] + wide_cfgs  # vec is unread: lanes along Kb
         else:
             # the row schedule's default next, then every tile
-            grid = [base, row] + xts + [
+            grid = [base, row] + wide_cfgs + [
                 {k: v for k, v in (("vec", vec), ("tt", tt)) if v is not None}
                 for vec in vecs for tt in tts]
         if smoke:

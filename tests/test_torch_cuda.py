@@ -719,6 +719,150 @@ def test_token_major_sell_spmm_t_and_ell_spmm_with_full_blocks_and_the_route(car
         assert _spmm_reading(y, plain_of(dropped), absolute, "float32") > 1.0
 
 
+# Y = A @ B of CSR and SELL on the token-major (xt) and dense-tile (tc)
+# schedules, on the rows of the xt cases (empty rows, sorted runs, two runs,
+# filtered rows, clamped and duplicate columns, NaN capacity padding and
+# ghost lanes, M not a multiple of the 64-row tile): widths of one tile, one
+# column past it, two tiles, one past a pair of 128-column strips; B also
+# one element off its allocation's 16-byte alignment (padded once).
+AB_WIDTHS = (32, 33, 64, 257)
+AB_SCHEDULES = [{"xt": x} for x in kcm.XT_TILES] + [{"tc": t} for t in kcm.TC_TILES]
+
+
+def _check_ab(run, plain, B, dtype_name, mod):
+    """Every xt and tc schedule against the plain version and the row
+    schedule within SPMM_TOL, bitwise reruns, each launch counted in
+    ``launches`` and in its schedule's count."""
+    y_p, scale = plain(B, False), plain(B, True)
+    y_row = run(B)
+    torch.cuda.synchronize()
+    assert _spmm_reading(y_row, y_p, scale, dtype_name) <= 1.0
+    for knob in AB_SCHEDULES:
+        count = "launches_kxt" if "xt" in knob else "launches_tc"
+        before = (mod.launches, getattr(mod, count))
+        y1, y2 = run(B, **knob), run(B, **knob)
+        torch.cuda.synchronize()
+        assert (mod.launches - before[0], getattr(mod, count) - before[1]) == (2, 2), knob
+        assert y1.shape == y_p.shape and y1.dtype == B.dtype
+        assert bool(torch.isfinite(y1).all()), knob
+        assert _spmm_reading(y1, y_p, scale, dtype_name) <= 1.0, knob
+        assert _spmm_reading(y1, y_row, scale, dtype_name) <= 1.0, knob  # new against old
+        assert torch.equal(y1, y2), knob  # one summation order: bitwise stable
+
+
+def _offset_copy(B):
+    """B one element past a 16-byte boundary: read through the padded copy."""
+    off = torch.empty(B.numel() + 1, dtype=B.dtype, device=B.device)[1:].view(B.shape)
+    off.copy_(B)
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    return off
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("layout", XT_LAYOUTS)
+@pytest.mark.parametrize("n", XT_WIDTHS)
+def test_ab_schedules_csr_spmm_match_plain(card, dtype_name, layout, n):
+    rng = np.random.default_rng(46)
+    dt = DTYPES[dtype_name]
+    ip, ix, v, m = _xt_csr(rng, layout, n, dt, card)
+    empty = (ip[1:] == ip[:-1]).nonzero().flatten()
+
+    def run(B, **kw):
+        return kcm.csr_spmm(ip, ix, v, B, m, vec=8, **kw)
+
+    def plain(B, absolute):
+        return csr_spmm_ref(ip, ix, v.abs() if absolute else v, B.abs() if absolute else B, m)
+    for kb in AB_WIDTHS:
+        B = _rand(rng, (n, kb), dt, card)
+        for Bv in (B, _offset_copy(B)):
+            _check_ab(run, plain, Bv, dtype_name, kcm)
+        for knob in ({"xt": 32}, {"tc": 128}):
+            assert not bool(run(B, **knob)[empty].any())  # empty rows write zeros
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("layout", XT_LAYOUTS)
+@pytest.mark.parametrize("c,sigma", [(32, 256), (64, 64)])
+def test_ab_schedules_sell_spmm_match_plain(card, dtype_name, layout, c, sigma):
+    rng = np.random.default_rng(47)
+    dt = DTYPES[dtype_name]
+    n = 700
+    args, m = _xt_sell(rng, layout, n, c, sigma, dt, card)
+    assert int(args[3].max()) == m  # the case has ghost lanes
+    empty = [i for i in range(m) if i % 7 == 0]
+
+    def run(B, **kw):
+        return ksm.sell_spmm(*args, B, m, c, **kw)
+
+    def plain(B, absolute):
+        return sell_spmm_ref(args[0], args[1], args[2].abs() if absolute else args[2],
+                             args[3], B.abs() if absolute else B, m, c)
+    for kb in AB_WIDTHS:
+        B = _rand(rng, (n, kb), dt, card)
+        for Bv in (B, _offset_copy(B)):
+            _check_ab(run, plain, Bv, dtype_name, ksm)
+        for knob in ({"xt": 32}, {"tc": 128}):
+            assert not bool(run(B, **knob)[empty].any())  # empty rows write zeros
+
+
+def test_ab_default_schedule_follows_the_density(card):
+    """Through the entry points at width 256 on a matrix of enough 64-row
+    tiles for ``tc``, in bfloat16: above ``TC_MIN_DENSITY`` the default cfg
+    of CSR and SELL runs the dense-tile schedule, below it the token-major
+    one, both within the SpMM rule of the plain version; float32 always the
+    token-major one; a cfg without either knob runs the row schedule."""
+    rng = np.random.default_rng(48)
+    m, n = 64 * kops.TC_MIN_ROW_TILES + 5, 700
+    least = kops.TC_MIN_DENSITY[torch.bfloat16]
+    for density in (min(0.5, 2 * least), least / 4):
+        a = np.where(rng.random((m, n)) < density, rng.standard_normal((m, n)), 0)
+        for dt, dtype_name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+            A = coo_from_dense_np(a.astype(np.float32), device=card, dtype=dt)
+            B = _rand(rng, (n, 256), dt, card)
+            least_dt = kops.TC_MIN_DENSITY[dt]
+            takes_tc = least_dt is not None and density >= least_dt
+            for fmt, mod, ref in ((Format.CSR, kcm, csr_spmm_ref), (Format.SELL, ksm, sell_spmm_ref)):
+                M = convert(A, fmt)
+                cfg = kops.default_config(M, op="spmm", ncols=256)
+                assert ("tc" in cfg) == takes_tc and ("xt" in cfg) != takes_tc, (density, cfg)
+                if fmt == Format.CSR:
+                    args = (M.indptr, M.indices)
+                    plain = lambda d, b: ref(*args, d, b, m)
+                else:
+                    plain = lambda d, b: ref(M.slice_ptrs, M.cols, d, M.perm, b, m, M.c)
+                y_p, scale = plain(M.data, B), plain(M.data.abs(), B.abs())
+                for run_cfg, want in ((None, (1, int(not takes_tc), int(takes_tc))),
+                                      ({"vec": 8}, (1, 0, 0))):
+                    before = (mod.launches, mod.launches_kxt, mod.launches_tc)
+                    y = spmm(M, B, backend="cuda", cfg=run_cfg)
+                    torch.cuda.synchronize()
+                    assert (mod.launches - before[0], mod.launches_kxt - before[1],
+                            mod.launches_tc - before[2]) == want, (fmt, density, run_cfg)
+                    assert _spmm_reading(y, y_p, scale, dtype_name) <= 1.0, (fmt, run_cfg)
+
+
+def test_ab_wrappers_raise_on_a_bad_knob(card):
+    """On the card a knob the kernels do not take raises before any launch:
+    no schedule gives way to another."""
+    rng = np.random.default_rng(49)
+    a = _ragged_dense(rng, 64, 48)
+    C = convert(coo_from_dense_np(a, device=card), Format.CSR)
+    S = convert(coo_from_dense_np(a, device=card), Format.SELL)
+    B = torch.ones(48, 64, device=card)
+    before = kops.launch_counts()
+    for bad in ({"xt": 32, "tc": 128}, {"tc": 64}, {"tc": True}, {"xt": 48}, {"tc": 128.0}):
+        with pytest.raises(ValueError):
+            kcm.csr_spmm(C.indptr, C.indices, C.data, B, 64, vec=8, **bad)
+        with pytest.raises(ValueError):
+            ksm.sell_spmm(S.slice_ptrs, S.cols, S.data, S.perm, B, 64, S.c, **bad)
+    for bad in ({"xt": 32, "tc": 128}, {"tc": 64}, {"xt": 48}):  # through the entry point
+        with pytest.raises(ValueError):
+            spmm(C, B, backend="cuda", cfg=dict({"vec": 8}, **bad))
+        with pytest.raises(ValueError):
+            spmm(S, B, backend="cuda", cfg=bad)
+    assert kops.launch_counts() == before
+
+
 def test_spmm_on_formats_without_a_ported_kernel_raises(card):
     """Every SpMM kernel is ported now: on the card ELL, SELL and HYB SpMM
     launch their kernels (HYB: ell_spmm and csr_spmm over the tail), as do

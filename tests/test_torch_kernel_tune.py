@@ -350,6 +350,56 @@ def test_resolve_config_prefers_explicit_then_record_then_default(store):
                                                                              ncols=1)
 
 
+@pytest.mark.parametrize("fmt", ["CSR", "SELL"])
+def test_default_grid_holds_the_three_ab_schedules(fmt):
+    """CSR's and SELL's Y = A @ B at Kb >= 32: the default first, then the
+    row schedule (neither knob), every ``xt`` tile and every ``tc`` strip,
+    never both knobs in one entry (SELL: on its own geometry); at Kb <= 8
+    the row schedule alone."""
+    A = tconv.convert(coo_pair(PATTERNS["powerlaw"]())[1], tf.Format[fmt])
+    geometry = {"c": A.c, "sigma": A.sigma} if fmt == "SELL" else {}
+    for kb in (32, 64, 256):
+        grid = kt.default_grid(A, op="spmm", ncols=kb)
+        assert grid[0] == dict(geometry, **kops.default_config(A, op="spmm", ncols=kb))
+        own = [g for g in grid if all(g.get(k) == v for k, v in geometry.items())]
+        scheds = {(kops._xt(g), kops._xt(g, "tc")) for g in own}
+        assert scheds >= {(0, 0), *((x, 0) for x in kcm.XT_TILES),
+                          *((0, t) for t in kcm.TC_TILES)}, (kb, scheds)
+        assert not any(x and t for x, t in scheds)
+    for kb in (1, 8):
+        assert all(kops._xt(g) == kops._xt(g, "tc") == 0
+                   for g in kt.default_grid(A, op="spmm", ncols=kb))
+
+
+@pytest.mark.parametrize("fmt", ["CSR", "SELL"])
+def test_ab_records_round_trip_through_the_selection_cache(fmt, tmp_path, card_tag):
+    """CSR and SELL SpMM records with ``xt`` or ``tc`` survive the record
+    JSON string for string (the JAX package writes the same string and reads
+    the knobs back), a fresh store handle and the lookup of
+    ``resolve_config``; a record with neither knob means the row schedule."""
+    path = str(tmp_path / "sel.json")
+    A = tconv.convert(coo_pair(PATTERNS["powerlaw"]())[1], tf.Format[fmt])
+    geometry = {"c": A.c, "sigma": A.sigma} if fmt == "SELL" else {"vec": 8}
+    key = kt.kernel_key(A.format, A.shape[0], A.shape[1], A.nnz, op="spmm", ncols=256,
+                        device=A.device)
+    for knob in ({"tc": 128}, {"xt": 64}, {"xt": 128}, {}):
+        cfg = dict(geometry, **knob)
+        rec = _seed(A, "spmm", 600.0, 90000.0, cfg, ncols=256, path=path)
+        raw = SelectionCache(path).get_raw(key)
+        assert raw == rec.to_json() == jkt.KernelRecord(fmt, "spmm", cfg, 600.0,
+                                                        90000.0).to_json()
+        assert KernelRecord.from_json(raw).to_json() == raw
+        assert jkt.KernelRecord.from_json(raw).cfg == cfg
+        fresh = kt.best_config(A, op="spmm", ncols=256, cache=SelectionCache(path))
+        assert fresh == rec and fresh.cfg == cfg
+        assert kt.best_config(A, op="spmm", ncols=1, cache=SelectionCache(path)) is None
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv(CACHE_PATH_ENV, path)
+            got = kops.resolve_config(A, None, "spmm", 256)
+        assert got == cfg
+        assert (kops._xt(got), kops._xt(got, "tc")) == (knob.get("xt", 0), knob.get("tc", 0))
+
+
 def test_a_record_without_xt_means_the_row_schedule(store):
     """A record stored before the token-major schedule existed (no ``xt``)
     still answers its bucket, and runs the row schedule; one with ``xt``

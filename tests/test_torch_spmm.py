@@ -455,7 +455,8 @@ def test_spmm_t_config_takes_up_to_eight_tokens_a_block():
                torch.zeros(102400), (100, 4096), 102400)
     assert kops.default_config(C, op="spmm_t", ncols=256) == {"vec": 32, "tt": 8, "xt": 128}
     assert kops.default_config(C, op="spmm_t", ncols=3) == {"vec": 32, "tt": 4}
-    assert kops.default_config(C, op="spmm", ncols=256) == {"vec": 32}
+    assert kops.default_config(C, op="spmm", ncols=256) == {"vec": 32, "xt": 128}
+    assert kops.default_config(C, op="spmm", ncols=8) == {"vec": 32}
     E = tf.ELL(torch.zeros(100, 20, dtype=torch.int32), torch.zeros(100, 20), (100, 64), 2000)
     assert kops.default_config(E, op="spmm_t", ncols=1) == {"vec": 4, "tt": 1}
     assert kops.default_config(E, op="spmm", ncols=1) == {"vec": 4}
@@ -475,8 +476,9 @@ def test_spmm_t_config_picks_its_schedule_from_t(t, xt):
     """The row schedule below 32 tokens (no ``xt`` key), else the largest
     token-major tile <= T; CSR, ELL and both HYB parts alike, SELL from
     ``SELL_XT_FROM`` tokens (its slice kernel ran faster at T = 32). For
-    Y = A @ B at Kb = t, ELL (and HYB's ELL part) the same, CSR and SELL
-    never."""
+    Y = A @ B at Kb = t, ELL (and HYB's ELL part) the same; CSR and SELL
+    the same (above ``AB_XT_MIN_DENSITY``) where they do not take the
+    dense-tile schedule (``tc_tile``), HYB's CSR tail never."""
     assert kcm.xt_tile(t) == xt
     a = PATTERNS["powerlaw"]()
     A = tf.coo_from_dense_np(a, device="cpu")
@@ -491,10 +493,13 @@ def test_spmm_t_config_picks_its_schedule_from_t(t, xt):
     assert ell.get("xt", 0) == xt and ("xt" in ell) == bool(xt)
     hyb = kops.default_config(tconv.convert(A, tf.Format.HYB), op="spmm", ncols=t)
     assert kops._xt(hyb["ell"]) == xt and "xt" not in hyb["csr"]
-    for op in ("spmv", "spmm"):
-        assert "xt" not in kops.default_config(tconv.convert(A, tf.Format.CSR), op=op, ncols=t)
-    assert "xt" not in kops.default_config(tconv.convert(A, tf.Format.SELL), op="spmm",
-                                           ncols=t)
+    assert "xt" not in kops.default_config(tconv.convert(A, tf.Format.CSR), op="spmv", ncols=t)
+    for fmt in ("CSR", "SELL"):
+        M = tconv.convert(A, tf.Format[fmt])
+        cfg = kops.default_config(M, op="spmm", ncols=t)
+        tc = kops.tc_tile(M, t)
+        assert cfg.get("tc", 0) == tc and ("tc" in cfg) == bool(tc)
+        assert kops._xt(cfg) == (0 if tc else xt)  # the pattern's density 0.14
 
 
 @pytest.mark.parametrize("bad", [48, -1, 1, 256, True, 64.0, "64", None])
@@ -652,6 +657,162 @@ def test_sell_spmm_t_and_ell_spmm_plain_match_jax_with_and_without_xt(xt, dtype_
             np.testing.assert_allclose(_f(y), oracle, **tol(dtype_name))
 
 
+# Y = A @ B of CSR and SELL: three schedules, picked by ``xt`` (token-major)
+# and ``tc`` (dense tiles on the tensor cores) from host ints only.
+UP_WEIGHT = (16384, 4096)  # the minitron-8b up weight as stored (rows, cols)
+
+
+def _shaped(fmt, m, n, nnz, dtype):
+    """A CSR or SELL container holding only the host metadata that
+    ``default_config`` reads (shape, nnz, dtype)."""
+    i32 = torch.int32
+    if fmt == "CSR":
+        return tf.CSR(torch.zeros(m + 1, dtype=i32), torch.zeros(1, dtype=i32),
+                      torch.zeros(1, dtype=dtype), (m, n), nnz)
+    return tf.SELL(torch.zeros(1, dtype=i32), torch.zeros(1, dtype=dtype),
+                   torch.zeros(32, dtype=i32), torch.zeros(2, dtype=i32), (m, n), nnz, 32, 256)
+
+
+@pytest.mark.parametrize("fmt", ["CSR", "SELL"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kb", [1, 8, 32, 64, 256])
+@pytest.mark.parametrize("density", [0.25, 0.05, 2.4e-5], ids=["d0.25", "d0.05", "hpcg"])
+def test_ab_config_takes_its_schedule_from_width_and_density(fmt, dtype, kb, density):
+    """The dense-tile schedule from ``TC_FROM`` columns at a density of at
+    least ``TC_MIN_DENSITY`` of the dtype (never where that is None, at
+    Kb <= 8 or at HPCG's 2.4e-5) on the up weight's 256 row tiles;
+    otherwise the token-major tile from 32 columns at a density of at least
+    ``AB_XT_MIN_DENSITY``, else the row schedule."""
+    m, n = UP_WEIGHT
+    A = _shaped(fmt, m, n, int(density * m * n), dtype)
+    cfg = kops.default_config(A, op="spmm", ncols=kb)
+    least = kops.TC_MIN_DENSITY[dtype]
+    takes_tc = kb >= kops.TC_FROM and least is not None and density >= least
+    assert cfg.get("tc", 0) == (128 if takes_tc else 0)
+    takes_xt = not takes_tc and density >= kops.AB_XT_MIN_DENSITY
+    assert cfg.get("xt", 0) == (kcm.xt_tile(kb) if takes_xt else 0)
+    assert not ({"xt", "tc"} <= set(cfg))  # one schedule
+    if kb <= 8 or density < 1e-3:
+        assert "tc" not in cfg and "xt" not in cfg
+    assert kops.tc_tile(A, kb) == cfg.get("tc", 0)
+    for op in ("spmv", "spmm_t"):
+        assert "tc" not in kops.default_config(A, op=op, ncols=kb)
+
+
+def test_tc_tile_needs_enough_row_tiles_and_a_dtype_that_pays():
+    """The up weight (256 row tiles) takes the dense-tile schedule in a dtype
+    with a density threshold; the down weight (64 row tiles) and float32
+    (None) never; HYB's CSR tail takes neither knob."""
+    bf = torch.bfloat16
+    assert kops.TC_MIN_DENSITY[torch.float32] is None
+    up = _shaped("CSR", *UP_WEIGHT, 16777219, bf)
+    down = _shaped("CSR", 4096, 16384, 16777217, bf)
+    assert kops.tc_tile(up, 256) == 128 and kops.tc_tile(down, 256) == 0
+    assert kops.tc_tile(_shaped("CSR", *UP_WEIGHT, 16777219, torch.float32), 256) == 0
+    assert kops.tc_tile(up, kops.TC_FROM) == 128 and kops.tc_tile(up, kops.TC_FROM - 1) == 0
+    A = tf.coo_from_dense_np(PATTERNS["stencil"](), device="cpu")
+    hyb = kops.default_config(tconv.convert(A, tf.Format.HYB), op="spmm", ncols=256)
+    assert set(hyb["csr"]) == {"vec"}
+
+
+@pytest.mark.parametrize("bad", [{"tc": 32}, {"tc": 64}, {"tc": -1}, {"tc": 1}, {"tc": True},
+                                 {"tc": 128.0}, {"tc": "128"}, {"tc": None},
+                                 {"xt": 32, "tc": 128}, {"xt": 48}],
+                         ids=lambda b: "-".join(f"{k}{v!r}" for k, v in b.items()))
+def test_ab_wrappers_reject_a_bad_knob_before_any_launch(bad):
+    """``check_ab_schedule`` is the first step of ``csr_spmm`` and
+    ``sell_spmm`` on any device: a knob the kernels do not take, or two
+    schedules at once, raises before any check or launch; a valid knob on
+    the CPU runs the plain version, uncounted."""
+    if "xt" not in bad:
+        with pytest.raises(ValueError, match="tc must be"):
+            kcm.check_tc(bad["tc"])
+    ip = torch.tensor([0, 2, 3], dtype=torch.int32)
+    ix = torch.tensor([0, 4, 1], dtype=torch.int32)
+    ptrs = torch.tensor([0, 4], dtype=torch.int32)
+    cols = torch.tensor([0, 1, 2, -1], dtype=torch.int32)
+    perm = torch.tensor([0, 1, 2, 3], dtype=torch.int32)
+    B = torch.ones(5, 4)
+    kops.reset_launches()
+    with pytest.raises(ValueError, match="must be|two schedules"):
+        kcm.csr_spmm(ip, ix, torch.ones(3), B, 2, vec=4, **bad)
+    with pytest.raises(ValueError, match="must be|two schedules"):
+        ksm.sell_spmm(ptrs, cols, torch.ones(4), perm, B, 4, 4, **bad)
+    with pytest.raises(ValueError, match="must be|two schedules"):  # a meta tensor: no device
+        kcm.csr_spmm(ip.to("meta"), ix.to("meta"), torch.zeros(3, device="meta"),
+                     torch.zeros(5, 4, device="meta"), 2, vec=4, **bad)
+    for knob in [{}] + [{"xt": x} for x in kcm.XT_TILES] + [{"tc": t} for t in kcm.TC_TILES]:
+        assert torch.equal(kcm.csr_spmm(ip, ix, torch.ones(3), B, 2, vec=4, **knob),
+                           csr_spmm_ref(ip, ix, torch.ones(3), B, 2))
+        assert torch.equal(ksm.sell_spmm(ptrs, cols, torch.ones(4), perm, B, 4, 4, **knob),
+                           sell_spmm_ref(ptrs, cols, torch.ones(4), perm, B, 4, 4))
+    assert all(v == 0 for v in kops.launch_counts().values())
+    assert kcm.launches_kxt == kcm.launches_tc == ksm.launches_kxt == ksm.launches_tc == 0
+
+
+def test_ab_entry_points_pass_xt_and_tc(monkeypatch, tmp_path):
+    """``kernels.ops`` hands CSR and SELL SpMM the cfg's ``xt`` and ``tc``:
+    a cfg or record without them means the row schedule; the default on this
+    64-row pattern (too few row tiles for ``tc``) is the token-major tile of
+    the width; HYB's CSR tail gets neither."""
+    monkeypatch.setenv("REPRO_TUNING_CACHE", str(tmp_path / "empty.json"))
+    seen = []
+
+    def spy(real):
+        def fn(*a, **kw):
+            seen.append((kw.get("xt", 0), kw.get("tc", 0)))
+            return real(*a, **kw)
+        return fn
+    monkeypatch.setattr(kcm, "csr_spmm", spy(kcm.csr_spmm))
+    monkeypatch.setattr(ksm, "sell_spmm", spy(ksm.sell_spmm))
+    a = PATTERNS["powerlaw"]()
+    A = tf.coo_from_dense_np(a, device="cpu")
+    rng = np.random.default_rng(36)
+    for fmt, row in (("CSR", {"vec": 8}), ("SELL", {})):
+        M = tconv.convert(A, tf.Format[fmt])
+        for width, cfg, want in ((256, row, (0, 0)), (256, None, (128, 0)),
+                                 (256, dict(row, xt=64), (64, 0)),
+                                 (256, dict(row, tc=128), (0, 128)),
+                                 (32, None, (32, 0))):
+            B = _t(rng.standard_normal((a.shape[1], width)).astype(np.float32))
+            seen.clear()
+            y = kops.SPMM_CUDA[type(M)](M, B, cfg=cfg)
+            np.testing.assert_allclose(y.numpy(), a @ B.double().numpy(), **tol("float32"))
+            assert seen == [want], (fmt, width, cfg, seen)
+    H = tconv.convert(A, tf.Format.HYB, **FORMATS["HYB"])
+    seen.clear()
+    kops.hyb_spmm(H, _t(rng.standard_normal((a.shape[1], 256)).astype(np.float32)))
+    assert seen == [(0, 0)]  # the CSR tail keeps the row schedule
+
+
+@pytest.mark.parametrize("dtype_name", DTYPE_NAMES)
+@pytest.mark.parametrize("knob", [{}, {"xt": 32}, {"xt": 64}, {"xt": 128}, {"tc": 128}],
+                         ids=["row", "xt32", "xt64", "xt128", "tc128"])
+def test_csr_and_sell_spmm_plain_match_jax_with_every_schedule(knob, dtype_name):
+    """On the CPU the entry points run the plain versions whatever the cfg
+    says: CSR and SELL SpMM against ``repro.core.ops.spmm(backend="ref")``
+    on the same containers (bf16 JAX sums in bf16: it gets the values
+    widened to f32) and the float64 oracle, within
+    ``tests/test_kernels.py::_tol``."""
+    rng = np.random.default_rng(37)
+    for pattern in ("powerlaw", "random"):
+        a = PATTERNS[pattern]()
+        Jc, _ = coo_pair(a)
+        B = _t(rng.standard_normal((a.shape[1], 40)).astype(np.float32), dtype_name)
+        for fmt in ("CSR", "SELL"):
+            Jf = jconv.convert(Jc, jf.Format[fmt], **FORMATS[fmt])
+            P = port_from_jax(Jf)
+            P = dataclasses.replace(P, data=P.data.to(TORCH_DTYPES[dtype_name]))
+            cfg = dict({"vec": 8} if fmt == "CSR" else {}, **knob)
+            y = kops.SPMM_CUDA[type(P)](P, B, cfg=cfg)
+            assert y.dtype == TORCH_DTYPES[dtype_name]
+            Jw = dataclasses.replace(Jf, data=jnp.asarray(_f(P.data)))
+            yj = jops.spmm(Jw, jnp.asarray(_f(B)), backend="ref")
+            np.testing.assert_allclose(_f(y), np.asarray(yj, np.float32), **tol(dtype_name))
+            np.testing.assert_allclose(_f(y), _rounded(a, dtype_name) @ _f(B).astype(np.float64),
+                                       **tol(dtype_name))
+
+
 # Stand-ins with the SpMM entry points' C signatures: each records its
 # arguments so the test sees them arrive at full width (a pointer declared
 # as a C int would be cut to 32 bits).
@@ -699,6 +860,24 @@ _SIGNATURES = {
         "const void* x", "void* xt_scratch", "void* pcols", "void* pdata", "void* y",
         "int64_t capacity", "int64_t lanes", "int32_t c", "int64_t m", "int32_t n",
         "int64_t t", "int xt", "int device", "void* stream"],
+    ("csr_spmm", "csr_spmm_kxt_f32", "_fn_kxt"): [
+        "const void* indptr", "const void* indices", "const void* data", "const void* b",
+        "void* b_scratch", "void* y", "int64_t m", "int32_t n", "int64_t kb", "int xt",
+        "int device", "void* stream"],
+    ("csr_spmm", "csr_spmm_tc_f32", "_fn_tc"): [
+        "const void* indptr", "const void* indices", "const void* data", "const void* b",
+        "void* b_scratch", "void* y", "int64_t m", "int32_t n", "int64_t kb", "int tc",
+        "int device", "void* stream"],
+    ("sell_spmm", "sell_spmm_kxt_f32", "_fn_kxt"): [
+        "const void* ptrs", "const void* cols", "const void* data", "const void* perm",
+        "const void* b", "void* b_scratch", "void* pcols", "void* pdata", "void* y",
+        "int64_t capacity", "int64_t lanes", "int32_t c", "int64_t m", "int32_t n",
+        "int64_t kb", "int xt", "int device", "void* stream"],
+    ("sell_spmm", "sell_spmm_tc_f32", "_fn_tc"): [
+        "const void* ptrs", "const void* cols", "const void* data", "const void* perm",
+        "const void* b", "void* b_scratch", "void* pcols", "void* pdata", "void* y",
+        "int64_t capacity", "int64_t lanes", "int32_t c", "int64_t m", "int32_t n",
+        "int64_t kb", "int tc", "int device", "void* stream"],
     ("ell_spmm", "ell_spmm_kxt_f32", "_fn_kxt"): [
         "const void* cols", "const void* data", "const void* b", "void* b_scratch", "void* y",
         "int64_t m", "int32_t n", "int32_t k", "int64_t kb", "int xt", "int device",
@@ -771,8 +950,14 @@ def test_each_source_names_its_kernels_and_int64_offsets():
     for name in ("csr_spmm", "ell_spmm", "sell_spmm"):
         text = srcs[name].read_text()
         assert f"int {name}_xt_f32(" in text and f"int {name}_xt_bf16(" in text
-    text = srcs["ell_spmm"].read_text()
-    assert "int ell_spmm_kxt_f32(" in text and "int ell_spmm_kxt_bf16(" in text
+    for name in ("ell_spmm", "csr_spmm", "sell_spmm"):
+        text = srcs[name].read_text()
+        assert f"int {name}_kxt_f32(" in text and f"int {name}_kxt_bf16(" in text
+    for name in ("csr_spmm", "sell_spmm"):  # the dense-tile schedule
+        text = srcs[name].read_text()
+        assert f"int {name}_tc_f32(" in text and f"int {name}_tc_bf16(" in text
+        assert "tiles_spmm_launch" in text and "tiles_spmm_ab" in text
+    assert "tiles_spmm_ab" in common and "mma.sync" in common and "3xTF32" in common
     assert "bool AB" in common
     assert "SellRows" in srcs["sell_spmm"].read_text()
     assert "repack_slices" in srcs["sell_spmm"].read_text()
