@@ -45,7 +45,8 @@ Phases, in order (any failure exits nonzero and prints no result line):
    for csr_spmm and sell_spmm a density sweep at width 256 (the up weight
    pruned on the card to 0.05 and 0.01, checked and timed in turns);
 3. reference check: the port's solve at 16^3 on the card (CUDA kernels)
-   against the same solve on the CPU (plain torch path), in every format;
+   against the same solve on the CPU (plain torch path), in every format,
+   and MG-PCG (uniform CSR levels, and the ml picks) the same way;
 4. main paths at HPCG's default 104^3 grid, each driven with the launch
    counts set to 0 just before and read just after:
    a. generate_problem -> to_coo on the card -> DynamicMatrix.auto(A, "ml")
@@ -75,9 +76,26 @@ Phases, in order (any failure exits nonzero and prints no result line):
       FormatPolicy("cached") miss-then-hit at both widths; LinearSparse built
       by it with backend="auto"; hpcg_solve --tune cached (131 iterations);
       the SpMM profile pick through every kernel.
+   f. MG-PCG, with path (a)'s A and b: build_hierarchy(fmt=CSR) (104^3 >
+      52^3 > 26^3 > 13^3; the levels, formats and build seconds printed),
+      pcg(operator(DIA), apply_M=V-cycle) to 1e-7 (converged, max|x-1| <
+      1e-3, at most one iteration above the JAX package's 69 and below CG's
+      count, dia_spmv launches = iterations + 1 and csr_spmv launches = the
+      hierarchy's 163 SpMVs a V-cycle x V-cycles); the same on the
+      FormatPolicy("ml") hierarchy (every kernel format it picks launched as
+      often as its SpMVs); a float64 MG-PCG through the plain versions on the
+      card, the witness of the solve without float32 rounding (both float32
+      residual curves cross 1e-3 ... 1e-7, so their counts too, within one
+      iteration of it); Jacobi-PCG for scale; ms per V-cycle by the host
+      clock, by CUDA events around the run, and by CUDA events with the
+      launches queued behind a spin kernel (the host's share), with the
+      profiler's kernel sum; one V-cycle under
+      ``set_sync_debug_mode("error")`` and bitwise equal to the one before;
+      the CSR, SELL and DIA kernels on the hierarchies' color blocks
+      (padding rows, x longer than the block) against their plain versions.
 
 The last three lines of standard output are the kernels' JSON record (all
-eleven kernels, launches summed over paths (a)-(e), and each kernel's
+eleven kernels, launches summed over paths (a)-(f), and each kernel's
 launches on its token-major and dense-tile schedules), the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": ...}``.
 """
@@ -558,6 +576,15 @@ def phase_reference(torch):
         # f32 reductions in another order can move the stopping test by one step
         check(abs(g["iters"] - c["iters"]) <= 1, f"{fmt}: iterations within 1")
         check(g["passed"] and c["passed"], f"{fmt}: max|x-1| < {X_TOL} on both")
+    for fmt in ("CSR", "auto"):  # MG-PCG: uniform CSR levels, and the ml picks
+        g = run(SMALL_GRID, fmt, device="cuda", tol=CG_TOL, maxiter=CG_MAXITER, precond="mg")
+        c = run(SMALL_GRID, fmt, device="cpu", tol=CG_TOL, maxiter=CG_MAXITER, precond="mg")
+        print(f"  MG-PCG {fmt}: card {g['iters']} iters err {g['err']:.2e} "
+              f"(hierarchy {g['hier_s']:.2f} s); cpu {c['iters']} iters err {c['err']:.2e}; "
+              f"levels {[(lev['A'], lev['colors'][0]) for lev in g['levels']]}")
+        check(g["levels"] == c["levels"], f"MG {fmt}: same level formats on card and cpu")
+        check(abs(g["iters"] - c["iters"]) <= 1, f"MG {fmt}: iterations within 1")
+        check(g["passed"] and c["passed"], f"MG {fmt}: max|x-1| < {X_TOL} on both")
 
 
 def solve_counted(torch, M, b, A, label, kernels):
@@ -667,7 +694,7 @@ def phase_main(torch, prob, t_gen):
     solve_counted(torch, C, b, A, "cg CSR", KERNELS_OF["CSR"])
     del C
     counts = read_path(torch, "(a)", ("dia_spmv", "csr_spmv"))
-    return A, b, counts
+    return A, b, counts, (res.iters, dt)
 
 
 def phase_profile(torch, A, b):
@@ -733,6 +760,283 @@ def phase_new_formats(torch, A, b):
               f"{fmt} SpMV under set_sync_debug_mode('error'): no device->host sync, "
               f"A @ 1 == b")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Path (f): MG-PCG, the multigrid preconditioner on the card
+# ---------------------------------------------------------------------------
+
+MG_JAX_ITERS = 69  # the JAX package's MG-PCG at 104^3 (uniform CSR levels, f32, tol 1e-7)
+# Relative residuals at which the float32 solves are held against the
+# float64 one. Below the float32 floor of the true residual (~3e-6 at
+# 104^3) PCG's updated residual follows the rounding, so a float32 count
+# at 1e-7 may differ from the float64 one (tests/test_torch_mg_tail.py: the
+# port and the JAX package at 40^3 cross 1e-3 ... 1e-6 together and stop
+# at 25 and 26 iterations; tests/test_torch_mg_f64.py: in float64 the two
+# are one solve).
+MG_CROSS = (1e-3, 1e-4, 1e-5, 1e-6, 1e-7)
+MG_CYCLES_TIMED = 20
+
+
+def cycle_spmvs(hier) -> dict:
+    """SpMVs one V-cycle issues, by kernel name (from the hierarchy: a level
+    operator SpMV on every level but the coarsest, two per color block and
+    SymGS sweep; COO has no kernel). ``"total"`` counts every SpMV."""
+    out = {"total": 0}
+
+    def add(fmt, k):
+        out["total"] += k
+        for name in KERNELS_OF[fmt.name]:
+            out[name] = out.get(name, 0) + k
+
+    for i, lev in enumerate(hier.levels):
+        last = i == hier.nlevels - 1
+        sweeps = hier.coarse_sweeps if last else hier.pre + hier.post
+        if not last:
+            add(lev.format, 1)
+        for blk, rows in zip(lev.smoother.blocks, lev.smoother.counts):
+            if rows:
+                add(blk.format, 2 * sweeps)
+    return out
+
+
+def print_levels(hier, label, dt):
+    print(f"  {label}: {hier} built in {dt:.2f} s", flush=True)
+    for rec, lev in zip(hier.formats(), hier.levels):
+        blocks = lev.smoother.blocks
+        print(f"    level {rec['level']} {'x'.join(map(str, rec['dims']))}: n={rec['n']} "
+              f"stored={lev.A.nnz} A={rec['A']} colors={rec['colors']} "
+              f"(block {blocks[0].shape[0]} x {blocks[0].shape[1]}, "
+              f"rows {min(lev.smoother.counts)}-{max(lev.smoother.counts)})", flush=True)
+
+
+def mg_solve_counted(torch, M, b, A, hier, label, cg_iters):
+    """pcg(operator(M), apply_M=V-cycle) with every operator SpMV and every
+    V-cycle counted; each kernel must launch exactly as often as the
+    hierarchy says those calls issue. Returns (result, seconds)."""
+    from repro_torch.core.solvers import operator, pcg
+    from repro_torch.kernels import ops as kops
+
+    apply_A, apply_M = operator(M), hier.apply_M()
+    calls = {"A": 0, "M": 0}
+
+    def counted_A(v):
+        calls["A"] += 1
+        return apply_A(v)
+
+    def counted_M(r):
+        calls["M"] += 1
+        return apply_M(r)
+
+    before = kops.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pcg(counted_A, b, tol=CG_TOL, maxiter=CG_MAXITER, apply_M=counted_M)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    after = kops.launch_counts()
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    want = {}
+    for name in KERNELS_OF[M.active.name]:
+        want[name] = want.get(name, 0) + calls["A"]
+    per_cycle = cycle_spmvs(hier)
+    for name, k in per_cycle.items():
+        if name != "total":
+            want[name] = want.get(name, 0) + k * calls["M"]
+    err = float((res.x - 1.0).abs().max())
+    rel = float(res.resnorm) / float(b.norm())
+    x64 = res.x.double()
+    ax = torch.zeros_like(x64).index_add_(0, A.row.long(), A.data.double() * x64[A.col.long()])
+    rel_true = float((b.double() - ax).norm() / b.double().norm())
+    print(f"  {label}: {res.iters} iters (cg {cg_iters}), {dt * 1e3:.2f} ms "
+          f"({dt * 1e3 / max(res.iters, 1):.4f} ms/iter), max|x-1|={err:.3e}, "
+          f"pcg rel residual={rel:.3e}, true rel residual={rel_true:.3e}; "
+          f"operator SpMVs {calls['A']}, V-cycles {calls['M']} x {per_cycle['total']} "
+          f"SpMVs; launches={launched}", flush=True)
+    check(res.x.shape == b.shape and bool(torch.isfinite(res.x).all()),
+          f"{label}: finite x of shape {tuple(b.shape)}")
+    check(res.iters < CG_MAXITER and rel <= CG_TOL * (1 + 1e-5),
+          f"{label}: converged to tol={CG_TOL}")
+    check(err < X_TOL, f"{label}: max|x-1| < {X_TOL}")
+    check(calls["A"] == calls["M"] == res.iters + 1,
+          f"{label}: one operator SpMV and one V-cycle per iteration, plus the first")
+    check(launched == want, f"{label}: launches {launched} == SpMVs issued {want}")
+    return res, dt
+
+
+def time_v_cycle(torch, apply_M, r, label):
+    """ms per V-cycle three ways: the host clock between syncs; CUDA events
+    around the same run (the device's span, which waits on the host); and
+    CUDA events around V-cycles queued behind a spin kernel, so the device
+    runs them back to back (the device's own time). Their ratio is the
+    host's share. Also the profiler's kernel sum, where it sees the card."""
+    for _ in range(3):
+        apply_M(r)
+    torch.cuda.synchronize()
+    n = MG_CYCLES_TIMED
+    t0 = time.perf_counter()
+    for _ in range(n):
+        apply_M(r)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        apply_M(r)
+    e1.record()
+    torch.cuda.synchronize()
+    span_ms = e0.elapsed_time(e1) / n
+    # one V-cycle at a time behind a spin long enough for the host to
+    # enqueue all of it before the device reaches it
+    queued = []
+    spin = int(2e6 * max(4.0, 3 * host_ms))  # ~2 GHz clock: cycles for 3x the host time
+    for _ in range(5):
+        torch.cuda._sleep(spin)
+        e0.record()
+        apply_M(r)
+        e1.record()
+        torch.cuda.synchronize()
+        queued.append(e0.elapsed_time(e1))
+    dev_ms = statistics.median(queued)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            apply_M(r)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def ms_of(events):
+        return sum(getattr(e, "self_device_time_total", None)
+                   or getattr(e, "self_cuda_time_total", 0) for e in events) / 1e3 / 3
+
+    kern_ms = ms_of(kern)
+    spmv = [e for e in kern if "spmv" in e.key]
+    nkern = sum(e.count for e in kern) / 3
+    prof_txt = (f"profiler: {nkern:.0f} kernels, {kern_ms:.4f} ms of kernel time a cycle, "
+                f"{ms_of(spmv):.4f} of it in {sum(e.count for e in spmv) / 3:.0f} SpMV "
+                f"kernels" if kern else "profiler: no device events (not measured)")
+    print(f"  {label}: {host_ms:.4f} ms a V-cycle by the host clock, {span_ms:.4f} by CUDA "
+          f"events around the same run, {dev_ms:.4f} on the device with the launches "
+          f"queued ahead (events; spins of {spin:.2e} cycles; runs "
+          f"{', '.join(f'{t:.4f}' for t in queued)}); host share "
+          f"{1 - dev_ms / host_ms:.3f}; {prof_txt}", flush=True)
+    return {"host_ms": host_ms, "span_ms": span_ms, "device_ms": dev_ms,
+            "kernel_ms": kern_ms if kern else None}
+
+
+def crossings(np, res, thresholds):
+    """The first iteration at which ``res``'s residual falls below t·||r_0||,
+    for each t (None where it never does)."""
+    h = res.history.cpu().double().numpy()
+    h = h[:res.iters + 1] / h[0]
+    return [int(np.argmax(h < t)) if (h < t).any() else None for t in thresholds]
+
+
+def phase_mg(torch, np, prob, A, b, cg_dia):
+    """Path (f): MG-PCG at 104^3 on the uniform-CSR hierarchy and on the ml
+    hierarchy, held against a float64 solve through the plain versions,
+    Jacobi-PCG for scale, the V-cycle's time and host share, one V-cycle
+    with any device->host sync raising, and a bitwise rerun."""
+    from repro_torch.core import hpcg
+    from repro_torch.core.dynamic import DynamicMatrix
+    from repro_torch.core.formats import Format
+    from repro_torch.core.ops import extract_diagonal, spmv
+    from repro_torch.core.solvers import operator, pcg
+    from repro_torch.mg import build_hierarchy
+    from repro_torch.tuning import FormatPolicy
+
+    cg_iters, cg_s = cg_dia
+    print(f"== main path (f) at {'x'.join(map(str, GRID))}: MG-PCG", flush=True)
+    start_path(torch)
+    M = DynamicMatrix(A).activate(Format.DIA)
+    t0 = time.perf_counter()
+    hier = build_hierarchy(prob, fmt=Format.CSR, A=A)
+    torch.cuda.synchronize()
+    print_levels(hier, "uniform CSR hierarchy", time.perf_counter() - t0)
+    check(hier.nlevels == 4 and [lev.dims for lev in hier.levels][-1] == (13, 13, 13),
+          "104^3 coarsens to 52^3, 26^3, 13^3 (13 is odd: the coarsest level)")
+    res, dt = mg_solve_counted(torch, M, b, A, hier, "pcg DIA, MG CSR", cg_iters)
+    check(res.iters <= MG_JAX_ITERS + 1 and res.iters < cg_iters,
+          f"MG-PCG iterations {res.iters}: at most one above JAX's {MG_JAX_ITERS} and below "
+          f"CG's {cg_iters}")
+    check(cycle_spmvs(hier)["csr_spmv"] == 163, "a V-cycle issues 163 CSR SpMVs at 104^3")
+    t0 = time.perf_counter()
+    hier_ml = build_hierarchy(prob, policy=FormatPolicy("ml"), A=A)
+    torch.cuda.synchronize()
+    print_levels(hier_ml, "ml hierarchy", time.perf_counter() - t0)
+    print(f"  ml formats: {hier_ml.formats()}", flush=True)
+    res_ml, dt_ml = mg_solve_counted(torch, M, b, A, hier_ml, "pcg DIA, MG ml", cg_iters)
+    check(res_ml.iters < cg_iters, "the ml hierarchy's MG-PCG takes fewer iterations than CG")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    jac = pcg(operator(M), b, extract_diagonal(M.concrete), tol=CG_TOL, maxiter=CG_MAXITER)
+    torch.cuda.synchronize()
+    dt_jac = time.perf_counter() - t0
+    print(f"  Jacobi-PCG DIA: {jac.iters} iters, {dt_jac * 1e3:.2f} ms "
+          f"({dt_jac * 1e3 / max(jac.iters, 1):.4f} ms/iter), max|x-1|="
+          f"{float((jac.x - 1).abs().max()):.3e}", flush=True)
+    check(jac.iters < CG_MAXITER and float((jac.x - 1).abs().max()) < X_TOL,
+          "Jacobi-PCG converges")
+    print(f"  time to solution: CG {cg_s * 1e3:.2f} ms ({cg_iters} iters, "
+          f"{cg_s * 1e3 / cg_iters:.4f} ms/iter, path (a)); MG-PCG CSR {dt * 1e3:.2f} ms "
+          f"({res.iters}, {dt * 1e3 / res.iters:.4f} ms/iter); MG-PCG ml {dt_ml * 1e3:.2f} ms "
+          f"({res_ml.iters}, {dt_ml * 1e3 / res_ml.iters:.4f} ms/iter); Jacobi-PCG "
+          f"{dt_jac * 1e3:.2f} ms ({jac.iters})", flush=True)
+    counts = read_path(torch, "(f)", ("dia_spmv", "csr_spmv"))
+
+    # the witness without float32 rounding: the same solve in float64
+    # through the plain versions (outside the counted run; no kernel)
+    t0 = time.perf_counter()
+    A64 = hpcg.to_coo(prob, dtype=torch.float64, device="cuda")
+    hier64 = build_hierarchy(prob, fmt=Format.CSR, backend="ref", A=A64)
+    b64 = torch.from_numpy(hpcg.rhs_for_ones(prob, np.float64)).cuda()
+    ref = pcg(operator(DynamicMatrix(A64).activate(Format.CSR), backend="ref"), b64,
+              tol=CG_TOL, maxiter=CG_MAXITER, apply_M=hier64.apply_M())
+    torch.cuda.synchronize()
+    cross = {"f64": crossings(np, ref, MG_CROSS), "CSR": crossings(np, res, MG_CROSS),
+             "ml": crossings(np, res_ml, MG_CROSS)}
+    print(f"  float64 MG-PCG (plain versions): {ref.iters} iters, max|x-1|="
+          f"{float((ref.x - 1).abs().max()):.3e}, {time.perf_counter() - t0:.2f} s; "
+          f"iterations to ||r|| < t ||r_0|| for t = {MG_CROSS}: f64 {cross['f64']}, "
+          f"f32 CSR {cross['CSR']}, f32 ml {cross['ml']} (JAX's f32 count at 1e-7: "
+          f"{MG_JAX_ITERS})", flush=True)
+    check(ref.x.dtype == torch.float64 and ref.iters < CG_MAXITER
+          and float((ref.x - 1).abs().max()) < X_TOL, "the float64 MG-PCG converges")
+    check(all(a is not None and abs(a - f) <= 1 for name in ("CSR", "ml")
+              for a, f in zip(cross[name], cross["f64"])),
+          f"both float32 hierarchies cross {MG_CROSS} (the last: their iteration counts) "
+          "within one iteration of float64")
+
+    # outside the counted run: the cycle's time, no sync, bitwise reruns
+    r = b.clone()
+    apply_M = hier.apply_M()
+    cyc = time_v_cycle(torch, apply_M, r, "V-cycle, CSR")
+    time_v_cycle(torch, hier_ml.apply_M(), r, "V-cycle, ml")
+    z1 = apply_M(r)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        z2 = apply_M(r)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(torch.equal(z1, z2), "V-cycle under set_sync_debug_mode('error'): no device->host "
+                               "sync, and a bitwise rerun")
+    # the kernels on the color blocks against their plain versions
+    x = torch.randn(A.shape[0], device="cuda", generator=torch.Generator("cuda").manual_seed(SEED))
+    for hname, h in (("CSR", hier), ("ml", hier_ml)):
+        for li in (0, h.nlevels - 1):
+            cs = h.levels[li].smoother
+            xl = x[:cs.shape[0]].contiguous()
+            for c in (0, 7):
+                blk = cs.blocks[c]
+                if blk.format == Format.COO:
+                    continue
+                compare(f"{hname} level {li} color {c} {blk.format.name} block "
+                        f"{blk.shape[0]}x{blk.shape[1]} ({cs.counts[c]} rows)",
+                        spmv(blk, xl), spmv(blk, xl), spmv(blk, xl, backend="ref"), "float32")
+    return counts, cyc
 
 
 # ---------------------------------------------------------------------------
@@ -1766,10 +2070,13 @@ def main() -> int:
     phase_token_major(torch, np, weights, records)
     lap("token-major")
     phase_reference(torch)
-    A, b, counts_a = phase_main(torch, prob, t_gen)
+    A, b, counts_a, cg_dia = phase_main(torch, prob, t_gen)
     counts_b, _ = phase_profile(torch, A, b)
     counts_c = phase_new_formats(torch, A, b)
     lap("reference, paths (a)-(c)")
+    torch.cuda.empty_cache()
+    counts_f, _ = phase_mg(torch, np, prob, A, b, cg_dia)
+    lap("path (f)")
     del A, b
     torch.cuda.empty_cache()
     counts_d = phase_serving(torch, np, weights)
@@ -1777,7 +2084,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts_e = phase_measured(torch, np, weights, prob)
     lap("path (e)")
-    paths = (counts_a, counts_b, counts_c, counts_d, counts_e)
+    paths = (counts_a, counts_b, counts_c, counts_d, counts_e, counts_f)
     for name, rec in records.items():
         rec["launches"] = sum(c[name] for c in paths)
     from repro_torch.kernels import ops as kops

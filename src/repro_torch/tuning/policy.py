@@ -20,16 +20,17 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core.convert import SwitchPlan, plan_switch as _plan_switch
 from repro_torch.core.convert import to_coo as _to_coo_fn
 from repro_torch.core.dynamic import DEFAULT_CANDIDATES, DynamicMatrix
-from repro_torch.core.formats import Format
+from repro_torch.core.formats import COO, Format
 from repro_torch.tuning import kernel_tune
 from repro_torch.tuning.cache import SelectionCache
 from repro_torch.tuning.engines import TuneReport, analytic_select, profile_select
-from repro_torch.tuning.features import PatternFeatures
+from repro_torch.tuning.features import PatternFeatures, batch_features
 from repro_torch.tuning.tree import DecisionTree, load_default_tree
 
 MODES = ("ml", "analytic", "cached", "profile")
@@ -108,6 +109,38 @@ class FormatPolicy:
         kb, cfg = self._kernel_decision(rep.best, feats, op, ncols, device)
         self.cache.put_decision(key, rep.best, kb, cfg, tag=tag if kb else None)
         return TuneReport(rep.best, rep.times, f"cached-miss:{rep.mode}", backend=kb, cfg=cfg)
+
+    def select_batch(self, A, x=None) -> np.ndarray:
+        """Per-part selection over a *stacked* COO batch (leading axis P):
+        an int32 ``(P,)`` vector of indices into ``self.candidates``.
+
+        ``ml``, ``analytic`` and ``cached`` featurise the whole batch in
+        one device pass (:func:`~repro_torch.tuning.features.batch_features`,
+        one planned pull whatever P is); what remains per part is a tree
+        walk or a dict lookup on the host. ``cached`` keys each part as
+        :meth:`select` keys an SpMV pick and writes the store once for the
+        batch. ``profile`` has no batched form: it runs :meth:`select` on
+        each part."""
+        A = A.concrete if isinstance(A, DynamicMatrix) else A
+        nparts = int(A.data.shape[0])
+        if self.mode == "profile":
+            ids = [self.candidates.index(self.select(
+                COO(A.row[i], A.col[i], A.data[i], A.shape, A.nnz), x=x).best)
+                for i in range(nparts)]
+            return np.asarray(ids, np.int32)
+        feats = batch_features(A)
+        if self.mode == "cached":
+            autoflush, self.cache.autoflush = self.cache.autoflush, False
+            try:
+                reps = [self._select_cached(f, A.device, "spmv", None) for f in feats]
+            finally:
+                self.cache.autoflush = autoflush
+            if autoflush and any(r.mode.startswith("cached-miss") for r in reps):
+                self.cache.flush()  # one write for the whole batch
+            return np.asarray([self.candidates.index(r.best) for r in reps], np.int32)
+        pick = ((lambda f: analytic_select(f.to_stats(), candidates=self.candidates).best)
+                if self.mode == "analytic" else (lambda f: self._select_ml(f).best))
+        return np.asarray([self.candidates.index(pick(f)) for f in feats], np.int32)
 
     def _kernel_decision(self, fmt: Format, feats: PatternFeatures, op: str,
                          ncols: Optional[int], device):

@@ -1062,3 +1062,109 @@ def test_profile_spmm_t_on_card_skips_nothing_and_launches_kernels(card):
     assert set(rep.times) == set(candidates)
     counts = kops.launch_counts()
     assert all(counts[k] > 0 for k in ("csr_spmm", "ell_spmm", "sell_spmm"))
+
+
+# ---------------------------------------------------------------------------
+# Multigrid: the SpMV kernels on color blocks, the V-cycle on the card
+# ---------------------------------------------------------------------------
+
+SPMV_KERNEL_OF = {Format.CSR: kc, Format.ELL: ke, Format.SELL: ks, Format.DIA: kd}
+# each kernel's plain version (f32 accumulation, as the kernel) on a container
+SPMV_PLAIN_OF = {
+    Format.CSR: lambda A, x: csr_spmv_ref(A.indptr, A.indices, A.data, x, A.shape[0]),
+    Format.ELL: lambda A, x: ell_spmv_ref(A.cols, A.data, x),
+    Format.SELL: lambda A, x: sell_spmv_ref(A.slice_ptrs, A.cols, A.data, A.perm, x,
+                                            A.shape[0], A.c),
+    Format.DIA: lambda A, x: dia_spmv_ref(A.offsets, A.data, x, A.shape[1]),
+}
+# (grid, formats): the 104^3 level-0 blocks (140608 x 1124864; DIA would
+# store ~52^3 diagonals of a block, so it runs on the small grids), 13^3
+# blocks (343 rows, colors of 216-294 rows padded), 2^3 one-row blocks.
+COLOR_BLOCK_CASES = [(104, (Format.CSR, Format.ELL, Format.SELL)),
+                     (13, tuple(SPMV_KERNEL_OF)), (2, tuple(SPMV_KERNEL_OF))]
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("grid,fmts", COLOR_BLOCK_CASES, ids=lambda v: str(v))
+def test_spmv_kernels_on_color_blocks_match_plain(card, grid, fmts, dtype_name):
+    """Rectangular (rmax, n) row blocks with padding rows and x longer than
+    the block's row count: each kernel against its plain version."""
+    from repro_torch.mg import build_colored
+    dt = DTYPES[dtype_name]
+    dims = (grid,) * 3
+    C = hpcg.to_coo(hpcg.generate_problem(*dims), dtype=dt, device=card)
+    rng = np.random.default_rng(20)
+    x = _rand(rng, C.shape[0], dt, card)
+    for fmt in fmts:
+        cs = build_colored(C, dims=dims, fmt=fmt)
+        for c in (0, 3, 7):  # the largest color, a middle one, the smallest
+            blk = cs.blocks[c]
+            assert blk.shape == (max(cs.counts), C.shape[0]) and blk.format == fmt
+            mod = SPMV_KERNEL_OF[fmt]
+            before = mod.launches
+            y1, y2 = spmv(blk, x), spmv(blk, x)
+            torch.cuda.synchronize()
+            assert mod.launches == before + 2
+            y_p = SPMV_PLAIN_OF[fmt](blk, x)
+            torch.testing.assert_close(y1.float(), y_p.float(), **TOL[dtype_name])
+            assert torch.equal(y1, y2)
+            assert not y1[cs.counts[c]:].any()  # padding rows sum nothing
+
+
+def _hier(device, grid, policy=None):
+    from repro_torch.mg import build_hierarchy
+    return build_hierarchy(hpcg.generate_problem(grid, grid, grid), device=device,
+                           policy=FormatPolicy(policy) if policy else None)
+
+
+@pytest.mark.parametrize("policy", [None, "ml"])
+@pytest.mark.parametrize("grid", [8, 16])
+def test_v_cycle_on_card_matches_cpu(card, grid, policy):
+    gpu, cpu = _hier(card, grid, policy), _hier("cpu", grid, policy)
+    assert gpu.formats() == cpu.formats()
+    r = np.random.default_rng(21).standard_normal(grid ** 3).astype(np.float32)
+    z = gpu.apply_M()(torch.from_numpy(r).to(card)).cpu().numpy()
+    want = cpu.apply_M()(torch.from_numpy(r)).numpy()
+    assert np.abs(z - want).max() / np.abs(want).max() < 1e-5
+
+
+def test_v_cycle_launch_count_and_no_host_sync(card):
+    """16^3 has four levels: 3 x (16 pre + 1 residual + 16 post) + 16 x 4
+    coarse sweeps = 163 csr_spmv launches a V-cycle, and none syncs."""
+    hier = _hier(card, 16)
+    r = torch.ones(16 ** 3, device=card)
+    hier.apply_M()(r)  # warm: first-use lookups and builds happen here
+    torch.cuda.synchronize()
+    kops.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        z = hier.apply_M()(r)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = kops.launch_counts()
+    assert counts["csr_spmv"] == 163 and sum(counts.values()) == 163
+    assert bool(torch.isfinite(z).all())
+
+
+def test_v_cycle_reruns_bitwise(card):
+    """CSR blocks and injection transfers: every scatter index is unique."""
+    hier = _hier(card, 16)
+    r = torch.from_numpy(np.random.default_rng(22).standard_normal(4096)
+                         .astype(np.float32)).to(card)
+    assert torch.equal(hier.apply_M()(r), hier.apply_M()(r))
+
+
+def test_mg_pcg_on_card_matches_cpu(card):
+    a = hpcg_solve.run((16, 16, 16), "CSR", device="cuda", precond="mg")
+    b = hpcg_solve.run((16, 16, 16), "CSR", device="cpu", precond="mg")
+    assert a["passed"] and b["passed"] and abs(a["iters"] - b["iters"]) <= 1
+    assert a["levels"] == b["levels"]
+
+
+def test_build_hierarchy_raises_on_bad_options(card):
+    from repro_torch.mg import build_hierarchy
+    prob = hpcg.generate_problem(8, 8, 8)
+    with pytest.raises(ValueError, match="unknown smoother"):
+        build_hierarchy(prob, smoother="chebyshev")
+    with pytest.raises(ValueError, match="prolong"):
+        build_hierarchy(prob, prolong="cubic")
