@@ -414,6 +414,157 @@ def _median_positive(counts: torch.Tensor, m: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Batched symbolic/numeric phases (stacked shard containers)
+# ---------------------------------------------------------------------------
+
+
+def map_container(fn, *containers):
+    """Apply ``fn`` to the matching tensor fields of same-format containers
+    (nested parts, HYB's, recursed; static metadata taken from the first)."""
+    first = containers[0]
+    kw = {}
+    for f in dataclasses.fields(first):
+        vals = [getattr(c, f.name) for c in containers]
+        if f.metadata.get("static"):
+            kw[f.name] = vals[0]
+        elif dataclasses.is_dataclass(vals[0]):
+            kw[f.name] = map_container(fn, *vals)
+        else:
+            kw[f.name] = fn(*vals)
+    return type(first)(**kw)
+
+
+def stack_parts(parts: Sequence):
+    """Stack P same-structure containers into one with a leading P axis."""
+    return map_container(lambda *ts: torch.stack(ts), *parts)
+
+
+def part_of(stacked, p: int):
+    """Part ``p`` of a stacked container: the ``[p]`` slice of every field
+    (contiguous, no copy)."""
+    return map_container(lambda t: t[p], stacked)
+
+
+def nparts(stacked) -> int:
+    """Length of a stacked container's leading (part) axis."""
+    return int(stacked.data.shape[0]) if hasattr(stacked, "data") else nparts(stacked.ell)
+
+
+def _batch_row_counts(C: COO) -> torch.Tensor:
+    """(P, M) live-entry row counts of a stacked COO batch, one device pass."""
+    p, cap = C.data.shape
+    m = C.shape[0]
+    ids = C.row.long() + torch.arange(p, device=C.device)[:, None] * m
+    return segment_sum(_i32(C.data != 0).reshape(-1), ids.reshape(-1), p * m).view(p, m)
+
+
+def plan_switch_batch(A: COO, fmt: Format, *, k: Optional[int] = None,
+                      offsets: Optional[Sequence[int]] = None,
+                      block_size: int = 128,
+                      capacity: Optional[int] = None,
+                      c: Optional[int] = None,
+                      sigma: Optional[int] = None,
+                      check: bool = True) -> SwitchPlan:
+    """Shared symbolic phase over a *stacked* batch of same-shape COO parts.
+
+    ``A`` is a COO container whose arrays carry a leading batch (shard)
+    axis: ``row/col/data`` of shape ``(P, capacity)`` with ``shape`` the
+    per-part matrix shape. One :class:`SwitchPlan` is valid for the whole
+    batch: ELL width = max over parts, SELL slice caps = elementwise max of
+    the per-part widths, DIA offsets = deduped union over parts, HYB split
+    at the median positive count of all P*M rows with the COO capacity the
+    largest overflow of a part, BSR block map = union over parts. Host
+    traffic is a handful of :func:`_planned_pull` artifacts, whatever P is.
+    """
+    fmt = Format(fmt)
+    if not isinstance(A, COO) or A.data.dim() != 2:
+        raise TypeError("plan_switch_batch expects a stacked COO container "
+                        "with (P, capacity) arrays")
+    m, n = A.shape
+
+    if fmt in (Format.COO, Format.CSR, Format.DENSE):
+        return SwitchPlan(fmt, capacity=capacity)
+
+    live = A.data != 0
+
+    if fmt == Format.ELL:
+        if k is None:
+            k = max(1, int(_planned_pull(_batch_row_counts(A).max())))
+        elif check:
+            counts = _batch_row_counts(A)
+            probe = _planned_pull(torch.stack([counts.max(),
+                                               _i32(counts.argmax())]))
+            kmax, flat = int(probe[0]), int(probe[1])
+            part, bad_row = divmod(flat, m)
+            if kmax > int(k):
+                raise ValueError(
+                    f"plan_switch_batch: k={int(k)} but row {bad_row} of "
+                    f"part {part} holds {kmax} live entries; the overflow "
+                    f"would be silently dropped. Pass k>={kmax}, or use "
+                    f"Format.HYB which spills overflow into its COO part.")
+        return SwitchPlan(fmt, ell_k=int(k), capacity=capacity)
+
+    if fmt == Format.SELL:
+        C_, sig, nslices = _sell_geometry(c, sigma, m)
+        counts = _batch_row_counts(A)
+        # shared slice caps = elementwise max over parts: every part's own
+        # sigma-sort fits under them
+        widths = torch.stack([_sell_widths(cnt, _sell_perm(cnt, sig, m), C_, nslices)
+                              for cnt in counts]).amax(dim=0)
+        ptrs = _sell_ptrs(_planned_pull(widths), C_)
+        return SwitchPlan(fmt, sell_c=C_, sell_sigma=sig,
+                          sell_slice_ptrs=ptrs, sell_perm=None,
+                          capacity=capacity)
+
+    if fmt == Format.DIA:
+        if offsets is None:
+            sent = torch.full((), _SENTINEL, dtype=torch.int32, device=A.device)
+            diffs = torch.where(live, _i32(A.col) - _i32(A.row), sent)
+            offs = _unique_small(diffs.reshape(-1))  # deduped union over parts
+            offsets = offs if offs.size else np.array([0])
+        offsets = tuple(int(o) for o in np.unique(np.asarray(offsets).ravel()))
+        return SwitchPlan(fmt, dia_offsets=offsets, capacity=capacity)
+
+    if fmt == Format.HYB:
+        counts = _batch_row_counts(A)
+        if k is None:
+            k = _median_positive(counts.reshape(-1), int(counts.numel()))
+        k = max(1, int(k))
+        overflow = torch.clamp(counts.long() - k, min=0).sum(dim=1)  # per part
+        coo_cap = max(1, int(_planned_pull(overflow.max())))
+        return SwitchPlan(fmt, ell_k=k, hyb_coo_capacity=coo_cap,
+                          capacity=capacity)
+
+    if fmt == Format.BSR:
+        bs = int(block_size)
+        if m % bs or n % bs:
+            raise ValueError(f"shape {A.shape} not a multiple of block size {bs}")
+        nbr, nbc = m // bs, n // bs
+        gid = (A.row.long() // bs) * nbc + (A.col.long() // bs)
+        gid = torch.where(live, gid, torch.full_like(gid, _SENTINEL64))
+        blk = _unique_small(gid.reshape(-1), _SENTINEL64).astype(np.int64)  # union
+        if blk.size == 0:
+            blk = np.zeros(1, np.int64)
+        pbr, pbc = blk // nbc, blk % nbc
+        indptr = np.zeros(nbr + 1, np.int64)
+        np.add.at(indptr, pbr + 1, 1)
+        indptr = np.cumsum(indptr)
+        return SwitchPlan(fmt, block_size=bs,
+                          bsr_indptr=tuple(int(i) for i in indptr),
+                          bsr_indices=tuple(int(c) for c in pbc),
+                          capacity=capacity)
+
+    raise ValueError(f"unknown format {fmt}")
+
+
+def convert_execute_batch(A, plan: SwitchPlan):
+    """Batched numeric phase: :func:`convert_execute` of every part under
+    one shared plan, stacked. No device->host transfer; the JAX package
+    ``vmap``s the same per-part conversion."""
+    return stack_parts([convert_execute(part_of(A, p), plan) for p in range(nparts(A))])
+
+
+# ---------------------------------------------------------------------------
 # The numeric phase: convert_execute (no device->host transfer given a plan)
 # ---------------------------------------------------------------------------
 

@@ -8,16 +8,23 @@
 2. ``SwitchDynamicMatrix`` — the Visitor pattern: a union of candidate-format
    payloads plus an active id. JAX lowers the dispatch to ``lax.switch``
    inside one SPMD program; here the id is a host-side int and the dispatch
-   a Python index, since PyTorch runs eagerly.
+   a Python index, since PyTorch runs eagerly. A *stacked* union
+   (:meth:`SwitchDynamicMatrix.build_batched`, the distributed
+   Multi-Format parts) holds stacked variants and one host int per part.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
+
 from repro_torch.core import ops as _ops
 from repro_torch.core.convert import (SwitchPlan, convert as _convert_fn,
                                       convert_execute as _execute_fn,
-                                      plan_switch as _plan_fn)
+                                      convert_execute_batch as _execute_batch_fn,
+                                      nparts as _nparts, part_of as _part_of,
+                                      plan_switch as _plan_fn,
+                                      plan_switch_batch as _plan_batch_fn)
 from repro_torch.core.formats import Format
 
 
@@ -104,11 +111,16 @@ def _resolve_policy(policy, candidates: Optional[Sequence[Format]] = None):
 
 class SwitchDynamicMatrix:
     """Union-of-formats dynamic matrix with run-time dispatch on ``active_id``
-    (an index into :attr:`candidates`)."""
+    (an index into :attr:`candidates`). A stacked union (variants with a
+    leading part axis) holds a tuple of ids, one per part: :meth:`part`
+    gives part ``p``'s active container."""
 
-    def __init__(self, variants: Sequence, active_id: int):
+    def __init__(self, variants: Sequence, active_id):
         self.variants = tuple(variants)
-        self.active_id = int(active_id)
+        if isinstance(active_id, (int, np.integer)):
+            self.active_id = int(active_id)
+        else:
+            self.active_id = tuple(int(i) for i in active_id)
 
     @classmethod
     def build(cls, A, candidates: Sequence[Format] = DEFAULT_CANDIDATES,
@@ -132,6 +144,28 @@ class SwitchDynamicMatrix:
         return cls(variants, list(candidates).index(active))
 
     @classmethod
+    def build_batched(cls, C, candidates: Sequence[Format] = DEFAULT_CANDIDATES,
+                      plans: Optional[Sequence[SwitchPlan]] = None,
+                      active_ids=0) -> "SwitchDynamicMatrix":
+        """Union builder over a *stacked* batch of same-shape COO parts
+        (``(P, capacity)`` arrays): one shared :func:`plan_switch_batch`
+        plan per candidate (unless given in ``plans``), then one batched
+        numeric phase per candidate. Every variant is a stacked container;
+        ``active_ids`` gives each part's candidate index (a scalar
+        broadcasts)."""
+        candidates = tuple(Format(f) for f in candidates)
+        if plans is None:
+            plans = tuple(_plan_batch_fn(C, f) for f in candidates)
+        else:
+            plans = tuple(plans)
+            for fmt, p in zip(candidates, plans):
+                if Format(p.target) != fmt:
+                    raise ValueError(f"plan for candidate {fmt.name} targets "
+                                     f"{Format(p.target).name}")
+        variants = [_execute_batch_fn(C, p) for p in plans]
+        return cls(variants, _per_part(active_ids, _nparts(C)))
+
+    @classmethod
     def from_matrix(cls, A, candidates: Sequence[Format] = DEFAULT_CANDIDATES,
                     active: Optional[Format] = None,
                     plans: Optional[dict] = None, **conv_kwargs):
@@ -153,18 +187,36 @@ class SwitchDynamicMatrix:
         return tuple(Format(v.format) for v in self.variants)
 
     @property
-    def active(self) -> Format:
+    def batched(self) -> bool:
+        """True for a stacked union (one active id per part)."""
+        return isinstance(self.active_id, tuple)
+
+    @property
+    def active(self):
+        """The active format; a tuple, one per part, of a stacked union."""
+        if self.batched:
+            return tuple(self.candidates[i] for i in self.active_id)
         return self.candidates[self.active_id]
 
     @property
     def shape(self):
         return self.variants[0].shape
 
-    def activate(self, fmt: Format) -> "SwitchDynamicMatrix":
-        """O(1) state switch — no conversion, all payloads resident."""
-        return SwitchDynamicMatrix(self.variants, list(self.candidates).index(Format(fmt)))
+    def part(self, p: int):
+        """Part ``p``'s active container (views into the stacked variant)."""
+        return _part_of(self.variants[self.active_id[p]], p)
 
-    def activate_id(self, active_id: int) -> "SwitchDynamicMatrix":
+    def activate(self, fmt: Format) -> "SwitchDynamicMatrix":
+        """O(1) state switch — no conversion, all payloads resident (every
+        part of a stacked union)."""
+        idx = list(self.candidates).index(Format(fmt))
+        return self.activate_id(idx)
+
+    def activate_id(self, active_id) -> "SwitchDynamicMatrix":
+        """Switch by candidate index: a scalar, or (stacked union) one per
+        part; a scalar broadcasts over the parts."""
+        if self.batched:
+            active_id = _per_part(active_id, len(self.active_id))
         return SwitchDynamicMatrix(self.variants, active_id)
 
     def spmv(self, x, backend: Optional[str] = None, cfg: Optional[dict] = None):
@@ -178,6 +230,16 @@ class SwitchDynamicMatrix:
 
     def __repr__(self):
         return f"SwitchDynamicMatrix<{[f.name for f in self.candidates]}>{self.shape}"
+
+
+def _per_part(ids, n: int) -> Tuple[int, ...]:
+    """A scalar id broadcast to ``n`` parts, or ``n`` ids as host ints."""
+    arr = np.asarray(ids)
+    if arr.ndim == 0:
+        return (int(arr),) * n
+    if arr.shape != (n,):
+        raise ValueError(f"expected a scalar or {n} ids, got shape {arr.shape}")
+    return tuple(int(i) for i in arr)
 
 
 _ops._register_dynamic(DynamicMatrix, SwitchDynamicMatrix)

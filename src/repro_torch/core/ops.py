@@ -23,6 +23,7 @@ Reference semantics carried over from JAX:
 """
 from __future__ import annotations
 
+import weakref
 from typing import Optional
 
 import torch
@@ -70,9 +71,36 @@ def _result_dtype(a: torch.Tensor, b: torch.Tensor) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
+def coo_row_order(A: COO):
+    """``A``'s entries sorted by row for :func:`_spmv_coo`: ``(cols, data,
+    offsets)``, with each row's live entries in entry order (a stable sort)
+    and its segment ``offsets[i]:offsets[i + 1]``; dead entries (the
+    capacity padding, row 0 value 0, of which an edge shard's part holds
+    tens of thousands) sort past ``offsets[m]`` and are never reduced."""
+    m, n = A.shape
+    live = (A.data != 0) & (A.row >= 0) & (A.row < m)
+    rows, order = torch.sort(torch.where(live, A.row, torch.full_like(A.row, m)), stable=True)
+    cols = A.col.index_select(0, order).long().clamp(0, max(n - 1, 0))
+    offsets = torch.searchsorted(rows, torch.arange(m + 1, dtype=rows.dtype, device=rows.device))
+    return cols, A.data.index_select(0, order), offsets
+
+
+# coo_row_order of each COO container, made at its first SpMV. Containers
+# are immutable (new values make a new container), so the order holds for
+# the container's life; the entry goes with it.
+_COO_ORDER: "weakref.WeakKeyDictionary[COO, tuple]" = weakref.WeakKeyDictionary()
+
+
 def _spmv_coo(A: COO, x):
-    contrib = A.data * take_clip(x, A.col)
-    return segment_sum(contrib, A.row, A.shape[0])
+    # COO has no kernel: this is its path on the card too (the remote parts
+    # of a distributed matrix are COO by default). One segment reduction a
+    # row over the entries in coo_row_order, so y reruns bitwise, which
+    # atomic adds would not give.
+    order = _COO_ORDER.get(A)
+    if order is None:
+        order = _COO_ORDER[A] = coo_row_order(A)
+    cols, data, offsets = order
+    return torch.segment_reduce(data * x.index_select(0, cols), "sum", offsets=offsets)
 
 
 def _spmv_csr(A: CSR, x):

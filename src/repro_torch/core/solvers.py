@@ -29,12 +29,17 @@ class CGResult(NamedTuple):
 
 
 def operator(A, backend: Optional[str] = None, cfg: Optional[dict] = None) -> Callable:
-    """``apply_A`` closure for the solvers over a concrete container or a
-    (Switch)DynamicMatrix. ``backend=None`` runs the CUDA kernels on CUDA
-    tensors and the reference on CPU tensors; ``"auto"`` routes each SpMV by
-    the measured kernel records; ``cfg`` pins the kernel's launch knobs (see
-    ``ops.spmv``). The distributed operator comes with the distributed
-    slice."""
+    """``apply_A`` closure for the solvers over a concrete container, a
+    (Switch)DynamicMatrix or a ``DistSparseMatrix`` (then the closure is
+    :func:`~repro_torch.core.distributed.dist_spmv`, with the
+    interior/boundary split when the matrix was built split).
+    ``backend=None`` runs the CUDA kernels on CUDA tensors and the reference
+    on CPU tensors; ``"auto"`` routes each SpMV by the measured kernel
+    records; ``cfg`` pins the kernel's launch knobs (see ``ops.spmv``)."""
+    from repro_torch.core.distributed import DistSparseMatrix, dist_spmv
+
+    if isinstance(A, DistSparseMatrix):
+        return lambda v: dist_spmv(A, v, backend=backend, cfg=cfg)
     return lambda v: _ops.spmv(A, v, backend=backend, cfg=cfg)
 
 

@@ -10,9 +10,8 @@ through run-time format selection.
                rediscretized / Galerkin coarse operators)
     smoothers  8-color SymGS as per-color row-block SpMVs + Jacobi fallback
     cycle      MGHierarchy + the V-cycle apply_M for solvers.pcg
-
-The JAX package's ``mg.dist`` (the per-level slab-partitioned hierarchy)
-comes with the distributed layer.
+    dist       DistMGHierarchy: per-level slab partitions, frozen-halo
+               colored SymGS, the distributed V-cycle
 """
 from repro_torch.mg.coarsen import (CoarsenPlan, Coarsening, coarse_problem,
                                     coarsen_execute, f2c_map, galerkin_coarse,
@@ -20,6 +19,8 @@ from repro_torch.mg.coarsen import (CoarsenPlan, Coarsening, coarse_problem,
                                     trilinear_corners)
 from repro_torch.mg.cycle import (MIN_COARSE_ROWS, MGHierarchy, MGLevel, build_hierarchy,
                                   v_cycle)
+from repro_torch.mg.dist import (DistMGHierarchy, DistMGLevel, build_dist_hierarchy,
+                                 v_cycle_dist)
 from repro_torch.mg.smoothers import (NCOLORS, ColoredSystem, build_colored, check_coloring,
                                       color_grid, color_ranks, color_rows_padded, gs_sweep,
                                       jacobi, split_colors_stacked, symgs,
@@ -33,4 +34,5 @@ __all__ = [
     "split_colors_stacked", "build_colored", "check_coloring",
     "gs_sweep", "symgs", "jacobi", "symgs_reference_np",
     "MGHierarchy", "MGLevel", "MIN_COARSE_ROWS", "build_hierarchy", "v_cycle",
+    "DistMGHierarchy", "DistMGLevel", "build_dist_hierarchy", "v_cycle_dist",
 ]

@@ -15,6 +15,13 @@ Counters are host-side dict updates under a lock. Standard names:
                                 off the card (``repro_torch.core.ops.kernel_route``)
     selection.cache_hit/miss    selection-store lookups
                                 (``repro_torch.tuning.cache``)
+    halo.bytes                  bytes a distributed SpMV's halo exchange
+                                moves (P * halo width * itemsize a call)
+    distplan.cache_hit/miss     ``build_dist_matrix(plan_cache=)`` lookups
+                                of a persisted DistPlan
+    replan.pattern_sig          reused DistPlans whose memoised format plans
+                                were dropped for a changed live pattern
+                                (``repro_torch.core.distributed``)
 
 Kernel launches are counted by each kernel module's ``launches`` integer
 (``repro_torch.kernels.ops.launch_counts``), not here.

@@ -1168,3 +1168,135 @@ def test_build_hierarchy_raises_on_bad_options(card):
         build_hierarchy(prob, smoother="chebyshev")
     with pytest.raises(ValueError, match="prolong"):
         build_hierarchy(prob, prolong="cubic")
+
+
+# ---------------------------------------------------------------------------
+# The distributed layer: P shards on the card
+# ---------------------------------------------------------------------------
+
+DIST_KERNELS_OF = {"CSR": ("csr_spmv",), "DIA": ("dia_spmv",), "ELL": ("ell_spmv",),
+                   "SELL": ("sell_spmv",), "COO": ()}
+
+
+def _dist(device, grid, nshards, mode="uniform", **kw):
+    from repro_torch.core.distributed import build_dist_matrix
+    prob = hpcg.generate_problem(*grid)
+    return build_dist_matrix(prob.row, prob.col, prob.val, prob.shape, nshards,
+                             device=device, mode=mode, plan=hpcg.slab_plan(prob, nshards),
+                             check_plan=False, **kw)
+
+
+def _dist_launches(A) -> dict:
+    """Kernel launches one dist_spmv issues: one per shard and part, by the
+    part's active format (COO has no kernel)."""
+    out = {}
+    for part in A.shard_parts:
+        for name in A.formats(part):
+            for k in DIST_KERNELS_OF[name]:
+                out[k] = out.get(k, 0) + 1
+    return out
+
+
+@pytest.mark.parametrize("fmt", [Format.CSR, Format.DIA, Format.ELL, Format.SELL],
+                         ids=lambda f: f.name)
+@pytest.mark.parametrize("nshards", [4, 8])
+def test_dist_part_kernels_match_plain(card, nshards, fmt):
+    """Interior, boundary (most rows empty) and remote (rectangular, halo
+    columns) parts of every shard: each kernel against its plain version,
+    and a bitwise rerun."""
+    A = _dist(card, (32, 32, 64), nshards, local_format=fmt, remote_format=fmt)
+    rng = np.random.default_rng(30)
+    mod = SPMV_KERNEL_OF[fmt]
+    for part in ("local", "boundary", "remote"):
+        for p, C in enumerate(A.shard_parts[part]):
+            assert C.format == fmt
+            x = _rand(rng, C.shape[1], torch.float32, card)
+            before = mod.launches
+            y1, y2 = spmv(C, x), spmv(C, x)
+            torch.cuda.synchronize()
+            assert mod.launches == before + 2
+            torch.testing.assert_close(y1, SPMV_PLAIN_OF[fmt](C, x), **TOL["float32"])
+            assert torch.equal(y1, y2), (part, p)
+
+
+@pytest.mark.parametrize("fmt", [Format.CSR, Format.DIA, Format.ELL, Format.SELL],
+                         ids=lambda f: f.name)
+def test_dist_color_block_kernels_match_plain(card, fmt):
+    """The distributed smoother's stacked (rmax, mp) color blocks, whose
+    capacity padding sits in row 0: on every level, color and shard each
+    kernel against its plain version, and a bitwise rerun."""
+    from repro_torch.mg import build_dist_hierarchy
+    h = build_dist_hierarchy(hpcg.generate_problem(16, 16, 32), 4, device=card,
+                             smoother_format=fmt)
+    rng = np.random.default_rng(33)
+    mod = SPMV_KERNEL_OF[fmt]
+    for lev in h.levels:
+        x = _rand(rng, lev.A.mp, torch.float32, card)
+        for c, blocks in enumerate(lev.colored.shard_blocks):
+            for p, blk in enumerate(blocks):
+                assert blk.format == fmt
+                before = mod.launches
+                y1, y2 = spmv(blk, x), spmv(blk, x)
+                torch.cuda.synchronize()
+                assert mod.launches == before + 2
+                torch.testing.assert_close(y1, SPMV_PLAIN_OF[fmt](blk, x), **TOL["float32"])
+                assert torch.equal(y1, y2), (lev.dims, c, p)
+
+
+@pytest.mark.parametrize("mode", ["uniform", "multiformat"])
+def test_dist_spmv_on_card_matches_cpu_and_counts_launches(card, mode):
+    kw = (dict(local_format=Format.DIA, remote_format=Format.COO) if mode == "uniform"
+          else dict(tune="ml"))
+    gpu, cpu = _dist(card, (16, 16, 32), 4, mode, **kw), _dist("cpu", (16, 16, 32), 4, mode, **kw)
+    assert all(gpu.formats(p) == cpu.formats(p) for p in cpu.shard_parts)
+    from repro_torch.core.distributed import dist_spmv
+    x = np.random.default_rng(31).standard_normal(gpu.shape[0]).astype(np.float32)
+    xg = torch.from_numpy(x).to(card)
+    dist_spmv(gpu, xg)
+    torch.cuda.synchronize()
+    kops.reset_launches()
+    y = dist_spmv(gpu, xg)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kops.launch_counts().items() if v}
+    assert counts == _dist_launches(gpu)
+    want = dist_spmv(cpu, torch.from_numpy(x)).numpy()
+    assert np.abs(y.cpu().numpy() - want).max() / np.abs(want).max() < 1e-5
+    assert torch.equal(y, dist_spmv(gpu, xg))
+
+
+def test_dist_spmv_and_v_cycle_make_no_host_sync(card):
+    from repro_torch.core.distributed import dist_spmv
+    from repro_torch.mg import build_dist_hierarchy
+    h = build_dist_hierarchy(hpcg.generate_problem(16, 16, 32), 4, device=card,
+                             mode="multiformat", tune="ml")
+    A = h.levels[0].A
+    r = torch.ones(A.shape[0], device=card)
+    z0, y0 = h.apply_M()(r), dist_spmv(A, r)  # warm: first-use lookups happen here
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, z = dist_spmv(A, r), h.apply_M()(r)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(y, y0) and torch.equal(z, z0)
+
+
+def test_dist_v_cycle_on_card_matches_cpu(card):
+    from repro_torch.mg import build_dist_hierarchy
+    prob = hpcg.generate_problem(16, 16, 32)
+    gpu = build_dist_hierarchy(prob, 4, device=card, mode="multiformat", tune="ml")
+    cpu = build_dist_hierarchy(prob, 4, device="cpu", mode="multiformat", tune="ml")
+    assert gpu.formats() == cpu.formats()
+    r = np.random.default_rng(32).standard_normal(prob.shape[0]).astype(np.float32)
+    z = gpu.apply_M()(torch.from_numpy(r).to(card)).cpu().numpy()
+    want = cpu.apply_M()(torch.from_numpy(r)).numpy()
+    assert np.abs(z - want).max() / np.abs(want).max() < 1e-5
+
+
+@pytest.mark.parametrize("precond", ["none", "mg"])
+def test_dist_hpcg_solve_on_card_matches_cpu(card, precond):
+    kw = dict(shards=4, mode="multiformat", precond=precond)
+    a = hpcg_solve.run((16, 16, 16), device="cuda", **kw)
+    b = hpcg_solve.run((16, 16, 16), device="cpu", **kw)
+    assert a["passed"] and b["passed"] and abs(a["iters"] - b["iters"]) <= 1
+    assert a["formats"] == b["formats"] and a["plan"] == b["plan"]

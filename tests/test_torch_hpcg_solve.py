@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import repro.core.hpcg as jhpcg
 import repro.core.ops as jops
 import repro.core.solvers as jsol
+from repro.core.formats import Format as JFormat
 from repro.tuning import FormatPolicy as JPolicy
 from repro_torch import hpcg_solve
 from torch_parity import jconv
@@ -85,3 +86,48 @@ def test_chip_smoke_fails_without_a_card(where, tmp_path):
                        env=_env(CUDA_VISIBLE_DEVICES="", PYTHONPATH=""))
     assert p.returncode != 0
     assert '"ok"' not in p.stdout and '"kernels"' not in p.stdout
+
+
+@pytest.mark.parametrize("precond", ["none", "mg"])
+def test_sharded_multiformat_solve_from_the_command_line(capsys, precond):
+    """``--shards 4 --mode multiformat``: per-shard formats of every part,
+    PASS, and CG within one iteration of JAX's single-device solve."""
+    argv = ["--grid", "8", "8", "16", "--device", "cpu", "--shards", "4", "--mode",
+            "multiformat", "--tune", "ml", "--precond", precond]
+    assert hpcg_solve.main(argv) == 0
+    out = capsys.readouterr().out
+    for part in ("interior", "boundary", "remote"):
+        assert f"per-shard {part} formats: [" in out
+    assert "shards: 4" in out and "-> PASS" in out
+    r = hpcg_solve.run((8, 8, 16), device="cpu", shards=4, mode="multiformat", precond=precond)
+    assert r["passed"] and set(r["formats"]) == {"local", "boundary", "remote"}
+    assert all(len(v) == 4 for v in r["formats"].values())
+    assert r["plan"].nshards == 4 and r["plan"].interior_plans is not None
+    if precond == "mg":
+        assert len(r["levels"]) == 3 and r["levels"][0]["local"] == r["formats"]["local"]
+        return
+    prob = jhpcg.generate_problem(8, 8, 16)
+    Aj = jconv.convert(jhpcg.to_coo(prob), JFormat.CSR)
+    res = jsol.cg(lambda v: jops.spmv(Aj, v, backend="ref"),
+                  jnp.asarray(jhpcg.rhs_for_ones(prob)), tol=1e-7, maxiter=500)
+    assert abs(r["iters"] - int(res.iters)) <= 1
+
+
+def test_sharded_uniform_solve_and_its_errors(capsys):
+    r = hpcg_solve.run((8, 8, 16), device="cpu", shards=2, local="CSR", remote="CSR",
+                       precond="jacobi")
+    assert r["passed"] and r["format"] == "CSR/CSR" and r["formats"]["remote"] == ["CSR"] * 2
+    with pytest.raises(ValueError, match="mode/local/remote"):
+        hpcg_solve.run((8, 8, 16), "CSR", device="cpu", shards=2)
+    with pytest.raises(SystemExit):
+        hpcg_solve.main(["--grid", "8", "8", "16", "--device", "cpu", "--shards", "2",
+                         "--format", "CSR"])
+    # nz not divisible by the shards: the partition is planned from the triplets
+    r = hpcg_solve.run((8, 8, 6), device="cpu", shards=4)
+    assert r["passed"] and r["plan"].mp == 96
+
+
+def test_sharded_solve_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        hpcg_solve.main(["--grid", "8", "8", "16", "--shards", "4"])

@@ -57,4 +57,5 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.tuning.engines", "repro_torch.kernels.csr_spmm",
             "repro_torch.kernels.ell_spmm", "repro_torch.kernels.sell_spmm",
             "repro_torch.models", "repro_torch.models.linear_sparse",
-            "repro_torch.tuning.cache", "repro_torch.tuning.kernel_tune"} <= loaded
+            "repro_torch.tuning.cache", "repro_torch.tuning.kernel_tune",
+            "repro_torch.core.distributed", "repro_torch.mg.dist"} <= loaded

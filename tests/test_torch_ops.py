@@ -164,3 +164,33 @@ def test_segment_sum_and_take_clip_follow_jax_semantics():
     assert tops.segment_sum(vals, ids, 3).tolist() == [1.0, 8.0, 0.0]
     x = torch.tensor([10.0, 20.0, 30.0])
     assert tops.take_clip(x, torch.tensor([-5, 1, 9])).tolist() == [10.0, 20.0, 30.0]
+
+
+def test_coo_spmv_keeps_its_row_order_per_container():
+    """The plain COO SpMV sorts a container's entries by row once and keeps
+    that order for the container: rows out of order, repeats, out-of-range
+    rows and capacity padding (row 0, value 0) give JAX's y, a rerun is
+    bitwise, and a container with other values gets its own order."""
+    import dataclasses
+    rng = np.random.default_rng(3)
+    m, n, live, cap = 37, 29, 150, 200
+    row = np.zeros(cap, np.int32)
+    col = np.zeros(cap, np.int32)
+    val = np.zeros(cap, np.float32)
+    row[:live] = rng.integers(0, m, live)
+    col[:live] = rng.integers(0, n, live)
+    val[:live] = rng.standard_normal(live)
+    row[live:live + 5] = m + 3  # out of range: dropped, as segment_sum drops it
+    val[live:live + 5] = 1.0
+    At = tf.COO(torch.from_numpy(row), torch.from_numpy(col), torch.from_numpy(val),
+                (m, n), live)
+    Aj = jf.COO(jnp.asarray(row), jnp.asarray(col), jnp.asarray(val), (m, n), live)
+    xj, xt = _x(n, "float32")
+    y = tops.spmv(At, xt, backend="ref")
+    assert At in tops._COO_ORDER
+    np.testing.assert_allclose(y.numpy(), np.asarray(jops.spmv(Aj, xj, backend="ref")),
+                               **tol("float32"))
+    assert torch.equal(y, tops.spmv(At, xt, backend="ref"))
+    Bt = dataclasses.replace(At, data=At.data * 2)
+    np.testing.assert_allclose(tops.spmv(Bt, xt, backend="ref").numpy(), 2 * y.numpy(),
+                               rtol=1e-6, atol=1e-6)
