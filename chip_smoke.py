@@ -113,9 +113,30 @@ Phases, in order (any failure exits nonzero and prints no result line):
       turns with the single-device DIA kernel), the V-cycle's and a
       dist_spmv's host / device times, the plain COO SpMV three ways
       (atomic adds, a sort a call, the kept row order), the build's phases.
+   h. observability (``repro_torch.obs``) at 104^3, after path (e) and on
+      its store: (h1) under tracing("full") with the ledger on, the ml pick
+      (DIA), CG with backend='auto', a P = 8 Multi-Format build and a
+      dist_spmv: the trace holds the select, plan, convert, build, kernel,
+      exchange and solver phases, every parent is a recorded span and no
+      child starts before it, export_chrome round-trips through
+      report.load_trace, the attribution and explain.render print, the
+      format.select record says DIA, kernel.route records <= containers
+      routed, launches = SpMVs; (h2) path (a)'s CG ms/iter (backend None
+      and 'auto') and one CSR V-cycle (host clock, device with launches
+      queued) with trace off and the ledger off, trace off and the ledger
+      on, summary and full, in turns (launches = SpMVs in every mode); in
+      off and summary modes an SpMV, a dist_spmv and a V-cycle with no sync
+      (``set_sync_debug_mode("error")`` and ``torch.cuda.synchronize``
+      made to raise), bitwise; (h3) explain.run_demo('powerlaw') and its
+      trail; (h4) calibrate_gather_penalty() on the card and the
+      analytic-calibrated pick beside analytic, ml and profile at 104^3 and
+      for every shard of the P = 8 interior, boundary and remote parts (a
+      finding: nothing switches to it); (h5) a 12-matrix corpus labelled
+      on the card (iters 3) and trained into a temporary tree, with
+      default_tree.json's sha256 unchanged.
 
 The last three lines of standard output are the kernels' JSON record (all
-eleven kernels, launches summed over paths (a)-(g), and each kernel's
+eleven kernels, launches summed over paths (a)-(h), and each kernel's
 launches on its token-major and dense-tile schedules), the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": ...}``.
 """
@@ -2368,7 +2389,8 @@ def check_route(torch, A, rec, x, op, label, cache_path):
 def phase_measured(torch, np, weights, prob):
     """Path (e): kernel_tune records at full width, the auto route, the
     cached policy, LinearSparse with backend='auto', hpcg_solve --tune
-    cached and the SpMM profile pick, on a fresh store."""
+    cached and the SpMM profile pick, on a fresh store, whose directory is
+    returned beside the counts (path (h) routes through its records)."""
     import tempfile
     from repro_torch import hpcg_solve
     from repro_torch.core import hpcg, ops
@@ -2515,10 +2537,334 @@ def phase_measured(torch, np, weights, prob):
           "profile op='spmm' timed every weight candidate, ELL/SELL/HYB through kernels")
     del mats, coos
     os.environ.pop(CACHE_PATH_ENV, None)
+    counts = read_path(torch, "(e)", ("ell_spmm", "sell_spmm", "csr_spmm", "csr_spmm_t",
+                                      "ell_spmm_t", "sell_spmm_t", "dia_spmv", "csr_spmv"))
+    return counts, tmp  # path (h) reads this store, then removes it
+
+
+# ---------------------------------------------------------------------------
+# Path (h): observability on the card (repro_torch.obs)
+# ---------------------------------------------------------------------------
+
+OBS_SHARDS = 8  # the P of path (g)'s Multi-Format build
+OBS_MODES = (("off", False), ("off", True), ("summary", True), ("full", True))
+OBS_TURNS = 4  # the modes are timed in turns: forward, backward, forward, backward
+OBS_SOLVES = 3  # CG solves a mode and turn
+OBS_CYCLES = 20  # V-cycles a host-clock reading
+PHASES_EXPECTED = {"select", "plan", "convert", "build", "kernel", "exchange", "solver"}
+
+
+def _mode_name(mode, led):
+    return f"trace {mode}, ledger {'on' if led else 'off'}"
+
+
+def _host_and_queued_ms(torch, fn, x, calls):
+    """ms a call of ``fn(x)`` by the host clock over ``calls`` calls between
+    syncs, and on the device with the calls queued behind a spin (median of
+    three)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(x)
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / calls
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    runs = []
+    for _ in range(3):
+        torch.cuda._sleep(int(2e6 * max(4.0, 3 * host)))
+        e0.record()
+        fn(x)
+        e1.record()
+        torch.cuda.synchronize()
+        runs.append(e0.elapsed_time(e1))
+    return host, statistics.median(runs)
+
+
+def _no_sync(torch, label, fns):
+    """Run each of ``fns`` with any implicit device->host sync raising and
+    ``torch.cuda.synchronize`` replaced by a function that raises."""
+    real = torch.cuda.synchronize
+
+    def boom(*a):
+        raise SmokeFailure(f"{label}: torch.cuda.synchronize called on a hot path")
+    outs = []
+    torch.cuda.synchronize = boom
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn in fns:
+            outs.append(fn())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize = real
+    torch.cuda.synchronize()
+    return outs
+
+
+def obs_traced_solve(torch, A, b, prob, tmp):
+    """(h1) One traced run: the ml pick, CG with backend='auto' on path
+    (e)'s store, a P = 8 Multi-Format build and a dist_spmv, under
+    tracing('full') with the ledger on; the trace's phases, parentage,
+    Chrome export, attribution and the ledger's decisions."""
+    from repro_torch.core import hpcg
+    from repro_torch.core.distributed import build_dist_matrix, dist_spmv
+    from repro_torch.core.dynamic import DynamicMatrix
+    from repro_torch.core.solvers import cg, operator
+    from repro_torch.kernels import ops as kops
+    from repro_torch.obs import explain, ledger, report, trace
+
+    ledger.set_enabled(True)
+    ledger.clear()
+    trace.clear()
+    nspmv = 0
+    with trace.tracing("full"):
+        t0 = time.perf_counter()
+        M = DynamicMatrix.auto(A, "ml")
+        apply_A = operator(M, backend="auto")
+
+        def counted(v):
+            nonlocal nspmv
+            nspmv += 1
+            return apply_A(v)
+        before = kops.launch_counts()
+        with trace.span("solver.solve", precond="none") as sp:
+            res = cg(counted, b, tol=CG_TOL, maxiter=CG_MAXITER)
+            sp.sync(res.x)
+        launched = _launched(kops, before)
+        D = build_dist_matrix(prob.row, prob.col, prob.val, prob.shape, OBS_SHARDS,
+                              device="cuda", mode="multiformat", tune="ml",
+                              plan=hpcg.slab_plan(prob, OBS_SHARDS), check_plan=False)
+        y = dist_spmv(D, b)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        evs = trace.events()
+    err = float((res.x - 1.0).abs().max())
+    recs = ledger.records()
+    routes = ledger.records(kind="kernel.route")
+    sel = ledger.records(kind="format.select")
+    print(f"  traced run (full, ledger on): {dt:.2f} s, {len(evs)} events, CG {res.iters} "
+          f"iters max|x-1| {err:.2e}, launches {launched} for {nspmv} SpMVs; ledger "
+          f"{len(recs)} records by kind "
+          f"{ {k: sum(r['kind'] == k for r in recs) for k in sorted({r['kind'] for r in recs})} }",
+          flush=True)
+    check(res.iters < CG_MAXITER and err < X_TOL, "traced CG converges")
+    check(sel and sel[0]["chosen"] == "DIA", f"format.select record says DIA "
+                                             f"({[r['chosen'] for r in sel]})")
+    check(len(routes) <= 1, f"kernel.route records ({len(routes)}) do not exceed the "
+                            f"distinct containers routed (1: the DIA matrix)")
+    route = routes[0]["route"] if routes else None
+    want = {"dia_spmv": nspmv} if route == "cuda" else {}
+    check(launched == want, f"traced auto CG: route {route}, launches {launched} == {want}")
+    phases = {report.phase_of(e["name"]) for e in evs}
+    check(PHASES_EXPECTED <= phases, f"the trace's phases {sorted(phases)} hold "
+                                     f"{sorted(PHASES_EXPECTED)}")
+    by_id = {e["id"]: e for e in evs}
+    orphans = [e["name"] for e in evs if e["parent"] is not None and e["parent"] not in by_id]
+    early = [e["name"] for e in evs if e["parent"] in by_id
+             and e["ts"] < by_id[e["parent"]]["ts"] - 1e-3]
+    check(not orphans and not early and trace.dropped() == 0,
+          f"every parent is a recorded span ({len(orphans)} orphans), no child starts "
+          f"before its parent ({len(early)}), nothing dropped")
+    path = trace.export_chrome(os.path.join(tmp, "trace.json"))
+    back = report.load_trace(path)
+    check(len(back) == len(evs) and {e["name"] for e in back} == {e["name"] for e in evs},
+          "export_chrome round-trips through report.load_trace")
+    rows = report.attribution(back)
+    print("  phase attribution (self time, host clock):")
+    print("\n".join("    " + line for line in report.render_attribution(rows).splitlines()))
+    print("  trace summary:")
+    print("\n".join("    " + line for line in trace.summary().splitlines()))
+    dump = ledger.dump_json(os.path.join(tmp, "ledger.json"))
+    text = explain.render(ledger.load_json(dump)["records"])
+    check("format.select" in text and "kernel.route" in text, "explain.render over the dump")
+    print("  explain over the ledger dump:")
+    print("\n".join("    " + line for line in text.splitlines()))
+    trace.clear()
+    ref = dist_spmv(D, b, backend="ref")
+    check(bool(torch.allclose(y, ref, rtol=1e-4, atol=1e-4)), "traced dist_spmv == ref")
+    return M, D
+
+
+def obs_overhead(torch, A, b, M, D, prob):
+    """(h2) Path (a)'s CG (backend None and 'auto') and one CSR V-cycle in
+    each trace/ledger mode, in turns; launches = SpMVs in every mode; in
+    off and summary modes an SpMV, a dist_spmv and a V-cycle with no sync."""
+    from repro_torch.core.distributed import dist_spmv
+    from repro_torch.core.formats import Format
+    from repro_torch.core.ops import spmv
+    from repro_torch.core.solvers import cg, operator
+    from repro_torch.kernels import ops as kops
+    from repro_torch.mg import build_hierarchy
+    from repro_torch.obs import ledger, trace
+
+    hier = build_hierarchy(prob, fmt=Format.CSR, A=A)
+    per_cycle = cycle_spmvs(hier)["csr_spmv"]
+    apply_M = hier.apply_M()
+    r = b.clone()
+    times = {m: {"cg": [], "cg_auto": [], "vc_host": [], "vc_dev": []} for m in OBS_MODES}
+    for backend in (None, "auto"):  # warm: first-use lookups happen here
+        cg(operator(M, backend=backend), b, tol=CG_TOL, maxiter=CG_MAXITER)
+    apply_M(r)
+    order = list(OBS_MODES) + list(reversed(OBS_MODES))
+    for mode, led in order * (OBS_TURNS // 2):
+        ledger.set_enabled(led)
+        trace.clear()
+        with trace.tracing(mode):
+            for key, backend in (("cg", None), ("cg_auto", "auto")) * OBS_SOLVES:
+                apply_A = operator(M, backend=backend)
+                nspmv = 0
+
+                def counted(v):
+                    nonlocal nspmv
+                    nspmv += 1
+                    return apply_A(v)
+                before = kops.launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = cg(counted, b, tol=CG_TOL, maxiter=CG_MAXITER)
+                torch.cuda.synchronize()
+                times[(mode, led)][key].append((time.perf_counter() - t0) * 1e3 / res.iters)
+                launched = _launched(kops, before).get("dia_spmv", 0)
+                check(launched == nspmv, f"{_mode_name(mode, led)}: {key} launches "
+                                         f"{launched} == SpMVs {nspmv}")
+            before = kops.launch_counts()["csr_spmv"]
+            host, dev = _host_and_queued_ms(torch, apply_M, r, OBS_CYCLES)
+            got = kops.launch_counts()["csr_spmv"] - before
+            check(got == per_cycle * (OBS_CYCLES + 3), f"{_mode_name(mode, led)}: V-cycle "
+                  f"launches {got} == {per_cycle} SpMVs x {OBS_CYCLES + 3} cycles")
+            times[(mode, led)]["vc_host"].append(host)
+            times[(mode, led)]["vc_dev"].append(dev)
+            if mode in ("off", "summary"):
+                x = torch.ones(A.shape[1], device="cuda")
+                y0, yd0, z0 = spmv(M, x), dist_spmv(D, x), apply_M(r)
+                y, yd, z = _no_sync(torch, _mode_name(mode, led),
+                                    (lambda: spmv(M, x), lambda: dist_spmv(D, x),
+                                     lambda: apply_M(r)))
+                check(torch.equal(y, y0) and torch.equal(yd, yd0) and torch.equal(z, z0),
+                      f"{_mode_name(mode, led)}: SpMV, dist_spmv and V-cycle with no "
+                      f"device->host sync, bitwise reruns")
+    trace.clear()
+    ledger.set_enabled(True)
+    print(f"  overhead by mode ({OBS_TURNS} turns, forward and backward in turn; CG "
+          f"{res.iters} iters at 104^3 in DIA, backend None and 'auto', ms/iter by the "
+          f"host clock, {OBS_SOLVES} solves a turn; one CSR V-cycle, {per_cycle} SpMVs, ms "
+          f"by the host clock over {OBS_CYCLES} and on the device with the launches "
+          f"queued, one reading a turn); median [min, max]:", flush=True)
+
+    def stat(v):
+        return f"{statistics.median(v):.4f} [{min(v):.4f}, {max(v):.4f}]"
+    for m in OBS_MODES:
+        t = times[m]
+        print(f"    {_mode_name(*m)}: cg {stat(t['cg'])}; cg auto {stat(t['cg_auto'])}; "
+              f"V-cycle host {stat(t['vc_host'])}, device {stat(t['vc_dev'])}", flush=True)
+    return times
+
+
+def obs_calibration(torch, A, prob):
+    """(h4) The gather penalty measured on the card, and the calibrated
+    analytic pick beside analytic, ml and profile for the 104^3 matrix and
+    each P = 8 part, shard by shard. A finding only: nothing uses it."""
+    from repro_torch.core import hpcg
+    from repro_torch.core.distributed import split_local_execute
+    from repro_torch.core.formats import COO
+    from repro_torch.tuning import FormatPolicy, analytic_select, engines
+    from repro_torch.tuning.features import PatternFeatures, batch_features
+
+    name = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    pen = engines.calibrate_gather_penalty()
+    check(pen >= 1.0 and engines.calibrate_gather_penalty() == pen,
+          "calibrate_gather_penalty() >= 1, cached for the card")
+    check(list(engines._CALIBRATED_PENALTY) == [("cuda", name)],
+          f"penalty cached under (cuda, {name})")
+    engines._CALIBRATED_PENALTY.clear()  # a vector past the L2 cache, for the finding
+    big = engines.calibrate_gather_penalty(n=1 << 26)
+    engines._CALIBRATED_PENALTY[("cuda", name)] = pen
+    print(f"  calibrate_gather_penalty() on {name}: {pen:.4f} (n = 2^18, the default; "
+          f"n = 2^26: {big:.4f}); fixed GATHER_PENALTY {engines.GATHER_PENALTY} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+
+    def picks(C):
+        stats = PatternFeatures.from_coo(C).to_stats()
+        return {"analytic-calibrated": analytic_select(stats, calibrate=True).best.name,
+                "analytic": FormatPolicy("analytic").select(C).best.name,
+                "ml": FormatPolicy("ml").select(C).best.name,
+                "profile": FormatPolicy("profile", profile_iters=3).select(C).best.name}
+    t0 = time.perf_counter()
+    whole = picks(A)
+    print(f"  picks at 104^3: {whole}", flush=True)
+    check(whole["ml"] == "DIA", "ml picks DIA at 104^3")
+    local, remote, plan = hpcg.partition_problem(prob, OBS_SHARDS, device="cuda")
+    interior, boundary = split_local_execute(local, remote, plan.mp, plan.interior_cap,
+                                             plan.boundary_cap)
+    for pname, C in (("interior", interior), ("boundary", boundary), ("remote", remote)):
+        cands = FormatPolicy("analytic").candidates
+        cal = [analytic_select(f.to_stats(), calibrate=True).best.name
+               for f in batch_features(C)]
+        row = {"analytic-calibrated": cal}
+        for mode in ("analytic", "ml"):
+            row[mode] = [cands[i].name for i in FormatPolicy(mode).select_batch(C)]
+        row["profile"] = [FormatPolicy("profile", profile_iters=3).select(
+            COO(C.row[p], C.col[p], C.data[p], C.shape, C.nnz)).best.name
+            for p in range(OBS_SHARDS)]
+        print(f"  P={OBS_SHARDS} {pname} per shard: "
+              + "; ".join(f"{k} {v}" for k, v in row.items()), flush=True)
+    print(f"  picks in {time.perf_counter() - t0:.2f} s", flush=True)
+    return pen
+
+
+def obs_corpus(torch, tmp):
+    """(h5) A small corpus labelled on the card and trained into a
+    temporary tree; the shipped default_tree.json stays byte-identical."""
+    import hashlib
+    from repro_torch.tuning import corpus
+    from repro_torch.tuning.tree import DEFAULT_TREE_PATH, DecisionTree
+
+    def sha():
+        with open(DEFAULT_TREE_PATH, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+    before = sha()
+    out = os.path.join(tmp, "tree.json")
+    t0 = time.perf_counter()
+    check(corpus.main(["--samples", "12", "--iters", "3", "--out", out]) == 0,
+          "corpus.main on the card")
+    mats, _ = corpus.generate_corpus(12, seed=0)
+    pred = DecisionTree.load(out).predict(corpus.build_dataset(mats))
+    print(f"  corpus of 12 labelled and trained on the card in {time.perf_counter() - t0:.2f} s;"
+          f" the tree predicts {[int(v) for v in pred]}", flush=True)
+    check(set(int(v) for v in pred) <= {int(f) for f in corpus.DEFAULT_CANDIDATES},
+          "the trained tree loads and predicts candidates")
+    check(sha() == before, f"default_tree.json unchanged (sha256 {before[:16]}...)")
+
+
+def phase_obs(torch, np, prob, store):
+    """Path (h): observability on the card at 104^3, on path (e)'s store."""
     import shutil
-    shutil.rmtree(tmp, ignore_errors=True)
-    return read_path(torch, "(e)", ("ell_spmm", "sell_spmm", "csr_spmm", "csr_spmm_t",
-                                    "ell_spmm_t", "sell_spmm_t", "dia_spmv", "csr_spmv"))
+    from repro_torch.core import hpcg
+    from repro_torch.obs import explain, ledger
+    from repro_torch.tuning import CACHE_PATH_ENV
+
+    print(f"== path (h): observability at {'x'.join(map(str, GRID))}", flush=True)
+    start_path(torch)
+    os.environ[CACHE_PATH_ENV] = os.path.join(store, "selections.json")
+    A = hpcg.to_coo(prob, device="cuda")
+    b = torch.from_numpy(hpcg.rhs_for_ones(prob)).cuda()
+    M, D = obs_traced_solve(torch, A, b, prob, store)
+    obs_overhead(torch, A, b, M, D, prob)
+    del D
+    ledger.clear()
+    explain.run_demo("powerlaw")
+    kinds = [r["kind"] for r in ledger.records()]
+    print("  explain.run_demo('powerlaw') on the card:")
+    print("\n".join("    " + line for line in explain.render(ledger.records()).splitlines()),
+          flush=True)
+    check(kinds[:2] == ["format.select", "plan.switch"] and "kernel.route" in kinds
+          and kinds[-1] == "format.select", f"the demo's trail: {kinds}")
+    os.environ.pop(CACHE_PATH_ENV, None)
+    obs_calibration(torch, A, prob)
+    obs_corpus(torch, store)
+    del M, A, b
+    shutil.rmtree(store, ignore_errors=True)
+    return read_path(torch, "(h)", ("dia_spmv", "csr_spmv"))
 
 
 def main() -> int:
@@ -2584,9 +2930,13 @@ def main() -> int:
     counts_d = phase_serving(torch, np, weights)
     lap("path (d)")
     torch.cuda.empty_cache()
-    counts_e = phase_measured(torch, np, weights, prob)
+    counts_e, store = phase_measured(torch, np, weights, prob)
     lap("path (e)")
-    paths = (counts_a, counts_b, counts_c, counts_d, counts_e, counts_f, counts_g)
+    del weights
+    torch.cuda.empty_cache()
+    counts_h = phase_obs(torch, np, prob, store)
+    lap("path (h)")
+    paths = (counts_a, counts_b, counts_c, counts_d, counts_e, counts_f, counts_g, counts_h)
     for name, rec in records.items():
         rec["launches"] = sum(c[name] for c in paths)
     from repro_torch.kernels import ops as kops

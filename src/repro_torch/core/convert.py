@@ -24,6 +24,7 @@ CUDA ``bincount`` syncs to size its output).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,6 +34,7 @@ from repro_torch.core.formats import (BSR, COO, CSR, DIA, ELL, Dense, Format,
                                       HYB, SELL)
 from repro_torch.core.ops import csr_row_ids, segment_sum, take_clip
 from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import trace as _trace
 
 # Sentinels pushed past every valid diagonal offset (int32) / block id
 # (int64) during the device-side ``unique`` sweeps.
@@ -43,7 +45,7 @@ _SENTINEL64 = int(np.iinfo(np.int64).max)
 def planned_pull_count() -> int:
     """Number of sanctioned symbolic-phase device->host pulls so far
     (process-monotonic; use :class:`planned_pulls_scope` for deltas)."""
-    return int(_metrics.get("planned_pulls"))
+    return int(_metrics.value("planned_pulls"))
 
 
 class planned_pulls_scope:
@@ -814,4 +816,77 @@ def convert(A, fmt: Format, plan: Optional[SwitchPlan] = None, **kwargs):
         return convert_execute(A, plan)
     if getattr(A, "format", None) == fmt and not kwargs:
         return A
-    return convert_execute(A, plan_switch(A, fmt, **kwargs))
+    with _trace.span("convert.any", target=fmt.name):
+        return convert_execute(A, plan_switch(A, fmt, **kwargs))
+
+
+# ---------------------------------------------------------------------------
+# Observability: plan/execute spans and padding-waste histograms
+# ---------------------------------------------------------------------------
+# The spans wrap host-side symbolic work (plan_switch) or the enqueue of the
+# numeric phase: they time the host, not the device (see obs.trace). The
+# padding-waste histograms cost two divisions of host ints: every input
+# (shape, nnz, plan fields) is host metadata, never device data.
+
+
+def _observe_plan_waste(A, plan: SwitchPlan) -> None:
+    try:
+        m = int(A.shape[0])
+        nnz = int(A.nnz)
+    except (TypeError, AttributeError):  # inputs without nnz
+        return
+    if m <= 0:
+        return
+    if Format(plan.target) == Format.SELL and plan.sell_slice_ptrs:
+        slots = int(plan.sell_slice_ptrs[-1])
+        if slots > 0:
+            _metrics.observe("sell.padding_waste", min(1.0, max(0.0, 1.0 - nnz / slots)))
+        return
+    if plan.ell_k is None:
+        return
+    slots = m * int(plan.ell_k)
+    if slots <= 0:
+        return
+    if Format(plan.target) == Format.ELL:
+        _metrics.observe("ell.padding_waste", min(1.0, max(0.0, 1.0 - nnz / slots)))
+    elif Format(plan.target) == Format.HYB:
+        # the ELL part's occupancy: nnz minus (at most) the planned COO
+        # overflow capacity lands in the k-wide slots
+        ell_nnz = max(0, nnz - int(plan.hyb_coo_capacity or 0))
+        _metrics.observe("hyb.padding_waste", min(1.0, max(0.0, 1.0 - ell_nnz / slots)))
+
+
+def _traced_plan(fn, name: str):
+    @functools.wraps(fn)
+    def wrapper(A, fmt, **kwargs):
+        fmt = Format(fmt)
+        if _trace.mode() == "off":
+            plan = fn(A, fmt, **kwargs)
+        else:
+            with _trace.span(name, fmt=fmt.name) as sp:
+                plan = fn(A, fmt, **kwargs)
+                if plan.ell_k is not None:
+                    sp.set(ell_k=plan.ell_k)
+                if plan.dia_offsets is not None:
+                    sp.set(n_offsets=len(plan.dia_offsets))
+        _observe_plan_waste(A, plan)
+        return plan
+    return wrapper
+
+
+def _traced_execute(fn):
+    @functools.wraps(fn)
+    def wrapper(A, plan: SwitchPlan):
+        if _trace.mode() == "off":
+            return fn(A, plan)
+        with _trace.span("convert.execute", target=Format(plan.target).name):
+            return fn(A, plan)
+    return wrapper
+
+
+# Rebound, so internal callers (convert, coo_to_*, the tuning policy, the
+# distributed and multigrid builders) all go through the instrumented
+# entry points, as in the JAX package.
+plan_switch = _traced_plan(plan_switch, "plan.switch")
+plan_switch_batch = _traced_plan(plan_switch_batch, "plan.switch_batch")
+convert_execute = _traced_execute(convert_execute)

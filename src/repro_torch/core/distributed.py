@@ -44,6 +44,7 @@ counterpart of the JAX package's host-simulated mesh):
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 from typing import Optional, Sequence, Tuple, Union
@@ -58,6 +59,7 @@ from repro_torch.core.dynamic import SwitchDynamicMatrix
 from repro_torch.core.formats import COO, Format
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import trace as _trace
 
 __all__ = ["DistSparseMatrix", "DistPlan", "PartitionedCOO", "stack_parts",
            "plan_partition", "partition_execute", "split_local_execute",
@@ -169,7 +171,11 @@ def _halo(A: DistSparseMatrix, x: torch.Tensor) -> torch.Tensor:
 
 def _count_exchange(A: DistSparseMatrix, x: torch.Tensor) -> None:
     elems = 2 * A.hw if A.halo_mode == "neighbor" else A.shape[1]
-    _metrics.inc("halo.bytes", A.nshards * elems * x.element_size())
+    nbytes = A.nshards * elems * x.element_size()
+    _metrics.inc("halo.bytes", nbytes)
+    if _trace.mode() != "off":
+        _trace.event("exchange.issue", mode=A.halo_mode, p=A.nshards, bytes=nbytes,
+                     split=A.split)
 
 
 def _remote_in(A: DistSparseMatrix, halo: torch.Tensor, p: int) -> torch.Tensor:
@@ -211,10 +217,18 @@ def dist_spmv(A: DistSparseMatrix, x: torch.Tensor, backend: Optional[str] = Non
     The halo gather comes first, then per shard the interior (``local``),
     boundary and remote SpMVs; shard p's sum is written into ``y``'s block
     p. ``backend``/``cfg`` reach every shard's SpMV (``core.ops.spmv``:
-    ``None`` runs the kernels on CUDA tensors). No device->host sync.
+    ``None`` runs the kernels on CUDA tensors). No device->host sync, in
+    any trace mode: the ``exchange.dist_spmv`` span (tracing on) times the
+    host's enqueue of the call.
     """
     names = ("local", "boundary") if A.split else ("local",)
-    return _parts_spmv(A, x, names if A.remote_empty else names + ("remote",), backend, cfg)
+    if not A.remote_empty:
+        names = names + ("remote",)
+    if _trace.mode() == "off":
+        return _parts_spmv(A, x, names, backend, cfg)
+    with _trace.span("exchange.dist_spmv", p=A.nshards,
+                     halo="empty" if A.remote_empty else A.halo_mode):
+        return _parts_spmv(A, x, names, backend, cfg)
 
 
 PHASES = ("full", "local", "exchange", "interior", "boundary")
@@ -517,20 +531,23 @@ def plan_dist_formats(local: COO, remote: COO, plan: DistPlan,
     ``local`` is the interior part and the plan memoises
     ``interior_plans``/``boundary_plans``."""
     candidates = tuple(Format(c) for c in candidates)
+    names = ",".join(f.name for f in candidates)
     if boundary is None:
         if plan.candidates == candidates and plan.local_plans is not None:
             return plan
-        return dataclasses.replace(
-            plan, candidates=candidates,
-            local_plans=tuple(plan_switch_batch(local, f) for f in candidates),
-            remote_plans=tuple(plan_switch_batch(remote, f) for f in candidates))
+        with _trace.span("plan.dist_formats", candidates=names):
+            lplans = tuple(plan_switch_batch(local, f) for f in candidates)
+            rplans = tuple(plan_switch_batch(remote, f) for f in candidates)
+        return dataclasses.replace(plan, candidates=candidates, local_plans=lplans,
+                                   remote_plans=rplans)
     if plan.candidates == candidates and plan.interior_plans is not None:
         return plan
-    return dataclasses.replace(
-        plan, candidates=candidates,
-        interior_plans=tuple(plan_switch_batch(local, f) for f in candidates),
-        boundary_plans=tuple(plan_switch_batch(boundary, f) for f in candidates),
-        remote_plans=tuple(plan_switch_batch(remote, f) for f in candidates))
+    with _trace.span("plan.dist_formats", split=True, candidates=names):
+        iplans = tuple(plan_switch_batch(local, f) for f in candidates)
+        bplans = tuple(plan_switch_batch(boundary, f) for f in candidates)
+        rplans = tuple(plan_switch_batch(remote, f) for f in candidates)
+    return dataclasses.replace(plan, candidates=candidates, interior_plans=iplans,
+                               boundary_plans=bplans, remote_plans=rplans)
 
 
 def _pattern_sig(row, col, val) -> str:
@@ -689,6 +706,8 @@ def build_dist_matrix(row, col, val, shape, nshards: int, *,
             except (KeyError, ValueError):
                 plan = None  # unreadable or old record: plan anew
         _metrics.inc("distplan.cache_hit" if plan is not None else "distplan.cache_miss")
+        if plan is not None:
+            _trace.event("plan.cache_hit", key=cache_key)
 
     if plan is None:
         plan = plan_partition(row, col, val, shape, nshards, halo_mode=halo_mode)
@@ -701,6 +720,7 @@ def build_dist_matrix(row, col, val, shape, nshards: int, *,
             if ((plan.local_plans is not None or plan.interior_plans is not None)
                     and plan.pattern_sig != _pattern_sig(row, col, val)):
                 _metrics.inc("replan.pattern_sig")  # the memoised plans are void
+                _trace.event("plan.replan", reason="pattern_sig")
                 plan = _bare(plan)
     if split == "auto":
         split = not plan.remote_empty
@@ -714,12 +734,16 @@ def build_dist_matrix(row, col, val, shape, nshards: int, *,
                 f"parts shapes {lcoos.shape}/{rcoos.shape} do not match the "
                 f"plan's {plan.local_shape}/{plan.remote_shape}")
     else:
-        lcoos, rcoos = partition_execute(row, col, val, plan, dtype=dtype, device=dev)
+        with _trace.span("build.partition_execute", p=plan.nshards) as sp:
+            lcoos, rcoos = partition_execute(row, col, val, plan, dtype=dtype, device=dev)
+            sp.sync(lcoos.data, rcoos.data)
 
     bcoos = None
     if split:
-        lcoos, bcoos = split_local_execute(lcoos, rcoos, plan.mp, plan.interior_cap,
-                                           plan.boundary_cap)
+        with _trace.span("build.split_execute", p=plan.nshards) as sp:
+            lcoos, bcoos = split_local_execute(lcoos, rcoos, plan.mp, plan.interior_cap,
+                                               plan.boundary_cap)
+            sp.sync(lcoos.data, bcoos.data)
 
     boundary = None
     if mode == "uniform":
@@ -756,6 +780,41 @@ def build_dist_matrix(row, col, val, shape, nshards: int, *,
                             mp=plan.mp, shape=shape, device=dev,
                             halo_mode=plan.halo_mode, hw=plan.hw,
                             remote_empty=plan.remote_empty, plan=plan)
+
+
+# ---------------------------------------------------------------------------
+# Observability: spans on the host-side build pipeline
+# ---------------------------------------------------------------------------
+
+
+def _traced_plan_partition(fn):
+    @functools.wraps(fn)
+    def wrapper(row, col, val, shape, nshards, **kwargs):
+        if _trace.mode() == "off":
+            return fn(row, col, val, shape, nshards, **kwargs)
+        with _trace.span("plan.partition", p=int(nshards)) as sp:
+            plan = fn(row, col, val, shape, nshards, **kwargs)
+            sp.set(halo=plan.halo_mode, hw=plan.hw, remote_empty=plan.remote_empty)
+        return plan
+    return wrapper
+
+
+def _traced_build_dist(fn):
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if _trace.mode() == "off":
+            return fn(*args, **kwargs)
+        with _trace.span("build.dist", mode=kwargs.get("mode", "uniform")) as sp:
+            A = fn(*args, **kwargs)
+            sp.set(p=A.nshards, halo=A.halo_mode, hw=A.hw)
+        return A
+    return wrapper
+
+
+# Rebound, so internal callers (partition_coo, build_dist_matrix, the MG
+# hierarchy builder) and importers all get the instrumented entry points.
+plan_partition = _traced_plan_partition(plan_partition)
+build_dist_matrix = _traced_build_dist(build_dist_matrix)
 
 
 def activate_dist(A: DistSparseMatrix, part: str, fmt_or_ids) -> DistSparseMatrix:

@@ -336,6 +336,30 @@ def coo_from_dense_np(a: np.ndarray, capacity: Optional[int] = None,
     return coo_from_arrays(row, col, val, a.shape, capacity, dtype, device)
 
 
+def random_coo(seed_or_generator, shape, density: float = 0.05,
+               capacity: Optional[int] = None, dtype: torch.dtype = torch.float32,
+               device: DeviceLike = None) -> COO:
+    """Random sparse matrix for tests and benchmarks, made on the host.
+
+    ``seed_or_generator`` is an int seed, a ``numpy.random.Generator`` or a
+    ``torch.Generator`` (one int seed is drawn from it). An int seed gives
+    the JAX package's ``random_coo(int)`` entry for entry; JAX's PRNG keys
+    (threefry) have no counterpart here."""
+    src = seed_or_generator
+    if isinstance(src, torch.Generator):
+        src = int(torch.randint(0, 2 ** 31 - 1, (), generator=src))
+    rng = src if isinstance(src, np.random.Generator) else np.random.default_rng(int(src))
+    m, n = shape
+    nnz = max(1, int(density * m * n))
+    lin = rng.choice(m * n, size=nnz, replace=False)
+    lin.sort()
+    row, col = lin // n, lin % n
+    val = rng.standard_normal(nnz).astype(np.float32)
+    # no exact zeros, so nnz is meaningful
+    val = np.where(np.abs(val) < 1e-3, 1e-3, val)
+    return coo_from_arrays(row, col, val, shape, capacity, dtype, device)
+
+
 def banded_coo(shape, offsets, fill=None, dtype: torch.dtype = torch.float32,
                capacity: Optional[int] = None, device: DeviceLike = None) -> COO:
     """Banded (multi-diagonal) matrix — the stencil-like regular pattern."""

@@ -11,7 +11,11 @@ CUDA kernels, selected with ``backend=``:
   * ``"auto"``: the measured route (:func:`kernel_route`): the kernel only
     where a ``kernel_tune`` record for the matrix's bucket beat the
     reference, with that record's launch knobs; otherwise the reference,
-    counted as ``kernel.route.veto`` or ``kernel.route.ref``.
+    counted as ``kernel.route.veto`` or ``kernel.route.ref``. Each decision
+    leaves a ``kernel.route`` trace event (while tracing is on) and a
+    ``kernel.route`` ledger record with its reason: the port routes on
+    every call, so a record is taken once per container, op and width
+    bucket, and again when the tuning store changes.
 
 Reference semantics carried over from JAX:
   * ``jnp.take(..., mode="clip")`` clamps an index into range — torch's
@@ -29,7 +33,9 @@ from typing import Optional
 import torch
 
 from repro_torch.core.formats import BSR, COO, CSR, DIA, ELL, Dense, HYB, SELL
+from repro_torch.obs import ledger as _ledger
 from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import trace as _trace
 
 # ---------------------------------------------------------------------------
 # Helpers shared with the conversions
@@ -208,15 +214,91 @@ def kernel_route(A, op: str = "spmv", cache=None, ncols: Optional[int] = None):
     if isinstance(A, _DYN_TYPES):
         A = getattr(A, "concrete", A)
     from repro_torch.tuning import kernel_tune  # lazy: tuning imports core
-    if not hasattr(A, "format") or kernel_tune.backend_tag(A.device) != kernel_tune.CUDA_TAG:
+    if not hasattr(A, "format"):
         _metrics.inc("kernel.route.ref")
+        if _ledger.enabled() and _first_route(A, op, ncols, None):
+            _ledger.record("kernel.route", op=op, fmt=type(A).__name__, route="ref",
+                           reason="not a sparse container — no kernel exists for it")
+        return "ref", None
+    fmt_name = getattr(A.format, "name", str(A.format))
+    if kernel_tune.backend_tag(A.device) != kernel_tune.CUDA_TAG:
+        _metrics.inc("kernel.route.ref")
+        if _trace.mode() != "off":
+            _trace.event("kernel.route", op=op, route="ref", fmt=fmt_name)
+        if _ledger.enabled() and _first_route(A, op, ncols, None):
+            _ledger.record("kernel.route", op=op, fmt=fmt_name, route="ref",
+                           bucket=_route_bucket(A, op, ncols),
+                           reason="container off the card — the port's kernels "
+                                  "run on CUDA tensors only")
         return "ref", None
     rec = kernel_tune.best_config(A, op=op, ncols=ncols, cache=cache)
     if rec is not None and rec.speedup >= 1.0:
         _metrics.inc("kernel.route.cuda")
+        if _trace.mode() != "off":
+            _trace.event("kernel.route", op=op, route="cuda", fmt=fmt_name,
+                         cfg=str(dict(rec.cfg)))
+        if _ledger.enabled() and _first_route(A, op, ncols, rec):
+            _ledger.record("kernel.route", op=op, fmt=fmt_name, route="cuda",
+                           kernel=_route_kernel_dict(rec),
+                           bucket=_route_bucket(A, op, ncols))
         return "cuda", dict(rec.cfg)
+    # "no record" differs from "a record exists but measured slower"
     _metrics.inc("kernel.route.veto" if rec is not None else "kernel.route.ref")
+    if _trace.mode() != "off":
+        _trace.event("kernel.route", op=op, route="veto" if rec is not None else "ref",
+                     fmt=fmt_name)
+    if _ledger.enabled() and _first_route(A, op, ncols, rec):
+        if rec is not None:
+            _ledger.record("kernel.route", op=op, fmt=fmt_name, route="veto",
+                           kernel=_route_kernel_dict(rec),
+                           bucket=_route_bucket(A, op, ncols),
+                           reason=f"cached kernel measured {rec.speedup:.2f}x "
+                                  "vs ref (< 1.0) — reference path kept")
+        else:
+            _ledger.record("kernel.route", op=op, fmt=fmt_name, route="ref",
+                           bucket=_route_bucket(A, op, ncols),
+                           reason="no tuned record for this bucket — an "
+                                  "unmeasured kernel is never presumed faster")
     return "ref", None
+
+
+# The route decisions already in the ledger: container -> {(op, width
+# bucket): (store flushes, record)}. The JAX package records a route once
+# per jit trace; the port routes on every call and records a decision again
+# only for another container, op or width bucket, or after the tuning store
+# changed (a flush in this process, or another record for the bucket).
+_ROUTES_RECORDED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _first_route(A, op: str, ncols: Optional[int], rec) -> bool:
+    from repro_torch.tuning import cache as _cache
+    from repro_torch.tuning.kernel_tune import rhs_bucket
+    try:
+        seen = _ROUTES_RECORDED.setdefault(A, {})
+    except TypeError:  # not weak-referenceable: record every decision
+        return True
+    key, stamp = (op, rhs_bucket(ncols)), (_cache.FLUSHES, rec)
+    if seen.get(key) == stamp:
+        return False
+    seen[key] = stamp
+    return True
+
+
+def _route_kernel_dict(rec) -> dict:
+    return {"fmt": rec.fmt, "op": rec.op, "cfg": dict(rec.cfg),
+            "kernel_us": float(rec.kernel_us), "ref_us": float(rec.ref_us),
+            "speedup": float(rec.speedup)}
+
+
+def _route_bucket(A, op: str, ncols: Optional[int]) -> str:
+    """The store key ``kernel_route`` consulted (ledger context only)."""
+    from repro_torch.tuning import kernel_tune
+    try:
+        return kernel_tune.kernel_key(A.format, A.shape[0], A.shape[1],
+                                      max(1, int(getattr(A, "nnz", 1))), op=op,
+                                      ncols=ncols, device=A.device)
+    except (AttributeError, TypeError, ValueError):
+        return "?"
 
 
 def _route(A, backend: Optional[str], cfg: Optional[dict], t: torch.Tensor, op: str,

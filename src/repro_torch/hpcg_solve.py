@@ -17,7 +17,15 @@ With ``--shards P`` (P > 1) step 2 partitions the rows into P z-slabs
 and remote parts in ``--local``/``--remote`` formats (``--mode uniform``)
 or picked per shard by the ``--tune`` policy (``--mode multiformat``), as
 ``examples/hpcg_solve.py`` does on a mesh; ``--precond mg`` then builds the
-distributed hierarchy (``repro_torch.mg.build_dist_hierarchy``). Run:
+distributed hierarchy (``repro_torch.mg.build_dist_hierarchy``).
+
+``--backend`` routes every SpMV of the solve: by default (``None``) the
+CUDA kernels on the card and the reference on the CPU; ``auto`` a kernel
+only where a tuned record beat the reference; ``ref`` the plain torch
+reference, also on the card; ``cuda`` the kernels. ``REPRO_TRACE=summary``
+or ``full`` prints the trace's per-span table after the run (``full`` also
+exports it to ``$REPRO_TRACE_EXPORT``, default ``trace.json``; render it
+with ``python -m repro_torch.obs.report trace.json``). Run:
 
   python -m repro_torch.hpcg_solve --grid 104 104 104
   python -m repro_torch.hpcg_solve --grid 104 104 104 --tune profile
@@ -29,10 +37,13 @@ distributed hierarchy (``repro_torch.mg.build_dist_hierarchy``). Run:
   python -m repro_torch.hpcg_solve --grid 104 104 104 --shards 8
   python -m repro_torch.hpcg_solve --grid 8 8 16 --shards 4 --mode multiformat --device cpu
   python -m repro_torch.hpcg_solve --grid 104 104 104 --shards 4 --mode multiformat --precond mg
+  python -m repro_torch.hpcg_solve --grid 104 104 104 --backend auto --tune cached
+  REPRO_TRACE=full python -m repro_torch.hpcg_solve --grid 16 16 16 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -47,6 +58,7 @@ from repro_torch.core.ops import extract_diagonal
 from repro_torch.core.solvers import cg, operator, pcg
 from repro_torch.device import resolve_device
 from repro_torch.mg import build_dist_hierarchy, build_hierarchy
+from repro_torch.obs import trace
 from repro_torch.tuning.policy import FormatPolicy
 
 TOL_X = 1e-3  # validation: max |x - 1|, as examples/hpcg_solve.py
@@ -54,6 +66,7 @@ FORMATS = ("auto", "DIA", "CSR", "ELL", "SELL", "HYB", "BSR")
 TUNE_MODES = ("ml", "analytic", "profile", "cached")
 PRECONDS = ("none", "jacobi", "mg")
 MODES = ("uniform", "multiformat")
+BACKENDS = ("auto", "ref", "cuda")
 PART_FORMATS = tuple(f.name for f in Format)
 
 
@@ -80,7 +93,8 @@ def _solve(apply_A, b, precond: str, tol: float, maxiter: int, diag=None, apply_
     return cg(apply_A, b, tol=tol, maxiter=maxiter)
 
 
-def _build_single(prob, A, dev, fmt, tune, cache, ell_k, block_size, precond, mg_levels):
+def _build_single(prob, A, dev, fmt, tune, cache, ell_k, block_size, precond, mg_levels,
+                  backend):
     """The single-device operator: the policy's pick (or ``fmt``) and, with
     ``mg``, the hierarchy in that format (or picked by the same policy)."""
     D = DynamicMatrix(A)
@@ -94,15 +108,16 @@ def _build_single(prob, A, dev, fmt, tune, cache, ell_k, block_size, precond, mg
     if precond == "mg":
         t0 = time.perf_counter()
         policy = FormatPolicy(tune, cache=cache) if fmt == "auto" else None
-        hier = build_hierarchy(prob, nlevels=mg_levels, fmt=target, policy=policy, A=A)
+        hier = build_hierarchy(prob, nlevels=mg_levels, fmt=target, policy=policy, A=A,
+                               backend=backend)
         _sync(dev)
         apply_M = hier.apply_M()
         out.update(hier_s=time.perf_counter() - t0, levels=hier.formats(),
                    hierarchy=repr(hier))
-    return operator(M, cfg=out["cfg"]), apply_M, out
+    return operator(M, backend=backend, cfg=out["cfg"]), apply_M, out
 
 
-def _build_dist(prob, dev, shards, mode, local, remote, tune, precond, mg_levels):
+def _build_dist(prob, dev, shards, mode, local, remote, tune, precond, mg_levels, backend):
     """The distributed operator over ``shards`` z-slabs on one device:
     ``hpcg.slab_plan``'s partition, unchecked, when ``nz`` divides into the
     shards, else planned from the triplets; with ``mg`` the distributed
@@ -110,7 +125,8 @@ def _build_dist(prob, dev, shards, mode, local, remote, tune, precond, mg_levels
     kw = dict(mode=mode, tune=tune, local_format=Format[local], remote_format=Format[remote])
     apply_M, out = None, {}
     if precond == "mg":
-        hier = build_dist_hierarchy(prob, shards, device=dev, nlevels=mg_levels, **kw)
+        hier = build_dist_hierarchy(prob, shards, device=dev, nlevels=mg_levels,
+                                    backend=backend, **kw)
         A = hier.levels[0].A
         apply_M = hier.apply_M()
         out.update(levels=hier.formats(), hierarchy=repr(hier))
@@ -123,13 +139,14 @@ def _build_dist(prob, dev, shards, mode, local, remote, tune, precond, mg_levels
                pick_mode=tune if mode == "multiformat" else "named", cfg=None,
                matrix=repr(A), formats={part: list(A.formats(part)) for part in A.shard_parts},
                plan=A.plan, split=A.split)
-    return operator(A), apply_M, out
+    return operator(A, backend=backend), apply_M, out
 
 
 def run(grid, fmt: str = "auto", device=None, tol: float = 1e-7,
         maxiter: int = 500, tune: str = "ml", ell_k=None, block_size=None,
         cache=None, precond: str = "none", mg_levels=None, shards: int = 1,
-        mode: str = "uniform", local: str = "DIA", remote: str = "COO") -> dict:
+        mode: str = "uniform", local: str = "DIA", remote: str = "COO",
+        backend=None) -> dict:
     """Build, select/convert and solve; returns the numbers ``main`` prints.
 
     ``fmt="auto"`` takes the pick of ``FormatPolicy(tune, cache=cache)``
@@ -153,7 +170,13 @@ def run(grid, fmt: str = "auto", device=None, tol: float = 1e-7,
     shard's, and ``mg`` builds the distributed hierarchy (its build is
     part of ``optimize_s``). The result also holds each part's per-shard
     formats (``formats``), the ``DistPlan`` (``plan``) and, with ``mg``,
-    ``levels`` (``DistMGHierarchy.formats()``)."""
+    ``levels`` (``DistMGHierarchy.formats()``).
+
+    ``backend`` reaches the operator and the hierarchy's SpMVs (``None``:
+    the kernels on the card, the reference on the CPU; ``"auto"`` the
+    measured route; ``"ref"``; ``"cuda"``). The phases open the trace spans
+    ``build.problem``, ``build.optimize`` and ``solver.solve`` (the last one
+    waits for the device at its close), as ``examples/hpcg_solve.py`` does."""
     if precond not in PRECONDS:
         raise ValueError(f"precond {precond!r} not in {PRECONDS}")
     if shards > 1 and fmt != "auto":
@@ -165,27 +188,36 @@ def run(grid, fmt: str = "auto", device=None, tol: float = 1e-7,
         raise ValueError("--precond mg needs a format for the color blocks, whose "
                          "(rows of one color x n) shape no BSR block divides: "
                          "pick another --format")
+    if backend is not None and backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {BACKENDS} (or None)")
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    prob = hpcg.generate_problem(*grid)
-    A = hpcg.to_coo(prob, device=dev)
-    b = torch.from_numpy(hpcg.rhs_for_ones(prob)).to(dev)
+    with trace.span("build.problem", grid="x".join(map(str, grid))) as sp:
+        prob = hpcg.generate_problem(*grid)
+        A = hpcg.to_coo(prob, device=dev)
+        b = torch.from_numpy(hpcg.rhs_for_ones(prob)).to(dev)
+        sp.sync(A.data, b)
     _sync(dev)
     t_setup = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    if shards > 1:
-        apply_A, apply_M, out = _build_dist(prob, dev, shards, mode, local, remote, tune,
-                                            precond, mg_levels)
-    else:
-        apply_A, apply_M, out = _build_single(prob, A, dev, fmt, tune, cache, ell_k,
-                                              block_size, precond, mg_levels)
-    _sync(dev)
+    with trace.span("build.optimize", mode=mode if shards > 1 else "single",
+                    precond=precond):
+        if shards > 1:
+            apply_A, apply_M, out = _build_dist(prob, dev, shards, mode, local, remote, tune,
+                                                precond, mg_levels, backend)
+        else:
+            apply_A, apply_M, out = _build_single(prob, A, dev, fmt, tune, cache, ell_k,
+                                                  block_size, precond, mg_levels, backend)
+        _sync(dev)
     t_opt = time.perf_counter() - t0 - out.get("hier_s", 0.0)
 
     t0 = time.perf_counter()
-    res = _solve(apply_A, b, precond, tol, maxiter,
-                 diag=extract_diagonal(A) if precond == "jacobi" else None, apply_M=apply_M)
+    with trace.span("solver.solve", precond=precond) as sp:
+        res = _solve(apply_A, b, precond, tol, maxiter,
+                     diag=extract_diagonal(A) if precond == "jacobi" else None,
+                     apply_M=apply_M)
+        sp.sync(res.x)
     _sync(dev)
     t_solve = time.perf_counter() - t0
 
@@ -195,7 +227,7 @@ def run(grid, fmt: str = "auto", device=None, tol: float = 1e-7,
             "iters": res.iters, "resnorm": float(res.resnorm), "err": err,
             "setup_s": t_setup, "optimize_s": t_opt, "solve_s": t_solve,
             "device": str(dev), "passed": err < TOL_X, "precond": precond,
-            "history": res.history}
+            "backend": backend, "history": res.history}
 
 
 def main(argv=None) -> int:
@@ -235,6 +267,10 @@ def main(argv=None) -> int:
                    help="interior/boundary format of --mode uniform")
     p.add_argument("--remote", default="COO", choices=PART_FORMATS,
                    help="remote-part format of --mode uniform")
+    p.add_argument("--backend", default=None, choices=BACKENDS,
+                   help="SpMV routing: auto = a kernel only where a tuned record beat the "
+                        "reference, ref = the plain torch reference, cuda = the kernels "
+                        "(default: the kernels on the card, the reference on the CPU)")
     args = p.parse_args(argv)
 
     if args.shards > 1 and args.format != "auto":
@@ -243,7 +279,7 @@ def main(argv=None) -> int:
     r = run(args.grid, args.format, args.device, args.tol, args.maxiter, tune=args.tune,
             ell_k=args.ell_k, block_size=args.block_size, cache=args.cache,
             precond=args.precond, mg_levels=args.mg_levels, shards=args.shards,
-            mode=args.mode, local=args.local, remote=args.remote)
+            mode=args.mode, local=args.local, remote=args.remote, backend=args.backend)
     shards = f"shards: {args.shards}, " if args.shards > 1 else ""
     print(f"device: {r['device']}, {shards}grid: {args.grid}, n={r['n']} nnz={r['nnz']} "
           f"(setup {r['setup_s']:.2f}s)")
@@ -261,6 +297,13 @@ def main(argv=None) -> int:
     if args.precond == "jacobi":
         print("preconditioner: Jacobi, diag(A)")
     _report(r, args.verbose)
+    if trace.enabled():
+        print(f"\n# trace summary (REPRO_TRACE={trace.mode()})")
+        print(trace.summary())
+        if trace.mode() == "full":
+            out = os.environ.get("REPRO_TRACE_EXPORT", "trace.json")
+            print(f"trace exported: {trace.export_chrome(out)} "
+                  f"(render: python -m repro_torch.obs.report {out})")
     return 0 if r["passed"] else 1
 
 

@@ -18,8 +18,9 @@ SpMV kernels on the card, the reference on the CPU), as the port's
 ``operator`` does; JAX defaults to ``"auto"``. ``build_hierarchy`` builds
 on the device it is given (``device=None``: the card, raising without
 one). A V-cycle runs eagerly and never syncs with the host. The JAX
-package's ``mg.vcycle``/``build.mg_level`` trace spans wait for the port's
-``obs`` tracing.
+package's trace spans carry over: ``build.mg_level`` a level at build time
+and, while tracing is on, ``mg.vcycle`` a level on *every* cycle (JAX opens
+it once per jit trace); off, a level costs one mode check.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from repro_torch.core.hpcg import HPCGProblem, to_coo as hpcg_to_coo
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.mg.coarsen import Coarsening, coarsen_execute, plan_coarsen, prolong, restrict
 from repro_torch.mg.smoothers import ColoredSystem, _symgs_, build_colored, jacobi
+from repro_torch.obs import trace as _trace
 
 # Coarsening stops once a level has this few rows (the coarse solve,
 # SymGS sweeps, handles the rest).
@@ -107,6 +109,13 @@ def _smooth(hier: MGHierarchy, lev: MGLevel, b, x, sweeps: int):
 
 def v_cycle(hier: MGHierarchy, r: torch.Tensor, level: int = 0) -> torch.Tensor:
     """One V-cycle on ``A_level z = r`` from a zero initial guess."""
+    if _trace.mode() == "off":
+        return _v_cycle(hier, r, level)
+    with _trace.span("mg.vcycle", level=level):
+        return _v_cycle(hier, r, level)
+
+
+def _v_cycle(hier: MGHierarchy, r: torch.Tensor, level: int) -> torch.Tensor:
     lev = hier.levels[level]
     if level == hier.nlevels - 1:
         return _smooth(hier, lev, r, None, hier.coarse_sweeps)
@@ -159,14 +168,17 @@ def build_hierarchy(prob: HPCGProblem, nlevels: Optional[int] = None,
         last = ((nlevels is not None and len(levels) + 1 >= nlevels)
                 or any(d % 2 for d in dims)
                 or (C.shape[0] // 8) < MIN_COARSE_ROWS)
-        cz = None
-        if not last:
-            plan = plan_coarsen(*dims, prolong=prolong, coarse_op=coarse_op)
-            cz = coarsen_execute(plan, Af=C)
-        op = _pick_format(C, policy, fmt)
-        cs = (build_colored(C, dims=dims, fmt=fmt, policy=policy)
-              if smoother == "symgs" else None)
-        diag = cs.diag if cs is not None else _ops.extract_diagonal(C)
+        with _trace.span("build.mg_level", level=len(levels),
+                         dims="x".join(map(str, dims))) as sp:
+            cz = None
+            if not last:
+                plan = plan_coarsen(*dims, prolong=prolong, coarse_op=coarse_op)
+                cz = coarsen_execute(plan, Af=C)
+            op = _pick_format(C, policy, fmt)
+            cs = (build_colored(C, dims=dims, fmt=fmt, policy=policy)
+                  if smoother == "symgs" else None)
+            diag = cs.diag if cs is not None else _ops.extract_diagonal(C)
+            sp.set(fmt=Format(op.format).name).sync(diag)
         levels.append(MGLevel(op, diag, cs, cz, dims))
         if last:
             break

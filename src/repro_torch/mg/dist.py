@@ -25,7 +25,9 @@ and adds only the live rows (JAX scatters every lane and drops the padded
 ones); the rows of the diagonal are gathered once at build time. With a
 ``smoother_policy`` a color's stacked union holds the formats that some
 shard picked, not every candidate (a color block in DIA stores one
-diagonal per row of the block). No cycle syncs with the host.
+diagonal per row of the block). No cycle syncs with the host. The JAX
+package's spans carry over: ``build.mg_dist_level`` a level at build time
+and, while tracing is on, ``mg.vcycle_dist`` a level on every cycle.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ from repro_torch.mg.coarsen import f2c_map, plan_coarsen
 from repro_torch.mg.cycle import MIN_COARSE_ROWS
 from repro_torch.mg.smoothers import (NCOLORS, _split_colors_device, color_grid,
                                       color_ranks, color_rows_padded)
+from repro_torch.obs import trace as _trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,15 +225,17 @@ def build_dist_hierarchy(prob: HPCGProblem, nshards: int, *,
                 or (nx * ny * nz) // 8 < MIN_COARSE_ROWS)
         # one device scatter a level: the stacked (local, remote) parts feed
         # both the matrix builder (parts=) and the colored smoother
-        local, remote, plan = partition_problem(prob_l, nshards, dtype=dtype, device=dev)
-        A = build_dist_matrix(prob_l.row, prob_l.col, prob_l.val, prob_l.shape, nshards,
-                              device=dev, local_format=local_format,
-                              remote_format=remote_format, mode=mode, tune=tune,
-                              candidates=candidates, plan=plan, check_plan=False,
-                              dtype=dtype, parts=(local, remote))
-        slab_dims = (nx, ny, nz // nshards)
-        colored = _build_dist_colored(local, slab_dims, fmt=smoother_format,
-                                      policy=smoother_policy, candidates=candidates)
+        with _trace.span("build.mg_dist_level", level=len(levels),
+                         dims="x".join(map(str, dims)), p=nshards):
+            local, remote, plan = partition_problem(prob_l, nshards, dtype=dtype, device=dev)
+            A = build_dist_matrix(prob_l.row, prob_l.col, prob_l.val, prob_l.shape, nshards,
+                                  device=dev, local_format=local_format,
+                                  remote_format=remote_format, mode=mode, tune=tune,
+                                  candidates=candidates, plan=plan, check_plan=False,
+                                  dtype=dtype, parts=(local, remote))
+            slab_dims = (nx, ny, nz // nshards)
+            colored = _build_dist_colored(local, slab_dims, fmt=smoother_format,
+                                          policy=smoother_policy, candidates=candidates)
         # coarse slab -> fine slab injection (fine z = 2 * coarse z stays
         # inside the same z-slab)
         f2c_local = None if last else f2c_map(plan_coarsen(*slab_dims), dev)
@@ -295,6 +300,13 @@ def _dist_prolong(lev: DistMGLevel, xc: torch.Tensor) -> torch.Tensor:
 
 def v_cycle_dist(hier: DistMGHierarchy, r: torch.Tensor, level: int = 0) -> torch.Tensor:
     """One distributed V-cycle from a zero guess. No device->host sync."""
+    if _trace.mode() == "off":
+        return _v_cycle_dist(hier, r, level)
+    with _trace.span("mg.vcycle_dist", level=level):
+        return _v_cycle_dist(hier, r, level)
+
+
+def _v_cycle_dist(hier: DistMGHierarchy, r: torch.Tensor, level: int) -> torch.Tensor:
     lev = hier.levels[level]
     if level == hier.nlevels - 1:
         return _dist_smooth(hier, lev, r, None, hier.coarse_sweeps, True)

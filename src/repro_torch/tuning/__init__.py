@@ -8,15 +8,17 @@ the pattern features, the decision tree (its own copy of
 ``default_tree.json``), the profiling tuner (``profile_select``,
 ``time_fn``), the persistent selection cache (``SelectionCache``, the JAX
 package's file format) and the kernel tuner (``kernel_tune``: measured
-launch knobs and the ``backend="auto"`` records).
+launch knobs and the ``backend="auto"`` records), the measured gather
+penalty (``calibrate_gather_penalty``) and the training corpus
+(``python -m repro_torch.tuning.corpus``, imported on demand).
 """
 from repro_torch.tuning import kernel_tune
 from repro_torch.tuning.cache import (CACHE_PATH_ENV, SelectionCache, decode_decision,
                                       default_cache_path, encode_decision,
                                       pattern_signature)
 from repro_torch.tuning.engines import (GATHER_PENALTY, HBM_BW, TuneReport,
-                                        analytic_select, predicted_bytes,
-                                        profile_select, time_fn)
+                                        analytic_select, calibrate_gather_penalty,
+                                        predicted_bytes, profile_select, time_fn)
 from repro_torch.tuning.features import FEATURE_NAMES, PatternFeatures, PatternStats
 from repro_torch.tuning.kernel_tune import (KernelRecord, backend_tag, best_config,
                                             best_config_for, default_grid,
@@ -30,6 +32,7 @@ __all__ = [
     "FormatPolicy", "MODES", "PatternFeatures", "PatternStats", "FEATURE_NAMES",
     "DecisionTree", "load_default_tree", "DEFAULT_TREE_PATH",
     "TuneReport", "analytic_select", "predicted_bytes", "HBM_BW", "GATHER_PENALTY",
+    "calibrate_gather_penalty",
     "profile_select", "time_fn",
     "SelectionCache", "CACHE_PATH_ENV", "default_cache_path", "pattern_signature",
     "encode_decision", "decode_decision",

@@ -2,14 +2,13 @@
 
   * the analytic byte model: SpMV is memory-bandwidth bound, so predicted
     time = bytes touched / HBM bandwidth, with a penalty on gathered x
-    accesses;
+    accesses: the fixed ``GATHER_PENALTY`` (the JAX package's v5e value),
+    or with ``calibrate=True`` the gather-vs-stream time ratio measured on
+    the device (:func:`calibrate_gather_penalty`, once per device);
   * the paper's profiling tuner: :func:`profile_select` converts ``A`` into
     each candidate format, times one SpMV, SpMM or SpMM_T with
     :func:`time_fn` (CUDA events on the card, the host clock on the CPU)
     and picks the fastest.
-
-The measured gather penalty (``calibrate_gather_penalty``) is still to be
-ported.
 """
 from __future__ import annotations
 
@@ -24,6 +23,7 @@ from repro_torch.core import ops as _ops
 from repro_torch.core.convert import convert_execute, plan_switch
 from repro_torch.core.dynamic import DynamicMatrix
 from repro_torch.core.formats import Format
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.tuning.features import PatternStats
 
@@ -31,6 +31,39 @@ from repro_torch.tuning.features import PatternStats
 # on it: it scales every predicted time alike.
 HBM_BW = 3.35e12  # bytes/s
 GATHER_PENALTY = 4.0  # effective-bandwidth derate for data-dependent gathers
+
+# Measured gather penalties, keyed by (device type, device name): a process
+# that runs on the CPU and on the card must not reuse the other's number.
+_CALIBRATED_PENALTY: Dict[tuple, float] = {}
+
+
+def _device_key(dev: torch.device) -> tuple:
+    if dev.type != "cuda":
+        return (dev.type, dev.type)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return (dev.type, torch.cuda.get_device_name(index))
+
+
+def calibrate_gather_penalty(n: int = 1 << 18, iters: int = 5,
+                             device: DeviceLike = None) -> float:
+    """The gather-vs-stream time ratio of ``device`` (``None``: the card),
+    used as the analytic model's gather penalty (the fixed 4.0 is the JAX
+    package's TPU v5e value). Times ``v * 2 + 1`` against a gather
+    ``v[idx]`` of ``n`` float32 values at random indices (numpy seed 0)
+    with :func:`time_fn`; at least 1. Measured once per (device type,
+    device name) and process."""
+    dev = resolve_device(device)
+    key = _device_key(dev)
+    if key in _CALIBRATED_PENALTY:
+        return _CALIBRATED_PENALTY[key]
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, n, n).astype(np.int32)).to(dev)
+    t_s = time_fn(lambda v: v * 2.0 + 1.0, x, iters=iters)
+    t_g = time_fn(lambda v, i: v.index_select(0, i), x, idx, iters=iters)
+    penalty = float(max(1.0, t_g / max(t_s, 1e-9)))
+    _CALIBRATED_PENALTY[key] = penalty
+    return penalty
 
 
 @dataclasses.dataclass
@@ -52,9 +85,12 @@ class TuneReport:
         return f"TuneReport(best={self.best.name}, mode={self.mode}{extra}, {rows})"
 
 
-def predicted_bytes(stats: PatternStats, fmt: Format) -> float:
-    """Bytes touched by one SpMV in ``fmt`` (matrix + x-access cost model)."""
-    GATHER = GATHER_PENALTY
+def predicted_bytes(stats: PatternStats, fmt: Format,
+                    gather_penalty: Optional[float] = None) -> float:
+    """Bytes touched by one SpMV in ``fmt`` (matrix + x-access cost model);
+    gathered x reads count ``gather_penalty`` times (default
+    ``GATHER_PENALTY``)."""
+    GATHER = gather_penalty if gather_penalty is not None else GATHER_PENALTY
     w, m, n = stats.itemsize, stats.m, stats.n
     ii = 4  # index itemsize
     if fmt == Format.COO:
@@ -99,11 +135,18 @@ def predicted_bytes(stats: PatternStats, fmt: Format) -> float:
 
 def analytic_select(stats: PatternStats,
                     candidates: Sequence[Format] = (Format.COO, Format.CSR, Format.DIA,
-                                                    Format.ELL, Format.SELL)) -> TuneReport:
-    times = {Format(f): predicted_bytes(stats, Format(f)) / HBM_BW
+                                                    Format.ELL, Format.SELL),
+                    hbm_bw: float = HBM_BW, calibrate: bool = False,
+                    device: DeviceLike = None) -> TuneReport:
+    """The analytic pick: predicted bytes over ``hbm_bw`` for each
+    candidate. ``calibrate=True`` takes the gather penalty measured on
+    ``device`` (``None``: the card) and reports the tier
+    ``"analytic-calibrated"``; the default keeps the fixed penalty."""
+    pen = calibrate_gather_penalty(device=device) if calibrate else None
+    times = {Format(f): predicted_bytes(stats, Format(f), pen) / hbm_bw
              for f in candidates}
     best = min(times, key=times.get)
-    return TuneReport(best, times, "analytic")
+    return TuneReport(best, times, "analytic-calibrated" if calibrate else "analytic")
 
 
 def time_fn(fn, *args, iters: int = 10, warmup: int = 2, inner: int = 1) -> float:

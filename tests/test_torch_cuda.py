@@ -1300,3 +1300,78 @@ def test_dist_hpcg_solve_on_card_matches_cpu(card, precond):
     b = hpcg_solve.run((16, 16, 16), device="cpu", **kw)
     assert a["passed"] and b["passed"] and abs(a["iters"] - b["iters"]) <= 1
     assert a["formats"] == b["formats"] and a["plan"] == b["plan"]
+
+
+# ---------------------------------------------------------------------------
+# Observability on the card (repro_torch.obs)
+# ---------------------------------------------------------------------------
+
+
+def test_span_sync_waits_for_card_tensors_once_at_close(card, monkeypatch):
+    from repro_torch.obs import trace
+    real, calls = torch.cuda.synchronize, []
+
+    def counted(*a):
+        calls.append(a)
+        real(*a)
+    monkeypatch.setattr(torch.cuda, "synchronize", counted)
+    A = convert(coo_from_dense_np(np.eye(512, dtype=np.float32), device=card), Format.CSR)
+    x = torch.ones(512, device=card)
+    with trace.tracing("full"):
+        trace.clear()
+        with trace.span("solver.solve") as sp:
+            y = spmv(A, x)
+            sp.sync(y, torch.ones(2))
+            assert calls == []
+        assert calls == [(y.device,)]
+        with trace.span("solver.none"):
+            spmv(A, x)
+        assert len(calls) == 1
+        ev = next(e for e in trace.events() if e["name"] == "solver.solve")
+    assert ev["dur"] > 0 and torch.equal(y, x)
+    trace.clear()
+
+
+@pytest.mark.parametrize("mode", ["off", "summary"])
+def test_traced_hot_paths_make_no_host_sync(card, mode, monkeypatch, tmp_path):
+    """spmv (routed ``auto``), dist_spmv and a V-cycle with tracing off or
+    in summary mode and the ledger on: no implicit device->host sync, no
+    synchronize."""
+    from repro_torch.core.distributed import dist_spmv
+    from repro_torch.mg import build_dist_hierarchy
+    from repro_torch.obs import ledger, trace
+    monkeypatch.setenv("REPRO_TUNING_CACHE", str(tmp_path / "empty.json"))
+    h = build_dist_hierarchy(hpcg.generate_problem(16, 16, 32), 4, device=card,
+                             mode="multiformat", tune="ml")
+    hier = _hier(card, 16)
+    A = h.levels[0].A
+    r, r16 = torch.ones(A.shape[0], device=card), torch.ones(16 ** 3, device=card)
+    M = hier.levels[0].A
+    outs0 = (spmv(M, r16, backend="auto"), dist_spmv(A, r), h.apply_M()(r),
+             hier.apply_M()(r16))  # warm
+    torch.cuda.synchronize()
+    ledger.set_enabled(True)
+    real_sync = torch.cuda.synchronize
+
+    def boom(*a):
+        raise AssertionError("torch.cuda.synchronize on a hot path")
+    monkeypatch.setattr(torch.cuda, "synchronize", boom)
+    with trace.tracing(mode):
+        trace.clear()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs = (spmv(M, r16, backend="auto"), dist_spmv(A, r), h.apply_M()(r),
+                    hier.apply_M()(r16))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        names = set(trace.aggregate())
+    monkeypatch.setattr(torch.cuda, "synchronize", real_sync)
+    # the auto route has no record here: the reference, which sums with
+    # atomics, reruns within rounding; the rest reruns bitwise
+    assert torch.allclose(outs[0], outs0[0], rtol=1e-5, atol=1e-5)
+    for got, want in zip(outs[1:], outs0[1:]):
+        assert torch.equal(got, want)
+    assert names == (set() if mode == "off" else
+                     {"kernel.route", "exchange.issue", "exchange.dist_spmv", "mg.vcycle",
+                      "mg.vcycle_dist"})
+    trace.clear()
