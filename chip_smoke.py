@@ -15,7 +15,8 @@ Phases, in order (any failure exits nonzero and prints no result line):
    bfloat16; bitwise equality over two runs; median times (CUDA events,
    after 0.2 s of warm-up) of the kernel, the plain version and one library
    call computing the same product (``torch.mv`` on a
-   ``torch.sparse_csr_tensor``, a yardstick only), beside the least time
+   ``torch.sparse_csr_tensor``; for BSR ``torch.sparse_bsr_tensor`` at block
+   size 8 times x; a yardstick only), beside the least time
    the card could take (bytes over the memory rate, operations over the
    float32 peak); a HYB line (the ELL and CSR kernels composed);
    then the six SpMM kernels (``csr_spmm``, ``csr_spmm_t``, ``ell_spmm``,
@@ -134,9 +135,30 @@ Phases, in order (any failure exits nonzero and prints no result line):
       finding: nothing switches to it); (h5) a 12-matrix corpus labelled
       on the card (iters 3) and trained into a temporary tree, with
       default_tree.json's sha256 unchanged.
+   i. the dense decoder and the serving engine (``repro_torch.models``,
+      ``repro_torch.launch.serve``) at minitron-8b's full width (32 layers,
+      d_model 4096, 32 heads over 8 kv heads, head_dim 128, d_ff 16384,
+      vocab 256000; random weights from seed 0; no sparse kernel on this
+      path, and none may launch): (i1) bf16 params and compute,
+      DecodeEngine(slots=4, max_len=1024) serving 8 requests of 64-512
+      prompt tokens (numpy seed 0) and 32 new tokens each, every logit
+      finite, at least two batched prefills; tokens/s, ms a decode step by
+      the host clock and by CUDA events beside its bound (the weights and
+      live kv rows over the memory rate), ms a batched prefill with its
+      (R, P) bucket beside its bound (bf16 peak), the serve.* p50/p99, peak
+      memory; (i2) float32 params: the engine's greedy tokens (batched
+      prefill) equal per-token prefill-by-decode's with a float32 cache
+      (the JAX engine's bf16 cache reported beside), first logits of
+      prefill_cache within LOGIT_REL * max|logit| of the by-decode ones,
+      decode_step's logits at every prompt position within the same bound
+      of forward(logits_mode='all'); (i3) layer 0's attention block, MLP
+      and one decode step over a 64-token cache in float64 against float32
+      (WITNESS_REL), the int8 kv_quant step against the float32 cache's
+      (INT8_REL); (i4) ``serve.main`` in this process on stablelm-1.6b at
+      full size (f32 params, as the CLI makes them).
 
 The last three lines of standard output are the kernels' JSON record (all
-eleven kernels, launches summed over paths (a)-(h), and each kernel's
+eleven kernels, launches summed over paths (a)-(i), and each kernel's
 launches on its token-major and dense-tile schedules), the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": ...}``.
 """
@@ -555,10 +577,17 @@ def phase_kernels(torch, np, prob, peak_bw, peak_flops):
         for kname, run, plain, nbytes, nops, src, repl in rows:
             ms = time_ms(run, 100)
             plain_ms = time_ms(plain, 20)
-            lib_ms = time_ms(lambda: torch.mv(lib, x32), 100) if dtype == torch.float32 else None
+            # the library call of the same product: torch.sparse_bsr_tensor @ x
+            # for BSR (bs = 8), torch.mv on the CSR tensor for the others
+            lib_ms = None
+            if dtype == torch.float32:
+                lib_ms = bsr_lib_ms if kname == "bsr_spmm" else time_ms(
+                    lambda: torch.mv(lib, x32), 100)
             t_bytes, t_ops = nbytes / peak_bw * 1e3, nops / peak_flops * 1e3
             bound = max(t_bytes, t_ops)
             lib_s = f"{lib_ms:.4f}" if lib_ms is not None else "n/a"
+            if kname == "bsr_spmm" and dtype == torch.float32:
+                lib_s += f" (BSR; the CSR call {time_ms(lambda: torch.mv(lib, x32), 100):.4f})"
             print(f"  {kname} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"library {lib_s} ms, bound {bound:.4f} ms "
                   f"({nbytes / 1e6:.1f} MB, {nops / 1e6:.1f} Mop) -> "
@@ -974,7 +1003,7 @@ def time_v_cycle(torch, apply_M, r, label):
     kern_ms = ms_of(kern)
     spmv = [e for e in kern if "spmv" in e.key]
     nkern = sum(e.count for e in kern) / 3
-    prof_txt = (f"profiler: {nkern:.0f} kernels, {kern_ms:.4f} ms of kernel time a cycle, "
+    prof_txt = (f"profiler: {nkern:.0f} kernels, {kern_ms:.4f} ms of kernel time a call, "
                 f"{ms_of(spmv):.4f} of it in {sum(e.count for e in spmv) / 3:.0f} SpMV "
                 f"kernels" if kern else "profiler: no device events (not measured)")
     print(f"  {label}: {host_ms:.4f} ms a call by the host clock, {span_ms:.4f} by CUDA "
@@ -2867,6 +2896,352 @@ def phase_obs(torch, np, prob, store):
     return read_path(torch, "(h)", ("dia_spmv", "csr_spmv"))
 
 
+# ---------------------------------------------------------------------------
+# Path (i): the dense decoder and the serving engine at minitron-8b's width
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "minitron_8b"
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_MAX_NEW = 4, 1024, 8, 32
+SERVE_PROMPT_LENS = (64, 512)  # inclusive range of the prompt lengths (numpy seed 0)
+PARITY_LENS, PARITY_NEW, PARITY_MAX_LEN = (37, 61), 8, 128
+LOGIT_REL = 1e-3   # |a - b| <= LOGIT_REL * max|logit| (float32 prefill vs decode)
+WITNESS_REL = 1e-4  # float32 vs float64: max|a - b| <= WITNESS_REL * max|b|
+# int8 cache vs the same step on a float32 cache of the same k/v: each entry
+# is off by at most 0.5 * scale (rounding) + 127 * scale * 2^-9 (bf16 scale),
+# < 0.6% of its row's largest |entry|; the step's output is held within
+# INT8_REL of its largest |entry| (tests/test_torch_models.py states the same)
+INT8_REL = 2.0 ** -6
+BF16_PEAK = 989e12  # H100 SXM data sheet, dense bf16 tensor-core FLOP/s
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.models.spec import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _rel(torch, a, b) -> float:
+    """max|a - b| / max|b|, in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def _serve_timers(torch, engine, finite):
+    """Wrap the engine's step and prefill: CUDA events around each decode
+    step and prefill, the host clock around each ``engine.step`` (which
+    ends by reading the tokens, so it waits for the device), and a finite
+    check of every logit (one reduction on the device, read at the end)."""
+    rec = {"step_ev": [], "step_host": [], "prefill": [], "step_bytes": []}
+    step, prefill, outer = engine._step, engine._prefill, engine.step
+
+    def timed_step(params, cache, tokens, pos):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        logits, cache = step(params, cache, tokens, pos)
+        e.record()
+        finite.append(torch.isfinite(logits).all())
+        rec["step_ev"].append((s, e))
+        return logits, cache
+
+    def timed_prefill(params, cache, tokens, slots, lengths):
+        torch.cuda.synchronize()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        s.record()
+        logits, cache = prefill(params, cache, tokens, slots, lengths)
+        e.record()
+        torch.cuda.synchronize()
+        finite.append(torch.isfinite(logits).all())
+        rec["prefill"].append((tuple(tokens.shape), (time.perf_counter() - t0) * 1e3, s, e))
+        return logits, cache
+
+    def timed_outer(max_new, eos=-1):
+        live = int((engine.pos[engine.active] + 1).sum())  # cache rows the step reads
+        t0 = time.perf_counter()
+        out = outer(max_new, eos=eos)
+        rec["step_host"].append((time.perf_counter() - t0) * 1e3)
+        rec["step_bytes"].append(live)
+        return out
+
+    engine._step, engine._prefill, engine.step = timed_step, timed_prefill, timed_outer
+    return rec
+
+
+def serve_full_width(torch, np, smi, peak_bw, dev):
+    """(i1) minitron-8b at full width in bf16 params and compute: 8 requests
+    through DecodeEngine(slots=4, max_len=1024)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import DecodeEngine, serve
+    from repro_torch.models import build_model
+    from repro_torch.obs import metrics
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), dtype="bfloat16")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, param_dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n, nbytes = model.n_params(), _tree_bytes(params)
+    emb_bytes = params["embed"]["tokens"].numel() * 2
+    print(f"  (i1) {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads over {cfg.n_kv} kv heads, head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}: {n:,} params, {nbytes / 1e9:.2f} GB in bf16 ({(nbytes - emb_bytes) / 1e9:.2f} "
+          f"GB without the input embedding), made on the card in {t_init:.2f} s [{smi}]",
+          flush=True)
+    check(n == cfg.n_params() and nbytes == 2 * n,
+          f"(i1) the params are {cfg.name}'s {cfg.n_params():,}, two bytes each")
+    rng = np.random.default_rng(SEED)
+    lo, hi = SERVE_PROMPT_LENS
+    lens = rng.integers(lo, hi + 1, SERVE_REQUESTS)
+    reqs = [(i, rng.integers(0, cfg.vocab, (int(L),)).astype(np.int32))
+            for i, L in enumerate(lens)]
+    engine = DecodeEngine(model, params, SERVE_SLOTS, SERVE_MAX_LEN, device=dev)
+    cache_bytes = _tree_bytes(engine.cache)
+    print(f"  (i1) DecodeEngine(slots={SERVE_SLOTS}, max_len={SERVE_MAX_LEN}): kv cache "
+          f"{cache_bytes / 1e9:.3f} GB (bf16); prompt lengths {lens.tolist()}, max_new "
+          f"{SERVE_MAX_NEW}", flush=True)
+    serve(engine, [(-1, reqs[0][1][:8])], 2)  # warm-up: cuBLAS handles, first launches
+    warm_calls = engine.prefill_calls
+    metrics.reset(["serve.requests", "serve.tokens", "serve.latency_us", "serve.queue_us",
+                   "serve.prefill_us", "serve.decode_us", "serve.queue_depth"])
+    finite = []
+    rec = _serve_timers(torch, engine, finite)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, steps = serve(engine, reqs, SERVE_MAX_NEW)
+    wall = time.perf_counter() - t0
+    ntok = sum(len(o) for _, o in done)
+    check(sorted(r for r, _ in done) == list(range(SERVE_REQUESTS))
+          and all(len(o) == SERVE_MAX_NEW for _, o in done),
+          f"(i1) all {SERVE_REQUESTS} requests finished with {SERVE_MAX_NEW} tokens")
+    check(bool(torch.stack(finite).all()), f"(i1) every logit finite ({len(finite)} calls)")
+    prefills = engine.prefill_calls - warm_calls
+    check(prefills >= 2, f"(i1) {prefills} batched prefills: a refill between steps")
+    step_ev = [s.elapsed_time(e) for s, e in rec["step_ev"]]
+    host, ev = statistics.median(rec["step_host"]), statistics.median(step_ev)
+    # the least time of a decode step: the weights it reads (all but the
+    # input embedding, of which it reads one row a slot), the live kv rows
+    # of the cache, the logits written
+    kv_row = cfg.n_layers * cfg.n_kv * cfg.hd * 2 * 2
+    live = statistics.median(rec["step_bytes"])
+    step_bytes = (nbytes - emb_bytes + SERVE_SLOTS * cfg.d_model * 2 + live * kv_row
+                  + SERVE_SLOTS * cfg.padded_vocab * 4)
+    bound_step = step_bytes / peak_bw * 1e3
+    print(f"  (i1) served {len(done)} requests, {ntok} tokens in {wall:.3f} s: "
+          f"{ntok / wall:.1f} tokens/s, {steps} engine steps [{smi}]")
+    print(f"  (i1) decode step (4 slots): median {host:.3f} ms by the host clock, {ev:.3f} ms "
+          f"by CUDA events (min {min(step_ev):.3f}, max {max(step_ev):.3f}, {len(step_ev)} "
+          f"steps); bound {bound_step:.3f} ms ({step_bytes / 1e9:.2f} GB at "
+          f"{peak_bw / 1e12:.2f} TB/s) -> {bound_step / ev:.1%} of bound [{smi}]")
+    lin_flops = 2 * (n - cfg.padded_vocab * cfg.d_model * 2)  # a token through the layers
+    for (R, P), host_ms, s, e in rec["prefill"]:
+        flops = (R * P * lin_flops + 2 * cfg.n_layers * R * cfg.n_heads * P * P * cfg.hd
+                 + 2 * R * cfg.d_model * cfg.padded_vocab)
+        bound = max(flops / BF16_PEAK, (nbytes - emb_bytes) / peak_bw) * 1e3
+        ms = s.elapsed_time(e)
+        print(f"  (i1) batched prefill (R, P) = ({R}, {P}): {host_ms:.3f} ms host, {ms:.3f} ms "
+              f"by CUDA events; bound {bound:.3f} ms ({flops / 1e12:.2f} TFLOP at "
+              f"{BF16_PEAK / 1e12:.0f} TFLOP/s bf16) -> {bound / ms:.1%} of bound [{smi}]")
+    for name in ("serve.queue_us", "serve.prefill_us", "serve.decode_us", "serve.latency_us",
+                 "serve.queue_depth"):
+        q = metrics.quantiles(name, (0.5, 0.99))
+        unit = "" if name.endswith("depth") else " ms"
+        scale = 1.0 if name.endswith("depth") else 1e-3
+        print(f"  (i1) {name}: p50 {q['p50'] * scale:.3f}{unit}, p99 {q['p99'] * scale:.3f}{unit} "
+              f"[{smi}]")
+    # the step's own device time (launches queued behind a spin) and the
+    # profiler's kernel sum: how far the host holds the card back
+    tokens = torch.tensor(engine.tokens, device=dev)
+    pos = torch.tensor(engine.pos, device=dev)
+    time_v_cycle(torch, lambda _: model.decode_step(params, engine.cache, tokens, pos), None,
+                 f"(i1) decode_step, {SERVE_SLOTS} slots [{smi}]")
+    print(f"  (i1) peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"[{smi}]", flush=True)
+    del engine, params
+
+
+def greedy_by_decode(torch, model, params, prompt, max_new, max_len, cache_dtype, dev):
+    """Per-token prefill-by-decode, then greedy decode of one request: the
+    tokens, and the logits at every prompt position."""
+    cache = model.init_cache(1, max_len, cache_dtype, device=dev)
+    rows = []
+    for i, t in enumerate(prompt):
+        logits, cache = model.decode_step(params, cache, torch.tensor([int(t)], device=dev),
+                                          torch.tensor([i], device=dev))
+        rows.append(logits[0])
+    tok = int(torch.argmax(logits[0]))
+    out, pos = [tok], len(prompt)
+    while len(out) < max_new:
+        logits, cache = model.decode_step(params, cache, torch.tensor([tok], device=dev),
+                                          torch.tensor([pos], device=dev))
+        tok = int(torch.argmax(logits[0]))
+        out.append(tok)
+        pos += 1
+    return out, torch.stack(rows)
+
+
+def parity_full_width(torch, np, smi, dev):
+    """(i2) float32 at full width: the engine's batched prefill against
+    per-token prefill-by-decode, and decode_step against forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import DecodeEngine, serve
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), dtype="float32")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    print(f"  (i2) {cfg.name} float32: {_tree_bytes(params) / 1e9:.2f} GB of params made in "
+          f"{time.perf_counter() - t0:.2f} s; requests of {PARITY_LENS} tokens, "
+          f"{PARITY_NEW} new [{smi}]", flush=True)
+    rng = np.random.default_rng(SEED)
+    reqs = [(i, rng.integers(0, cfg.vocab, (n,)).astype(np.int32))
+            for i, n in enumerate(PARITY_LENS)]
+    for cache_dtype in (torch.float32, torch.bfloat16):
+        cname = str(cache_dtype).replace("torch.", "")
+        engine = DecodeEngine(model, params, len(reqs), PARITY_MAX_LEN, device=dev)
+        engine.cache = model.init_cache(len(reqs), PARITY_MAX_LEN, cache_dtype, device=dev)
+        t0 = time.perf_counter()
+        done, _ = serve(engine, reqs, PARITY_NEW)
+        t_engine = time.perf_counter() - t0
+        got = dict(done)
+        t0 = time.perf_counter()
+        refs = [greedy_by_decode(torch, model, params, p, PARITY_NEW, PARITY_MAX_LEN,
+                                 cache_dtype, dev) for _, p in reqs]
+        t_ref = time.perf_counter() - t0
+        same = [got[rid] == ref for (rid, _), (ref, _) in zip(reqs, refs)]
+        print(f"  (i2) {cname} cache: engine {[got[r] for r, _ in reqs]} ({t_engine:.2f} s, "
+              f"{engine.prefill_calls} batched prefill); by decode "
+              f"{[ref for ref, _ in refs]} ({t_ref:.2f} s) [{smi}]", flush=True)
+        if cache_dtype == torch.float32:
+            check(all(same), f"(i2) float32 cache: batched prefill's greedy tokens == per-token "
+                             f"prefill-by-decode's, every request [{smi}]")
+            # first logits: one batched prefill_cache against the by-decode rows
+            cache = model.init_cache(len(reqs), PARITY_MAX_LEN, cache_dtype, device=dev)
+            P = max(PARITY_LENS)
+            tokens = np.zeros((len(reqs), P), np.int32)
+            for i, (_, p) in enumerate(reqs):
+                tokens[i, :len(p)] = p
+            first, _ = model.prefill_cache(
+                params, cache, torch.from_numpy(tokens).to(dev),
+                torch.arange(len(reqs), device=dev), torch.tensor(PARITY_LENS, device=dev))
+            for i, (_, rows) in enumerate(refs):
+                rel = float((first[i] - rows[-1]).abs().max() / rows[-1].abs().max())
+                check(rel <= LOGIT_REL, f"(i2) request {i}: first logits of prefill_cache vs "
+                                        f"by decode: max|diff| = {rel:.3e} * max|logit| "
+                                        f"(<= {LOGIT_REL}) [{smi}]")
+            # decode_step's logits at every prompt position against forward
+            _, p = reqs[-1]
+            full, _ = model.forward(params, {"tokens": torch.from_numpy(p[None]).to(dev)},
+                                    logits_mode="all")
+            rows = refs[-1][1]
+            rel = float((full[0] - rows).abs().max() / full[0].abs().max())
+            check(rel <= LOGIT_REL, f"(i2) decode_step logits at all {len(p)} positions vs "
+                                    f"forward(logits_mode='all'): max|diff| = {rel:.3e} * "
+                                    f"max|logit| (<= {LOGIT_REL}) [{smi}]")
+        else:
+            print(f"  (i2) bf16 cache (the JAX engine's default): batched == by decode for "
+                  f"{sum(same)} of {len(same)} requests (reported, not required: the two "
+                  f"read the prompt's k/v unrounded and bf16-rounded) [{smi}]", flush=True)
+        del engine
+    return model, params
+
+
+def witness_f64(torch, np, model, params, smi, dev):
+    """(i3) layer 0 at full width in float64 against float32: the attention
+    block and the MLP over 64 tokens, one decode step over a 64-token cache,
+    and the int8 cache's step against the float32 cache's."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers
+    from repro_torch.models.spec import tree_map
+    from repro_torch.models.transformer import layer_view
+
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 3)
+    p32 = layer_view(params["blocks"], 0)
+    p64 = tree_map(lambda t: t.double(), p32)
+    x = torch.from_numpy(rng.standard_normal((1, 64, cfg.d_model))).to(dev)
+    h = torch.from_numpy(rng.standard_normal((1, 1, cfg.d_model))).to(dev)
+    res = {}
+    outs = {}
+    for name, p, dt in (("f32", p32, torch.float32), ("f64", p64, torch.float64)):
+        xa = x.to(dt)
+        a, (k, v) = attn.attention_block(p["attn"], xa, cfg, causal=True, return_kv=True)
+        m = layers.mlp_apply(p["mlp"], xa, cfg.mlp_act)
+        kc = torch.zeros((1, 128, cfg.n_kv, cfg.hd), dtype=dt, device=dev)
+        vc = torch.zeros_like(kc)
+        kc[:, :64], vc[:, :64] = k, v
+        pos = torch.tensor([64], device=dev)
+        d = attn.decode_attention(p["attn"], h.to(dt), kc, vc, pos, cfg)[0]
+        outs[name] = (a, m, d, k, v)
+    for i, what in enumerate(("attention block (64 tokens)", "MLP (64 tokens)",
+                              "decode_attention over a 64-token cache")):
+        res[what] = _rel(torch, outs["f32"][i], outs["f64"][i])
+        check(res[what] <= WITNESS_REL, f"(i3) layer 0 {what}, float32 vs float64: "
+                                        f"{res[what]:.3e} (<= {WITNESS_REL}) [{smi}]")
+    _, _, d32, k, v = outs["f32"]
+    kq, ks = attn._quantize_kv(k)
+    vq, vs = attn._quantize_kv(v)
+    kc = torch.zeros((1, 128, cfg.n_kv, cfg.hd), dtype=torch.int8, device=dev)
+    vc = torch.zeros_like(kc)
+    kcs = torch.zeros((1, 128, cfg.n_kv), dtype=torch.bfloat16, device=dev)
+    vcs = torch.zeros_like(kcs)
+    kc[:, :64], vc[:, :64], kcs[:, :64], vcs[:, :64] = kq, vq, ks, vs
+    dq = attn.decode_attention(p32["attn"], h.float(), kc, vc, torch.tensor([64], device=dev),
+                               cfg, kcs, vcs)[0]
+    rel = _rel(torch, dq, d32)
+    check(rel <= INT8_REL, f"(i3) int8 kv_quant step vs the float32 cache's: {rel:.3e} * "
+                           f"max|out| (<= {INT8_REL:.4g}, the stated int8 bound) [{smi}]")
+
+
+def serve_cli(torch, smi, dev):
+    """(i4) the CLI in this process: stablelm-1.6b at full size, f32 params."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve as serve_mod
+
+    argv = ["--arch", "stablelm_1_6b", "--requests", "8", "--slots", "4"]
+    if dev.type != "cuda":  # a rehearsal off the card; on it, the CLI's default device
+        argv += ["--device", dev.type]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_mod.main(argv)
+    text = buf.getvalue()
+    print("\n".join(f"  (i4) {line}" for line in text.splitlines()))
+    check(rc == 0 and "served 8 requests, 128 tokens" in text and f"on {dev.type}" in text,
+          f"(i4) python -m repro_torch.launch.serve {' '.join(argv)}: served "
+          f"({time.perf_counter() - t0:.2f} s in all) [{smi}]")
+
+
+def phase_decoder(torch, np, smi, peak_bw, dev):
+    """Path (i): the dense decoder and DecodeEngine at minitron-8b's full
+    width (i1, i2, i3) and the serve CLI (i4)."""
+    import gc
+    print(f"== path (i): the dense decoder and the serving engine, {SERVE_ARCH} at full "
+          f"width [{smi}]", flush=True)
+    print(f"  device memory held before path (i): "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    start_path(torch)
+    serve_full_width(torch, np, smi, peak_bw, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params = parity_full_width(torch, np, smi, dev)
+    witness_f64(torch, np, model, params, smi, dev)
+    print(f"  (i2, i3) peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"[{smi}]", flush=True)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_cli(torch, smi, dev)
+    counts = read_path(torch, "(i)", ())
+    from repro_torch.kernels import ops as kops
+    check(all(counts[k] == 0 for k in kops.LAUNCH_COUNTERS),
+          "path (i) launches none of the eleven sparse kernels (the dense decoder reaches "
+          "no Pallas kernel in the JAX package either)")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2936,7 +3311,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts_h = phase_obs(torch, np, prob, store)
     lap("path (h)")
-    paths = (counts_a, counts_b, counts_c, counts_d, counts_e, counts_f, counts_g, counts_h)
+    del prob
+    torch.cuda.empty_cache()
+    print(f"== after paths (a)-(h), empty_cache: max_memory_allocated (since path (h) began) "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, held "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{smi}]", flush=True)
+    counts_i = phase_decoder(torch, np, smi, peak_bw, torch.device("cuda"))
+    lap("path (i)")
+    paths = (counts_a, counts_b, counts_c, counts_d, counts_e, counts_f, counts_g, counts_h,
+             counts_i)
     for name, rec in records.items():
         rec["launches"] = sum(c[name] for c in paths)
     from repro_torch.kernels import ops as kops

@@ -426,3 +426,42 @@ def to_dense_np(A) -> np.ndarray:
     else:
         raise TypeError(type(A))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Copy semantics (paper §III-B)
+# ---------------------------------------------------------------------------
+
+def _map_tensors(fn, A):
+    """The same container with ``fn`` applied to every tensor field."""
+    if isinstance(A, HYB):
+        return dataclasses.replace(A, ell=_map_tensors(fn, A.ell), coo=_map_tensors(fn, A.coo))
+    return dataclasses.replace(A, **{k: fn(t) for k, t in A.tensors().items()})
+
+
+def shallow_copy(A):
+    """Shallow copy: the same container, the same buffers (aliasing is free;
+    the port's operations never write into a container's tensors).
+
+    Mirrors the paper's same-type requirement: the result *is* the same
+    container type with the same buffers.
+    """
+    return A
+
+
+def deep_copy(A, device: DeviceLike = None):
+    """Deep (bitwise) copy into new buffers; with ``device`` this is the
+    mirroring interface (HostMirror/device transfer analogue): a
+    cross-memory-space copy. It takes the place of the JAX package's
+    ``sharding`` argument."""
+    if device is None:
+        return _map_tensors(lambda t: t.clone(), A)
+    dev = resolve_device(device)
+    return _map_tensors(lambda t: t.to(dev, copy=True), A)
+
+
+def bytes_of(A) -> int:
+    """Total payload bytes of a container (for the analytic autotuner)."""
+    if isinstance(A, HYB):
+        return bytes_of(A.ell) + bytes_of(A.coo)
+    return sum(t.numel() * t.element_size() for t in A.tensors().values())

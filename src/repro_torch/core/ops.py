@@ -579,6 +579,19 @@ def norm2(x):
     return torch.sqrt(torch.dot(x, x))
 
 
+def assign(x, value):
+    """Morpheus::assign — fill (ZeroVector when value == 0); a new tensor."""
+    return torch.full_like(x, value)
+
+
+def reduction(x):
+    return torch.sum(x)
+
+
+def scan(x):
+    return torch.cumsum(x, dim=0)
+
+
 # populated by repro_torch.core.dynamic to avoid a circular import
 _DYN_TYPES: tuple = ()
 

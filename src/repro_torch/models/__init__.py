@@ -1,8 +1,12 @@
-"""repro_torch.models — model layers (port of ``repro.models``).
+"""repro_torch.models — model stack (port of ``repro.models``).
 
 Ported so far: :class:`LinearSparse`, the linear layer over a dynamic
-sparse weight, with ``prune_magnitude`` and ``WEIGHT_CANDIDATES``.
+sparse weight, with ``prune_magnitude`` and ``WEIGHT_CANDIDATES``; and the
+dense decoder's serving half: ``spec``, ``layers``, ``flash`` (forward),
+``attention``, ``sharding_ctx``, ``transformer``, ``model`` (:class:`Model`,
+:func:`build_model`) and ``weights`` (param and cache trees across packages).
 """
 from repro_torch.models.linear_sparse import LinearSparse, WEIGHT_CANDIDATES, prune_magnitude
+from repro_torch.models.model import Model, build_model
 
-__all__ = ["LinearSparse", "WEIGHT_CANDIDATES", "prune_magnitude"]
+__all__ = ["LinearSparse", "WEIGHT_CANDIDATES", "prune_magnitude", "Model", "build_model"]

@@ -1,0 +1,168 @@
+"""Public model API (port of ``repro.models.model``), its serving half.
+
+``build_model(cfg)`` returns a ``Model`` with:
+    specs()                      parameter P-spec tree
+    init(seed, device=)          materialized params (the card by default)
+    abstract_params()            meta-device tensors (no allocation)
+    forward(params, batch)       logits (prefill)
+    cache_specs(b, s)            decode cache shapes (meta-device tensors)
+    init_cache(b, s, device=)    decode cache
+    prefill(params, batch)       last-token logits
+    prefill_cache(...)           one forward that primes the decode cache
+    decode_step(params, cache, tokens, pos)   one-token serve step
+
+The dense family is ported; ``build_model`` raises ``NotImplementedError``
+for the others. Training (``loss``, ``lm_loss``) comes in a later slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.registry import ArchConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import spec as spec_mod
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import embed_apply, mlp_apply, rms_norm, unembed_apply
+
+
+# ---------------------------------------------------------------------------
+# Decode body
+# ---------------------------------------------------------------------------
+
+
+def _decode_attn_family(params, cache, x, pos, cfg):
+    """Every layer's one-token step; layer ``i`` reads views of the stacked
+    params and writes its new k/v into ``cache`` in place."""
+    blocks = params["blocks"]
+    quant = "k_scale" in cache
+    for i in range(cfg.n_layers):
+        pl = tfm.layer_view(blocks, i)
+        scales = (cache["k_scale"][i], cache["v_scale"][i]) if quant else (None, None)
+        h = rms_norm(x, pl["ln1"], cfg.norm_eps)
+        out = attn.decode_attention(pl["attn"], h, cache["k"][i], cache["v"][i], pos, cfg,
+                                    *scales)[0]
+        x = x + out
+        h2 = rms_norm(x, pl["ln2"], cfg.norm_eps)
+        x = x + mlp_apply(pl["mlp"], h2, cfg.mlp_act)
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# Model bundle
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ArchConfig
+
+    # -- params -----------------------------------------------------------
+    def specs(self, param_dtype: torch.dtype = torch.float32) -> dict:
+        s = tfm.model_specs(self.cfg)
+        if param_dtype != torch.float32:
+            s = spec_mod.cast_dtype(s, param_dtype)
+        return s
+
+    def init(self, seed: int = 0, param_dtype: torch.dtype = torch.float32,
+             device: DeviceLike = None) -> dict:
+        return spec_mod.init_params(self.specs(param_dtype), seed, device)
+
+    def abstract_params(self, param_dtype: torch.dtype = torch.float32) -> dict:
+        return spec_mod.abstract_params(self.specs(param_dtype))
+
+    def logical_axes(self) -> dict:
+        return spec_mod.logical_axes(self.specs())
+
+    def n_params(self) -> int:
+        return spec_mod.param_count(self.specs())
+
+    def forward(self, params, batch, **kw):
+        return tfm.forward(params, batch, self.cfg, **kw)
+
+    # -- serving -----------------------------------------------------------
+    def cache_specs(self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
+                    kv_quant: bool = False) -> dict:
+        """Meta-device tensors of the decode cache: k and v of shape
+        (L, B, S_max, KV, hd). ``kv_quant=True``: int8 k/v + bf16
+        per-(token, head) scales, 4x smaller than bf16 k/v."""
+        cfg = self.cfg
+        tfm.check_family(cfg)
+
+        def meta(shape, dt):
+            return torch.empty(shape, dtype=dt, device="meta")
+
+        kv = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.hd)
+        if kv_quant:
+            return {"k": meta(kv, torch.int8), "v": meta(kv, torch.int8),
+                    "k_scale": meta(kv[:-1], torch.bfloat16),
+                    "v_scale": meta(kv[:-1], torch.bfloat16)}
+        return {"k": meta(kv, dtype), "v": meta(kv, dtype)}
+
+    def init_cache(self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
+                   kv_quant: bool = False, device: DeviceLike = None) -> dict:
+        dev = resolve_device(device)
+        return {name: torch.zeros(t.shape, dtype=t.dtype, device=dev)
+                for name, t in self.cache_specs(batch, max_len, dtype, kv_quant).items()}
+
+    def decode_step(self, params, cache, tokens, pos):
+        """tokens: (B,) int; pos: (B,) write positions. -> (logits, cache);
+        ``cache`` is updated in place and returned."""
+        cfg = self.cfg
+        tfm.check_family(cfg)
+        x = embed_apply(params["embed"], tokens, tfm.compute_dtype(cfg))[:, None, :]
+        x, cache = _decode_attn_family(params, cache, x, pos, cfg)
+        x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+        logits = unembed_apply(params["unembed"], x)[:, 0]
+        return logits, cache
+
+    def prefill(self, params, batch, **kw):
+        """Prefill forward: last-token logits."""
+        return tfm.forward(params, batch, self.cfg, logits_mode="last", remat=False, **kw)
+
+    def supports_prefill_cache(self) -> bool:
+        """Whether :meth:`prefill_cache` is available: attention families
+        with a token frontend (the kv cache is addressable by position)."""
+        return self.cfg.family in ("dense", "moe")
+
+    def prefill_cache(self, params, cache, tokens, slots, lengths):
+        """ONE forward that primes the decode cache for R prompts.
+
+        tokens: (R, P) right-padded prompt rows; slots: (R,) batch rows of
+        ``cache`` to fill; lengths: (R,) true prompt lengths (<= P).
+        Returns (last_logits (R, V), cache) — the logits at each prompt's
+        final real token; ``cache[:, slots, :P]`` is written in
+        place. Positions >= length hold kv computed from pad tokens, never
+        read: ``decode_attention`` masks to ``arange <= pos`` and overwrites
+        each slot before first attending it.
+        """
+        cfg = self.cfg
+        if not self.supports_prefill_cache():
+            raise ValueError(f"{cfg.family} has no batched cache prefill")
+        p_len = tokens.shape[1]
+        x, _, (k, v) = tfm.forward(params, {"tokens": tokens}, cfg,
+                                   logits_mode="none", remat=False, collect_kv=True)
+        # k/v: (L, R, P, KV, hd); cache["k"]: (L, B, S_max, KV, hd)
+        rows = slots.long()
+        if "k_scale" in cache:
+            kq, ks = attn._quantize_kv(k)
+            vq, vs = attn._quantize_kv(v)
+            cache["k"][:, rows, :p_len] = kq
+            cache["v"][:, rows, :p_len] = vq
+            cache["k_scale"][:, rows, :p_len] = ks
+            cache["v_scale"][:, rows, :p_len] = vs
+        else:
+            kv_dt = cache["k"].dtype
+            cache["k"][:, rows, :p_len] = k.to(kv_dt)
+            cache["v"][:, rows, :p_len] = v.to(kv_dt)
+        r = torch.arange(tokens.shape[0], device=x.device)
+        last = x[r, lengths.long() - 1][:, None, :]  # (R, 1, d)
+        logits = unembed_apply(params["unembed"], last)[:, 0]
+        return logits, cache
+
+
+def build_model(cfg: ArchConfig) -> Model:
+    tfm.check_family(cfg)
+    return Model(cfg)

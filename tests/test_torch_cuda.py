@@ -1375,3 +1375,97 @@ def test_traced_hot_paths_make_no_host_sync(card, mode, monkeypatch, tmp_path):
                      {"kernel.route", "exchange.issue", "exchange.dist_spmv", "mg.vcycle",
                       "mg.vcycle_dist"})
     trace.clear()
+
+
+# ---------------------------------------------------------------------------
+# the dense decoder and the serving engine (smoke size): the card vs the CPU
+# ---------------------------------------------------------------------------
+
+
+def _dense_smoke(arch="minitron_8b", dtype="float32"):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
+    model = build_model(cfg)
+    cpu = model.init(0, device="cpu")
+    return cfg, model, cpu
+
+
+def _to(tree, dev):
+    from repro_torch.models.spec import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def test_model_init_on_the_card_by_default(card):
+    from repro_torch.models.spec import tree_leaves
+    cfg, model, _ = _dense_smoke()
+    params = model.init(0)
+    assert all(t.device.type == "cuda" for t in tree_leaves(params))
+    again = model.init(0, device=card)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(params), tree_leaves(again)))
+    cache = model.init_cache(2, 8)
+    assert cache["k"].device.type == "cuda" and cache["k"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch", ["minitron_8b", "qwen1_5_32b"])
+def test_forward_on_card_matches_cpu(card, arch):
+    cfg, model, cpu = _dense_smoke(arch)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 16)))
+    out_c, _, (k_c, v_c) = model.forward(cpu, {"tokens": tokens}, q_chunk=8, kv_chunk=4,
+                                         collect_kv=True)
+    out_g, _, (k_g, v_g) = model.forward(_to(cpu, card), {"tokens": tokens.to(card)},
+                                         q_chunk=8, kv_chunk=4, collect_kv=True)
+    for g, c in ((out_g, out_c), (k_g, k_c), (v_g, v_c)):
+        assert torch.allclose(g.cpu(), c, **TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_flash_attention_on_card_matches_cpu(card, dtype_name):
+    from repro_torch.models.flash import flash_attention
+    rng = np.random.default_rng(1)
+    q, k, v = (_rand(rng, (2, 128, h, 32), DTYPES[dtype_name], "cpu") for h in (8, 4, 4))
+    for causal, qc, kc in ((True, 32, 64), (False, 64, 32)):
+        c = flash_attention(q, k, v, causal, qc, kc)
+        g = flash_attention(q.to(card), k.to(card), v.to(card), causal, qc, kc)
+        assert torch.allclose(g.cpu().float(), c.float(), **TOL[dtype_name])
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_steps_on_card_match_cpu(card, quant):
+    cfg, model, cpu = _dense_smoke()
+    gpu = _to(cpu, card)
+    cache_dt = torch.bfloat16 if quant else torch.float32
+    cc = model.init_cache(2, 12, cache_dt, kv_quant=quant, device="cpu")
+    cg = model.init_cache(2, 12, cache_dt, kv_quant=quant, device=card)
+    rng = np.random.default_rng(2)
+    pos = torch.tensor([0, 3])
+    for _ in range(4):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2,)))
+        lc, _ = model.decode_step(cpu, cc, tok, pos)
+        lg, _ = model.decode_step(gpu, cg, tok.to(card), pos.to(card))
+        assert torch.allclose(lg.cpu(), lc, **TOL["bfloat16" if quant else "float32"])
+        pos = pos + 1
+
+
+def test_engine_on_card_serves_the_cpu_tokens(card):
+    from repro_torch.launch.serve import DecodeEngine, serve
+    cfg, model, cpu = _dense_smoke("stablelm_1_6b")
+    rng = np.random.default_rng(3)
+    reqs = [(i, rng.integers(0, cfg.vocab, (n,)).astype(np.int32))
+            for i, n in enumerate((3, 11, 5, 7, 4))]
+    engine_c = DecodeEngine(model, cpu, 3, 32, device="cpu")
+    engine_c.cache = model.init_cache(3, 32, torch.float32, device="cpu")
+    done_c, _ = serve(engine_c, reqs, 6)
+    engine = DecodeEngine(model, _to(cpu, card), 3, 32)
+    engine.cache = model.init_cache(3, 32, torch.float32)
+    done_g, _ = serve(engine, reqs, 6)
+    assert dict(done_g) == dict(done_c)
+    assert engine.cache["k"].device.type == "cuda" and engine.prefill_calls >= 2
+
+
+def test_serve_cli_on_card(card, capsys):
+    from repro_torch.launch.serve import main
+    assert main(["--arch", "minitron_8b", "--smoke", "--requests", "4", "--slots", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "served 4 requests, 64 tokens" in out and "on cuda" in out

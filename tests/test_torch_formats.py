@@ -93,6 +93,34 @@ def test_from_numpy_keeps_bfloat16_bits():
     assert_same_container(Bj, Bt)
 
 
+@pytest.mark.parametrize("fmt", ALL_FORMATS)
+def test_copy_semantics_match_jax(fmt):
+    """``tests/test_formats.py::test_copy_semantics`` on the port: a shallow
+    copy aliases, a deep copy has new buffers with the same bits (and, with
+    ``device``, lands there), and ``bytes_of`` counts JAX's payload."""
+    a = PATTERNS["powerlaw"]()
+    kw = {"block_size": 8} if fmt == "BSR" else {}
+    Bj = jconv.convert(coo_pair(a)[0], JFormat[fmt], **kw)
+    Bt = port_from_jax(Bj)
+    S = tf.shallow_copy(Bt)
+    assert S is Bt
+    for Dc in (tf.deep_copy(Bt), tf.deep_copy(Bt, device=DEV)):
+        assert type(Dc) is type(Bt)
+        fresh = Dc.ell.data if fmt == "HYB" else Dc.data
+        old = Bt.ell.data if fmt == "HYB" else Bt.data
+        assert fresh.data_ptr() != old.data_ptr() and fresh.device.type == "cpu"
+        assert_same_container(Bj, Dc)
+    assert tf.bytes_of(Bt) == jf.bytes_of(Bj) > 0
+
+
+def test_core_exports_match_jax():
+    import repro.core as jcore
+    import repro_torch.core as tcore
+    assert set(jcore.__all__) <= set(tcore.__all__)
+    for name in tcore.__all__:
+        assert getattr(tcore, name) is not None, name
+
+
 def test_container_metadata_accessors():
     a = PATTERNS["powerlaw"]()
     Bj = jconv.convert(coo_pair(a)[0], JFormat.SELL, c=8, sigma=32)

@@ -58,4 +58,28 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.ell_spmm", "repro_torch.kernels.sell_spmm",
             "repro_torch.models", "repro_torch.models.linear_sparse",
             "repro_torch.tuning.cache", "repro_torch.tuning.kernel_tune",
-            "repro_torch.core.distributed", "repro_torch.mg.dist"} <= loaded
+            "repro_torch.core.distributed", "repro_torch.mg.dist",
+            "repro_torch.configs", "repro_torch.configs.registry",
+            "repro_torch.configs.shapes", "repro_torch.configs.minitron_8b",
+            "repro_torch.configs.stablelm_1_6b", "repro_torch.models.spec",
+            "repro_torch.models.layers", "repro_torch.models.flash",
+            "repro_torch.models.attention", "repro_torch.models.sharding_ctx",
+            "repro_torch.models.transformer", "repro_torch.models.model",
+            "repro_torch.models.weights", "repro_torch.launch",
+            "repro_torch.launch.serve"} <= loaded
+
+
+def test_every_arch_config_is_the_ports_own():
+    """``get_config`` loads the port's copy of each architecture file."""
+    code = (
+        "import sys\n"
+        "from repro_torch.configs import get_config, list_archs\n"
+        "for a in list_archs():\n"
+        "    get_config(a); get_config(a, smoke=True)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                       timeout=120)
+    assert p.returncode == 0, p.stderr

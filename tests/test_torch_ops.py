@@ -156,6 +156,18 @@ def test_blas1_match_jax():
                                np.asarray(jops.axpy(3.0, xj, yj)), rtol=1e-6)
 
 
+def test_assign_reduction_scan_match_jax():
+    x = np.random.default_rng(7).standard_normal(33).astype(np.float32)
+    xj, xt = jnp.asarray(x), torch.from_numpy(x)
+    for value in (0.0, 2.5):
+        z = tops.assign(xt, value)
+        assert z.dtype == xt.dtype and z.data_ptr() != xt.data_ptr()
+        np.testing.assert_array_equal(z.numpy(), np.asarray(jops.assign(xj, value)))
+    np.testing.assert_allclose(float(tops.reduction(xt)), float(jops.reduction(xj)), rtol=1e-5)
+    np.testing.assert_allclose(tops.scan(xt).numpy(), np.asarray(jops.scan(xj)),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_segment_sum_and_take_clip_follow_jax_semantics():
     """Out-of-range ids are dropped and out-of-range gathers clamp, as in
     ``jax.ops.segment_sum`` and ``jnp.take(mode="clip")``."""
