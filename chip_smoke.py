@@ -156,9 +156,41 @@ Phases, in order (any failure exits nonzero and prints no result line):
       (WITNESS_REL), the int8 kv_quant step against the float32 cache's
       (INT8_REL); (i4) ``serve.main`` in this process on stablelm-1.6b at
       full size (f32 params, as the CLI makes them).
+   j. every remaining family at full width (random weights from seed 0; no
+      sparse kernel on this path, and none may launch; the moe ``coo``
+      dispatch runs the plain COO SpMM, as in the JAX package): (j1)
+      deepseek-moe-16b in bf16 (28 layers, d_model 2048, 64 experts top-6
+      + 2 shared, d_ff 1408, vocab 102400; the ``sort`` dispatch),
+      DecodeEngine(slots=4, max_len=1024) serving 8 requests of 64-512
+      prompt tokens (numpy seed 0) and 32 new tokens each: every request
+      done, finite logits, at least two batched prefills; tokens/s, ms a
+      decode step (host clock, CUDA events, launches queued, profiler)
+      beside its bound (every weight but the input embedding: JAX's decode
+      runs all experts on C = 4 slots), ms a prefill by (R, P) beside its
+      bound and the share of real-token assignments dropped, peak memory;
+      (j2) one MoE layer in f32 on (4, 512) tokens: dense vs sort within
+      1e-4, sort vs coo within 1e-6 (JAX's bounds), sort and coo reruns
+      bitwise, float64 on the same routing within MOE_F64_REL; (j3)
+      deepseek in f32 at 4 layers with capacity factor 2E/k (nothing can
+      drop): the batched prefill's greedy tokens equal prefill-by-decode's
+      (a difference only where the router's top-k gap is under 1e-5), first
+      logits and decode_step vs forward within LOGIT_REL * max|logit|; (j4)
+      mamba2-2.7b and zamba2-2.7b in bf16, DecodeEngine(slots=4,
+      max_len=256) serving 6 requests of 8-48 prompt tokens, 16 new: every
+      request done, finite logits, one by-decode prefill a request;
+      tokens/s, ms a step beside its bound (weights but the input
+      embedding, the SSM state and conv windows read and written, live kv
+      rows), peak memory; (j5) each in f32 at a depth cut (8 and 12 layers):
+      teacher-forced decode_step vs forward over 64 tokens, mamba_apply's
+      final state vs 64 decode steps', the engine (2 slots, 5 requests,
+      slot reuse) vs each request's single-request chain within ENGINE_REL
+      * max|logit|, and ssd_chunked at (b, t, h, p, n) = (2, 512, 80, 64,
+      128): chunk 256 vs 64 and float64 vs float32; (j6) hubert-xlarge's
+      encoder forward on frames (2, 1024, 512) and internvl2-26b in bf16:
+      prefill on 256 patches + 256 tokens, 8 decode steps on tokens alone.
 
 The last three lines of standard output are the kernels' JSON record (all
-eleven kernels, launches summed over paths (a)-(i), and each kernel's
+eleven kernels, launches summed over paths (a)-(j), and each kernel's
 launches on its token-major and dense-tile schedules), the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": ...}``.
 """
@@ -2225,6 +2257,12 @@ def _rel_err(torch, y, ref):
     return float((y.double() - ref).abs().max() / ref.abs().max())
 
 
+# ms a COO layer call of path (d) in run R2 (PERF.md §5), when the plain COO
+# SpMM still summed with index_add_ (atomics on the card)
+COO_R2_MS = {("up", DECODE): 1.4284, ("up", PREFILL): 109.2533,
+             ("down", DECODE): 2.3472, ("down", PREFILL): 119.0319}
+
+
 def phase_serving(torch, np, weights):
     """Path (d): LinearSparse at minitron-8b MLP width on the card."""
     from repro_torch.core.formats import Format
@@ -2322,7 +2360,9 @@ def phase_serving(torch, np, weights):
                   f"{lname} T={width}: all formats agree (max diff {agree:.3e}, "
                   f"scale {scale:.1f}); no sync in any kernel format's call")
             print(f"  {lname} T={width} ms per call: "
-                  + ", ".join(f"{f} {t:.4f}" for f, t in times.items()), flush=True)
+                  + ", ".join(f"{f} {t:.4f}" for f, t in times.items())
+                  + f" (COO before its rows were reduced in order, run R2: "
+                  f"{COO_R2_MS[lname, width]})", flush=True)
     # retune the decode build for prefill
     for lname in MINITRON_MLP:
         dec = layers[lname][DECODE]
@@ -2930,7 +2970,7 @@ def _serve_timers(torch, engine, finite):
     step and prefill, the host clock around each ``engine.step`` (which
     ends by reading the tokens, so it waits for the device), and a finite
     check of every logit (one reduction on the device, read at the end)."""
-    rec = {"step_ev": [], "step_host": [], "prefill": [], "step_bytes": []}
+    rec = {"step_ev": [], "step_rows": [], "step_host": [], "prefill": [], "step_bytes": []}
     step, prefill, outer = engine._step, engine._prefill, engine.step
 
     def timed_step(params, cache, tokens, pos):
@@ -2940,6 +2980,7 @@ def _serve_timers(torch, engine, finite):
         e.record()
         finite.append(torch.isfinite(logits).all())
         rec["step_ev"].append((s, e))
+        rec["step_rows"].append(int(tokens.shape[0]))
         return logits, cache
 
     def timed_prefill(params, cache, tokens, slots, lengths):
@@ -3242,6 +3283,548 @@ def phase_decoder(torch, np, smi, peak_bw, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Path (j): the moe, ssm, hybrid, vlm and audio families at full width
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "deepseek_moe_16b"
+MOE_SLOTS, MOE_MAX_LEN, MOE_REQUESTS, MOE_NEW = 4, 1024, 8, 32
+MOE_PROMPT_LENS = (64, 512)  # inclusive range of the prompt lengths (numpy seed 0)
+MOE_LAYER_TOKENS = (4, 512)  # (j2): one MoE layer on (B, T) tokens
+MOE_F32_LAYERS = 4  # (j3): deepseek in f32 is 67.5 GB: a depth cut, full width
+RECURRENT_ARCHS = ("mamba2_2_7b", "zamba2_2_7b")
+SSM_SLOTS, SSM_MAX_LEN, SSM_REQUESTS, SSM_NEW = 4, 256, 6, 16
+SSM_PROMPT_LENS = (8, 48)
+# (j5) depth cuts in f32: 8 Mamba2 layers; zamba2's 12 (its layers come in
+# groups of attn_every = 6, each followed by the shared attention block)
+SSM_F32_LAYERS = {"mamba2_2_7b": 8, "zamba2_2_7b": 12}
+SSM_TF_TOKENS = 64  # (j5) teacher-forced decode vs forward
+SSD_SHAPE = (2, 512, 80, 64, 128)  # (j5) ssd_chunked at mamba2's head width: b, t, h, p, n
+ENGINE_REL = 1e-4  # (j5) engine logits vs the single-request chain, * max|logit|
+SSD_CHUNK_REL, SSD_F64_REL, STATE_REL = 1e-4, 1e-5, 1e-4
+MOE_F64_REL = 1e-5  # (j2) float64 vs float32 on the same routing
+AUDIO_ARCH, VLM_ARCH = "hubert_xlarge", "internvl2_26b"
+AUDIO_FRAMES = (2, 1024)  # (j6) hubert: frames (B, S, frontend_dim)
+VLM_TOKENS, VLM_DECODE = 256, 8  # (j6) internvl2: 256 patches + 256 tokens, 8 steps
+
+
+def full_config(arch, **kw):
+    """The architecture's published configuration (``configs/``), with the
+    dtype and any cut named in ``kw``."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), **kw)
+
+
+def _free(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _peak(torch) -> str:
+    return f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+
+
+def _made(torch, model, param_dtype, dev, what, smi):
+    """Params made leaf by leaf on the card, with their count and bytes."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED, param_dtype=param_dtype, device=dev)
+    torch.cuda.synchronize()
+    nbytes = _tree_bytes(params)
+    cfg = model.cfg
+    print(f"  {what} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}: "
+          f"{model.n_params():,} params, {nbytes / 1e9:.2f} GB in "
+          f"{str(param_dtype).replace('torch.', '')}, made on the card in "
+          f"{time.perf_counter() - t0:.2f} s (peak {_peak(torch)}) [{smi}]", flush=True)
+    return params, nbytes
+
+
+def _requests(np, vocab, n, lens):
+    rng = np.random.default_rng(SEED)
+    lo, hi = lens
+    sizes = rng.integers(lo, hi + 1, n)
+    return [(i, rng.integers(0, vocab, (int(L),)).astype(np.int32))
+            for i, L in enumerate(sizes)], sizes
+
+
+def _drop_counter(moe):
+    """Wrap moe._assignments: per prefill call, the real tokens' routed
+    assignments and how many were dropped (device sums, read at the end).
+    Pad tokens of a prefill bucket are not counted; they sort after the
+    real ones of their row and never displace one."""
+    rec = {"real": None, "calls": []}
+    orig = moe._assignments
+
+    def counted(x, gates, idx, cfg):
+        out = orig(x, gates, idx, cfg)
+        if rec["real"] is not None:
+            lengths, rows = rec["real"]
+            token, keep = out[1], out[3]
+            real = (token < lengths[:, None].long()) & rows[:, None]
+            rec["calls"][-1].append(((real & ~keep).sum(), real.sum()))
+        return out
+    return rec, orig, counted
+
+
+def moe_serve_full_width(torch, np, smi, peak_bw, dev):
+    """(j1) deepseek-moe-16b at full width in bf16, the ``sort`` dispatch:
+    8 requests through DecodeEngine(slots=4, max_len=1024)."""
+    from repro_torch.launch.serve import DecodeEngine, serve
+    from repro_torch.models import build_model, moe
+    from repro_torch.obs import metrics
+
+    cfg = full_config(MOE_ARCH, dtype="bfloat16")
+    check(cfg.moe_dispatch == "sort", f"(j1) {cfg.name} dispatches by sort (its default)")
+    model = build_model(cfg)
+    params, nbytes = _made(torch, model, torch.bfloat16, dev, "(j1)", smi)
+    emb_bytes = params["embed"]["tokens"].numel() * 2
+    check(nbytes == 2 * model.n_params(), f"(j1) {model.n_params():,} params, 2 bytes each")
+    reqs, lens = _requests(np, cfg.vocab, MOE_REQUESTS, MOE_PROMPT_LENS)
+    engine = DecodeEngine(model, params, MOE_SLOTS, MOE_MAX_LEN, device=dev)
+    print(f"  (j1) DecodeEngine(slots={MOE_SLOTS}, max_len={MOE_MAX_LEN}): kv cache "
+          f"{_tree_bytes(engine.cache) / 1e9:.3f} GB (bf16); prompt lengths {lens.tolist()}, "
+          f"max_new {MOE_NEW}; E {cfg.n_experts} top-{cfg.top_k} + {cfg.n_shared_experts} "
+          f"shared, capacity factor {cfg.capacity_factor}", flush=True)
+    serve(engine, [(-1, reqs[0][1][:8])], 2)  # warm-up: cuBLAS handles, first launches
+    warm_calls = engine.prefill_calls
+    metrics.reset(["serve.requests", "serve.tokens", "serve.latency_us", "serve.queue_us",
+                   "serve.prefill_us", "serve.decode_us", "serve.queue_depth"])
+    finite = []
+    rec = _serve_timers(torch, engine, finite)
+    drops, orig, counted = _drop_counter(moe)
+    inner = engine._prefill
+
+    def prefill_counted(params, cache, tokens, slots, lengths):
+        # the bucket's pad rows repeat the last request's slot: count each once
+        seen = slots.tolist()
+        rows = torch.tensor([v not in seen[:i] for i, v in enumerate(seen)], device=dev)
+        drops["real"] = (lengths, rows)
+        drops["calls"].append([])
+        try:
+            return inner(params, cache, tokens, slots, lengths)
+        finally:
+            drops["real"] = None
+    engine._prefill = prefill_counted
+    moe._assignments = counted
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    try:
+        t0 = time.perf_counter()
+        done, steps = serve(engine, reqs, MOE_NEW)
+        wall = time.perf_counter() - t0
+    finally:
+        moe._assignments = orig
+    ntok = sum(len(o) for _, o in done)
+    check(sorted(r for r, _ in done) == list(range(MOE_REQUESTS))
+          and all(len(o) == MOE_NEW for _, o in done),
+          f"(j1) all {MOE_REQUESTS} requests finished with {MOE_NEW} tokens")
+    check(bool(torch.stack(finite).all()), f"(j1) every logit finite ({len(finite)} calls)")
+    prefills = engine.prefill_calls - warm_calls
+    check(prefills >= 2, f"(j1) {prefills} batched prefills: a refill between steps")
+    step_ev = [s.elapsed_time(e) for s, e in rec["step_ev"]]
+    host, ev = statistics.median(rec["step_host"]), statistics.median(step_ev)
+    # the least time of a decode step, as JAX's decode computes it: every
+    # expert runs on its C = 4 slots, so the step reads every weight but the
+    # input embedding (one row a slot), the live kv rows, the logits written
+    kv_row = cfg.n_layers * cfg.n_kv * cfg.hd * 2 * 2
+    live = statistics.median(rec["step_bytes"])
+    step_bytes = (nbytes - emb_bytes + MOE_SLOTS * cfg.d_model * 2 + live * kv_row
+                  + MOE_SLOTS * cfg.padded_vocab * 4)
+    bound_step = step_bytes / peak_bw * 1e3
+    print(f"  (j1) served {len(done)} requests, {ntok} tokens in {wall:.3f} s: "
+          f"{ntok / wall:.1f} tokens/s, {steps} engine steps [{smi}]")
+    print(f"  (j1) decode step ({MOE_SLOTS} slots): median {host:.3f} ms by the host clock, "
+          f"{ev:.3f} ms by CUDA events (min {min(step_ev):.3f}, max {max(step_ev):.3f}, "
+          f"{len(step_ev)} steps); bound {bound_step:.3f} ms ({step_bytes / 1e9:.2f} GB at "
+          f"{peak_bw / 1e12:.2f} TB/s) -> {bound_step / ev:.1%} of bound [{smi}]")
+    # a prefill's least time: per token the attention and shared-expert
+    # linears and the router, per kept assignment one expert's three
+    # (d, ff) products, the causal attention, the last token's logits
+    d, ff = cfg.d_model, cfg.d_ff
+    attn_w = d * cfg.n_heads * cfg.hd * 2 + 2 * d * cfg.n_kv * cfg.hd
+    tok_flops = 2 * cfg.n_layers * (attn_w + cfg.n_shared_experts * 3 * d * ff
+                                    + d * cfg.n_experts)
+    for ((R, P), host_ms, s, e), calls in zip(rec["prefill"], drops["calls"]):
+        dropped = sum(int(a) for a, _ in calls)
+        routed = sum(int(b) for _, b in calls)
+        kept = routed - dropped
+        flops = (R * P * tok_flops + kept * 2 * 3 * d * ff
+                 + 2 * cfg.n_layers * R * cfg.n_heads * P * P * cfg.hd
+                 + 2 * R * d * cfg.padded_vocab)
+        bound = max(flops / BF16_PEAK, (nbytes - emb_bytes) / peak_bw) * 1e3
+        ms = s.elapsed_time(e)
+        print(f"  (j1) batched prefill (R, P) = ({R}, {P}): {host_ms:.3f} ms host, {ms:.3f} ms "
+              f"by CUDA events; bound {bound:.3f} ms ({flops / 1e12:.2f} TFLOP at "
+              f"{BF16_PEAK / 1e12:.0f} TFLOP/s bf16; weights {(nbytes - emb_bytes) / 1e9:.2f} GB)"
+              f" -> {bound / ms:.1%} of bound; capacity {moe._capacity(cfg, P)} a row: "
+              f"{dropped} of {routed} real-token assignments dropped over {cfg.n_layers} "
+              f"layers ({dropped / max(routed, 1):.2%}) [{smi}]")
+    for name in ("serve.prefill_us", "serve.decode_us", "serve.latency_us"):
+        q = metrics.quantiles(name, (0.5, 0.99))
+        print(f"  (j1) {name}: p50 {q['p50'] * 1e-3:.3f} ms, p99 {q['p99'] * 1e-3:.3f} ms "
+              f"[{smi}]")
+    tokens = torch.tensor(engine.tokens, device=dev)
+    pos = torch.tensor(engine.pos, device=dev)
+    time_v_cycle(torch, lambda _: model.decode_step(params, engine.cache, tokens, pos), None,
+                 f"(j1) decode_step, {MOE_SLOTS} slots [{smi}]")
+    print(f"  (j1) peak device memory while serving {_peak(torch)} [{smi}]", flush=True)
+
+
+def moe_layer_full_width(torch, np, smi, dev):
+    """(j2) one MoE layer of deepseek-moe-16b at full width in f32 on (4, 512)
+    tokens: the three dispatches against each other, bitwise reruns, and a
+    float64 run on the same routing."""
+    from repro_torch.models import moe
+    from repro_torch.models.spec import init_params, tree_map
+
+    cfg = full_config(MOE_ARCH, dtype="float32")
+    p = init_params(moe.moe_specs(cfg), SEED + 5, dev)
+    b, t = MOE_LAYER_TOKENS
+    x = torch.from_numpy(np.random.default_rng(SEED + 5).standard_normal(
+        (b, t, cfg.d_model)).astype(np.float32)).to(dev)
+    gates, idx, aux = moe._route(p, x, cfg)
+    keep = moe._assignments(x, gates, idx, cfg)[3]
+    c = moe._capacity(cfg, t)
+    print(f"  (j2) one MoE layer, f32, x {tuple(x.shape)}: capacity {c} a row, "
+          f"{int((~keep).sum())} of {keep.numel()} assignments dropped, aux "
+          f"{float(aux.mean()):.4f} [{smi}]", flush=True)
+    outs, ms = {}, {}
+    for name, fn in moe.DISPATCH.items():
+        outs[name] = fn(p, x, gates, idx, cfg)
+        ms[name] = time_ms(lambda fn=fn: fn(p, x, gates, idx, cfg), 10)
+    check(torch.allclose(outs["dense"], outs["sort"], rtol=1e-4, atol=1e-4),
+          f"(j2) dense vs sort within 1e-4 (JAX's bound): max|diff| "
+          f"{float((outs['dense'] - outs['sort']).abs().max()):.3e} [{smi}]")
+    check(torch.allclose(outs["sort"], outs["coo"], rtol=1e-6, atol=1e-6),
+          f"(j2) sort vs coo within 1e-6 (JAX's bound): max|diff| "
+          f"{float((outs['sort'] - outs['coo']).abs().max()):.3e} [{smi}]")
+    for name in ("sort", "coo"):
+        check(torch.equal(moe.DISPATCH[name](p, x, gates, idx, cfg), outs[name]),
+              f"(j2) {name}: a rerun is bitwise equal (no atomics) [{smi}]")
+    p64 = tree_map(lambda a: a.double(), p)
+    y64 = moe.DISPATCH["sort"](p64, x.double(), gates.double(), idx, cfg)
+    rel = _rel(torch, outs["sort"], y64)
+    check(rel <= MOE_F64_REL, f"(j2) float64 on the same (gates, idx) vs float32: "
+                              f"{rel:.3e} * max|y| (<= {MOE_F64_REL}) [{smi}]")
+    print(f"  (j2) ms a dispatch (experts included, CUDA events): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" [{smi}]", flush=True)
+    del p, p64, outs
+
+
+def _topk_gap(torch, moe, fn):
+    """Run ``fn`` with moe._route wrapped: the least gap, over the routed
+    tokens of every layer, between the k-th and the (k+1)-th probability."""
+    gaps, orig = [], moe._route
+
+    def wrapped(p, x, cfg):
+        out = orig(p, x, cfg)
+        logits = x.to(torch.float32) @ p["router"].to(torch.float32)
+        top = torch.topk(torch.softmax(logits, dim=-1), cfg.top_k + 1, dim=-1).values
+        gaps.append(float((top[..., -2] - top[..., -1]).min()))
+        return out
+    moe._route = wrapped
+    try:
+        fn()
+    finally:
+        moe._route = orig
+    return min(gaps)
+
+
+def moe_parity_f32(torch, np, smi, dev):
+    """(j3) deepseek at full width in f32, 4 layers, at a capacity that drops
+    nothing: the engine's batched prefill against prefill-by-decode token
+    for token, and decode_step against forward."""
+    from repro_torch.launch.serve import DecodeEngine, serve
+    from repro_torch.models import build_model, moe
+
+    cfg0 = full_config(MOE_ARCH)
+    cf = 2 * cfg0.n_experts / cfg0.top_k
+    cfg = full_config(MOE_ARCH, dtype="float32", n_layers=MOE_F32_LAYERS, capacity_factor=cf)
+    model = build_model(cfg)
+    params, _ = _made(torch, model, torch.float32, dev, f"(j3) capacity factor {cf:.4g},", smi)
+    rng = np.random.default_rng(SEED)
+    reqs = [(i, rng.integers(0, cfg.vocab, (n,)).astype(np.int32))
+            for i, n in enumerate(PARITY_LENS)]
+    engine = DecodeEngine(model, params, len(reqs), PARITY_MAX_LEN, device=dev,
+                          record_logits=True)
+    engine.cache = model.init_cache(len(reqs), PARITY_MAX_LEN, torch.float32, device=dev)
+    done, _ = serve(engine, reqs, PARITY_NEW)
+    got = dict(done)
+    check(engine.prefill_calls == 1, "(j3) one batched prefill for both requests")
+    for rid, prompt in reqs:
+        ref, rows = greedy_by_decode(torch, model, params, prompt, PARITY_NEW, PARITY_MAX_LEN,
+                                     torch.float32, dev)
+        first = engine.logits_log[rid][0]
+        rel = float((first - rows[-1]).abs().max() / rows[-1].abs().max())
+        check(rel <= LOGIT_REL, f"(j3) request {rid}: first logits of the batched prefill vs "
+                                f"by decode: {rel:.3e} * max|logit| (<= {LOGIT_REL}) [{smi}]")
+        if got[rid] == ref:
+            check(True, f"(j3) request {rid}: batched prefill's {PARITY_NEW} greedy tokens == "
+                        f"prefill-by-decode's {ref} [{smi}]")
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(got[rid], ref)) if a != b)
+        fed = list(prompt) + ref[:j]
+        cache = model.init_cache(1, PARITY_MAX_LEN, torch.float32, device=dev)
+
+        def chain():
+            for i, tok in enumerate(fed):
+                model.decode_step(params, cache, torch.tensor([int(tok)], device=dev),
+                                  torch.tensor([i], device=dev))
+        gap = _topk_gap(torch, moe, chain)
+        check(gap < 1e-5, f"(j3) request {rid}: tokens differ first at new token {j} "
+                          f"({got[rid]} vs {ref}); the router's least top-k gap up to that "
+                          f"step is {gap:.3e} (a near-tie only below 1e-5) [{smi}]")
+    _, p = reqs[-1]
+    full, _ = model.forward(params, {"tokens": torch.from_numpy(p[None]).to(dev)},
+                            logits_mode="all")
+    _, rows = greedy_by_decode(torch, model, params, p, 1, PARITY_MAX_LEN, torch.float32, dev)
+    rel = float((full[0] - rows).abs().max() / full[0].abs().max())
+    check(rel <= LOGIT_REL, f"(j3) decode_step logits at all {len(p)} positions vs "
+                            f"forward(logits_mode='all'): {rel:.3e} * max|logit| "
+                            f"(<= {LOGIT_REL}) [{smi}]")
+    print(f"  (j3) peak device memory {_peak(torch)} [{smi}]", flush=True)
+    del params, engine
+
+
+def recurrent_serve_full_width(torch, np, smi, peak_bw, dev, arch):
+    """(j4) mamba2-2.7b or zamba2-2.7b at full width in bf16: 6 requests
+    through DecodeEngine(slots=4, max_len=256), each prefilled by decode
+    steps on its own slot."""
+    from repro_torch.launch.serve import DecodeEngine, serve
+    from repro_torch.models import build_model
+
+    cfg = full_config(arch, dtype="bfloat16")
+    model = build_model(cfg)
+    params, nbytes = _made(torch, model, torch.bfloat16, dev, "(j4)", smi)
+    emb_bytes = params["embed"]["tokens"].numel() * 2
+    reqs, lens = _requests(np, cfg.vocab, SSM_REQUESTS, SSM_PROMPT_LENS)
+    engine = DecodeEngine(model, params, SSM_SLOTS, SSM_MAX_LEN, device=dev)
+    cache_bytes = {k: t.numel() * t.element_size() for k, t in engine.cache.items()}
+    print(f"  (j4) {cfg.name}: d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads of "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}"
+          + (f", shared attention after every {cfg.attn_every} layers" if cfg.attn_every else "")
+          + f"; DecodeEngine(slots={SSM_SLOTS}, max_len={SSM_MAX_LEN}) cache "
+          + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in cache_bytes.items())
+          + f"; prompt lengths {lens.tolist()}, max_new {SSM_NEW}", flush=True)
+    serve(engine, [(-1, reqs[0][1][:4])], 2)  # warm-up
+    warm_calls = engine.prefill_calls
+    finite = []
+    rec = _serve_timers(torch, engine, finite)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, steps = serve(engine, reqs, SSM_NEW)
+    wall = time.perf_counter() - t0
+    ntok = sum(len(o) for _, o in done)
+    check(sorted(r for r, _ in done) == list(range(SSM_REQUESTS))
+          and all(len(o) == SSM_NEW for _, o in done),
+          f"(j4) {cfg.name}: all {SSM_REQUESTS} requests finished with {SSM_NEW} tokens")
+    check(bool(torch.stack(finite).all()), f"(j4) every logit finite ({len(finite)} calls)")
+    check(engine.prefill_calls - warm_calls == SSM_REQUESTS,
+          f"(j4) prefill_calls == {SSM_REQUESTS}: one by-decode prefill a request "
+          f"({SSM_REQUESTS} requests through {SSM_SLOTS} slots: slots reused)")
+    # the engine's decode steps run every slot; a prefill's steps one
+    step_ev = [s.elapsed_time(e) for (s, e), n in zip(rec["step_ev"], rec["step_rows"])
+               if n == SSM_SLOTS]
+    prefill_ev = [s.elapsed_time(e) for (s, e), n in zip(rec["step_ev"], rec["step_rows"])
+                  if n == 1]
+    host, ev = statistics.median(rec["step_host"]), statistics.median(step_ev)
+    # least time of a 4-slot step: the weights but the input embedding, the
+    # SSM state read and written (float32), the conv windows read and
+    # written, the live kv rows (zamba2), the logits written
+    state = 2 * (cache_bytes["ssm"] + cache_bytes["conv"])
+    kv = 0
+    if "k" in engine.cache:
+        kv_row = (cfg.n_layers // cfg.attn_every) * cfg.n_kv * cfg.hd * 2 * 2
+        kv = statistics.median(rec["step_bytes"]) * kv_row
+    step_bytes = nbytes - emb_bytes + state + kv + SSM_SLOTS * cfg.padded_vocab * 4
+    bound = step_bytes / peak_bw * 1e3
+    print(f"  (j4) {cfg.name}: served {len(done)} requests, {ntok} tokens in {wall:.3f} s: "
+          f"{ntok / wall:.1f} tokens/s, {steps} engine steps; {len(prefill_ev)} one-slot "
+          f"prefill steps, median {statistics.median(prefill_ev):.3f} ms by CUDA events "
+          f"[{smi}]")
+    print(f"  (j4) {cfg.name} decode step ({SSM_SLOTS} slots): median {host:.3f} ms by the "
+          f"host clock, {ev:.3f} ms by CUDA events (min {min(step_ev):.3f}, max "
+          f"{max(step_ev):.3f}, {len(step_ev)} steps); bound {bound:.3f} ms "
+          f"({step_bytes / 1e9:.2f} GB: weights {(nbytes - emb_bytes) / 1e9:.2f}, state "
+          f"{state / 1e9:.3f}, kv {kv / 1e9:.3f}) -> {bound / ev:.1%} of bound [{smi}]")
+    tokens = torch.tensor(engine.tokens, device=dev)
+    pos = torch.tensor(engine.pos, device=dev)
+    time_v_cycle(torch, lambda _: model.decode_step(params, engine.cache, tokens, pos), None,
+                 f"(j4) {cfg.name} decode_step, {SSM_SLOTS} slots [{smi}]")
+    print(f"  (j4) {cfg.name} peak device memory while serving {_peak(torch)} [{smi}]",
+          flush=True)
+
+
+def recurrent_parity_f32(torch, np, smi, dev, arch):
+    """(j5) mamba2 or zamba2 at full width in f32, at a depth cut: decode vs
+    forward, mamba_apply's final state vs the decode chain's, ssd_chunked at
+    full head width (chunk and float64), the engine vs the single-request
+    chain across slot reuse."""
+    from repro_torch.launch.serve import DecodeEngine, serve
+    from repro_torch.models import build_model, mamba2
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.transformer import layer_view
+
+    cfg = full_config(arch, dtype="float32", n_layers=SSM_F32_LAYERS[arch])
+    model = build_model(cfg)
+    params, _ = _made(torch, model, torch.float32, dev, "(j5)", smi)
+    rng = np.random.default_rng(SEED + 6)
+    toks = rng.integers(0, cfg.vocab, (SSM_TF_TOKENS,)).astype(np.int32)
+    full, _ = model.forward(params, {"tokens": torch.from_numpy(toks[None]).to(dev)})
+    cache = model.init_cache(1, SSM_TF_TOKENS, torch.float32, device=dev)
+    rows = torch.stack([model.decode_step(params, cache, torch.tensor([int(t)], device=dev),
+                                          torch.tensor([i], device=dev))[0][0]
+                        for i, t in enumerate(toks)])
+    rel = float((full[0] - rows).abs().max() / full[0].abs().max())
+    check(rel <= LOGIT_REL, f"(j5) {cfg.name}: teacher-forced decode_step at {SSM_TF_TOKENS} "
+                            f"positions vs forward: {rel:.3e} * max|logit| (<= {LOGIT_REL}) "
+                            f"[{smi}]")
+    # layer 0's mixer: the final state of mamba_apply vs the decode chain's
+    mixer = layer_view(params["blocks"], 0)
+    x = torch.from_numpy(rng.standard_normal((2, SSM_TF_TOKENS, cfg.d_model))
+                         .astype(np.float32)).to(dev)
+    h = rms_norm(x, mixer["ln"], cfg.norm_eps)
+    _, (conv_a, ssm_a) = mamba2.mamba_apply(mixer["mixer"], h, cfg, return_state=True)
+    conv = torch.zeros_like(conv_a)
+    ssm = torch.zeros_like(ssm_a)
+    for i in range(SSM_TF_TOKENS):
+        mamba2.mamba_decode(mixer["mixer"], h[:, i:i + 1], conv, ssm, cfg)
+    rel_s, rel_c = _rel(torch, ssm, ssm_a), _rel(torch, conv, conv_a)
+    check(rel_s <= STATE_REL and rel_c <= STATE_REL,
+          f"(j5) {cfg.name}: mamba_apply(return_state=True) vs {SSM_TF_TOKENS} decode steps: "
+          f"ssm state {rel_s:.3e}, conv tail {rel_c:.3e} relative (<= {STATE_REL}) [{smi}]")
+    # the engine: 2 slots, 5 requests, each request's logits vs its chain
+    reqs = [(i, rng.integers(0, cfg.vocab, (n,)).astype(np.int32))
+            for i, n in enumerate((5, 9, 3, 7, 4))]
+    engine = DecodeEngine(model, params, 2, 14, device=dev, record_logits=True)
+    engine.cache = model.init_cache(2, 14, torch.float32, device=dev)
+    done, _ = serve(engine, reqs, 6)
+    worst = 0.0
+    for rid, prompt in reqs:
+        fed = list(prompt) + dict(done)[rid][:-1]
+        cache = model.init_cache(1, 14, torch.float32, device=dev)
+        ref = torch.stack([model.decode_step(params, cache, torch.tensor([int(t)], device=dev),
+                                             torch.tensor([i], device=dev))[0][0]
+                           for i, t in enumerate(fed)])
+        got = torch.stack(engine.logits_log[rid])
+        worst = max(worst, float((got - ref).abs().max() / ref.abs().max()))
+    check(engine.prefill_calls == len(reqs) and worst <= ENGINE_REL,
+          f"(j5) {cfg.name}: DecodeEngine(slots=2) over {len(reqs)} requests (slot reuse, a "
+          f"refill while the other slot decodes): every request's logits vs its single-request "
+          f"chain within {worst:.3e} * max|logit| (<= {ENGINE_REL}) [{smi}]")
+    del params, engine
+    _free(torch)
+
+
+def ssd_full_width(torch, np, smi, dev):
+    """(j5) ssd_chunked at mamba2's head width: chunk 256 vs 64, float64 vs
+    float32."""
+    from repro_torch.models import mamba2
+
+    b, t, h, p, n = SSD_SHAPE
+    rng = np.random.default_rng(SEED + 7)
+    arrs = [rng.standard_normal((b, t, h, p)), rng.uniform(0.001, 0.1, (b, t, h)),
+            -rng.uniform(0.5, 4.0, h), rng.standard_normal((b, t, n)),
+            rng.standard_normal((b, t, n))]
+    x, dt, A, B, C = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs)
+    y256, s256 = mamba2.ssd_chunked(x, dt, A, B, C, 256)
+    y64, s64 = mamba2.ssd_chunked(x, dt, A, B, C, 64)
+    yd, sd = mamba2.ssd_chunked(*(a.double() for a in (x, dt, A, B, C)), 256)
+    r_chunk = max(_rel(torch, y256, y64), _rel(torch, s256, s64))
+    r_f64 = max(_rel(torch, y256, yd), _rel(torch, s256, sd))
+    ms = {q: time_ms(lambda q=q: mamba2.ssd_chunked(x, dt, A, B, C, q), 5) for q in (64, 256)}
+    check(r_chunk <= SSD_CHUNK_REL and r_f64 <= SSD_F64_REL,
+          f"(j5) ssd_chunked {SSD_SHAPE} (b, t, h, p, n): chunk 256 vs 64 {r_chunk:.3e} "
+          f"(<= {SSD_CHUNK_REL}), float64 vs float32 {r_f64:.3e} (<= {SSD_F64_REL}); ms "
+          f"chunk 64 {ms[64]:.3f}, chunk 256 {ms[256]:.3f} [{smi}]")
+
+
+def frontends_full_size(torch, np, smi, dev):
+    """(j6) hubert-xlarge's encoder forward on frames, internvl2-26b's prefill
+    on patches and tokens and decode steps on tokens, both in bf16."""
+    from repro_torch.models import build_model
+
+    cfg = full_config(AUDIO_ARCH, dtype="bfloat16")
+    model = build_model(cfg)
+    params, _ = _made(torch, model, torch.bfloat16, dev, "(j6)", smi)
+    rng = np.random.default_rng(SEED + 8)
+    b, s = AUDIO_FRAMES
+    frames = torch.from_numpy(rng.standard_normal((b, s, cfg.frontend_dim))
+                              .astype(np.float32)).to(dev)
+    out, _ = model.forward(params, {"frames": frames})
+    ms = time_ms(lambda: model.forward(params, {"frames": frames}), 3)
+    check(tuple(out.shape) == (b, s, cfg.padded_vocab) and bool(torch.isfinite(out).all()),
+          f"(j6) {cfg.name} encoder forward on frames {tuple(frames.shape)}: logits "
+          f"{tuple(out.shape)}, finite; {ms:.3f} ms (CUDA events); peak {_peak(torch)} [{smi}]")
+    del params, out
+    _free(torch)
+    cfg = full_config(VLM_ARCH, dtype="bfloat16")
+    model = build_model(cfg)
+    params, _ = _made(torch, model, torch.bfloat16, dev, "(j6)", smi)
+    patches = torch.from_numpy(rng.standard_normal((1, cfg.n_patches, cfg.frontend_dim))
+                               .astype(np.float32)).to(dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, VLM_TOKENS))).to(dev)
+    batch = {"patches": patches, "tokens": tokens}
+    last, _ = model.prefill(params, batch)
+    ms = time_ms(lambda: model.prefill(params, batch), 3)
+    check(tuple(last.shape) == (1, 1, cfg.padded_vocab) and bool(torch.isfinite(last).all()),
+          f"(j6) {cfg.name} prefill on {cfg.n_patches} patches + {VLM_TOKENS} tokens: "
+          f"last logits finite; {ms:.3f} ms (CUDA events) [{smi}]")
+    cache = model.init_cache(1, VLM_DECODE, device=dev)
+    step_ms, rows = [], []
+    for i in range(VLM_DECODE):
+        s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s_.record()
+        lg, _ = model.decode_step(params, cache, tokens[0, i:i + 1], torch.tensor([i], device=dev))
+        e_.record()
+        rows.append(lg)
+        step_ms.append((s_, e_))
+    torch.cuda.synchronize()
+    ev = [s_.elapsed_time(e_) for s_, e_ in step_ms]
+    check(all(bool(torch.isfinite(r).all()) for r in rows),
+          f"(j6) {cfg.name}: {VLM_DECODE} decode_steps on a fresh cache (tokens alone), finite;"
+          f" median {statistics.median(ev):.3f} ms a step (1 slot, CUDA events); peak "
+          f"{_peak(torch)} [{smi}]")
+    del params, cache
+
+
+def phase_families(torch, np, smi, peak_bw, dev):
+    """Path (j): the moe, ssm, hybrid, vlm and audio families at full width."""
+    print(f"== path (j): every remaining family at full width: {MOE_ARCH}, "
+          f"{', '.join(RECURRENT_ARCHS)}, {AUDIO_ARCH}, {VLM_ARCH} [{smi}]", flush=True)
+    start_path(torch)
+    t = {}
+    t0 = time.perf_counter()
+    moe_serve_full_width(torch, np, smi, peak_bw, dev)
+    _free(torch)
+    moe_layer_full_width(torch, np, smi, dev)
+    _free(torch)
+    moe_parity_f32(torch, np, smi, dev)
+    _free(torch)
+    t["moe"] = time.perf_counter() - t0
+    for arch in RECURRENT_ARCHS:
+        t0 = time.perf_counter()
+        recurrent_serve_full_width(torch, np, smi, peak_bw, dev, arch)
+        _free(torch)
+        recurrent_parity_f32(torch, np, smi, dev, arch)
+        t[arch] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ssd_full_width(torch, np, smi, dev)
+    _free(torch)
+    frontends_full_size(torch, np, smi, dev)
+    _free(torch)
+    t["ssd, frontends"] = time.perf_counter() - t0
+    print("  path (j) seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in t.items()), flush=True)
+    counts = read_path(torch, "(j)", ())
+    from repro_torch.kernels import ops as kops
+    check(all(counts[k] == 0 for k in kops.LAUNCH_COUNTERS),
+          "path (j) launches none of the eleven sparse kernels (the JAX model stack reaches "
+          "no Pallas kernel; the moe coo dispatch's COO has none)")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3318,8 +3901,11 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{smi}]", flush=True)
     counts_i = phase_decoder(torch, np, smi, peak_bw, torch.device("cuda"))
     lap("path (i)")
+    torch.cuda.empty_cache()
+    counts_j = phase_families(torch, np, smi, peak_bw, torch.device("cuda"))
+    lap("path (j)")
     paths = (counts_a, counts_b, counts_c, counts_d, counts_e, counts_f, counts_g, counts_h,
-             counts_i)
+             counts_i, counts_j)
     for name, rec in records.items():
         rec["launches"] = sum(c[name] for c in paths)
     from repro_torch.kernels import ops as kops

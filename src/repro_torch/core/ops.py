@@ -78,7 +78,7 @@ def _result_dtype(a: torch.Tensor, b: torch.Tensor) -> torch.dtype:
 
 
 def coo_row_order(A: COO):
-    """``A``'s entries sorted by row for :func:`_spmv_coo`: ``(cols, data,
+    """``A``'s entries sorted by row for :func:`_spmv_coo` and :func:`_spmm_coo`: ``(cols, data,
     offsets)``, with each row's live entries in entry order (a stable sort)
     and its segment ``offsets[i]:offsets[i + 1]``; dead entries (the
     capacity padding, row 0 value 0, of which an edge shard's part holds
@@ -91,10 +91,17 @@ def coo_row_order(A: COO):
     return cols, A.data.index_select(0, order), offsets
 
 
-# coo_row_order of each COO container, made at its first SpMV. Containers
+# coo_row_order of each COO container, made at its first SpMV or SpMM. Containers
 # are immutable (new values make a new container), so the order holds for
 # the container's life; the entry goes with it.
 _COO_ORDER: "weakref.WeakKeyDictionary[COO, tuple]" = weakref.WeakKeyDictionary()
+
+
+def _coo_order(A: COO):
+    order = _COO_ORDER.get(A)
+    if order is None:
+        order = _COO_ORDER[A] = coo_row_order(A)
+    return order
 
 
 def _spmv_coo(A: COO, x):
@@ -102,10 +109,7 @@ def _spmv_coo(A: COO, x):
     # of a distributed matrix are COO by default). One segment reduction a
     # row over the entries in coo_row_order, so y reruns bitwise, which
     # atomic adds would not give.
-    order = _COO_ORDER.get(A)
-    if order is None:
-        order = _COO_ORDER[A] = coo_row_order(A)
-    cols, data, offsets = order
+    cols, data, offsets = _coo_order(A)
     return torch.segment_reduce(data * x.index_select(0, cols), "sum", offsets=offsets)
 
 
@@ -355,9 +359,20 @@ def by_columns(fn, B: torch.Tensor, per_col: int) -> torch.Tensor:
 
 
 def _spmm_coo(A: COO, B):
+    # As _spmv_coo: one segment reduction a row over the entries in
+    # coo_row_order, so each row sums its entries in entry order, as JAX's
+    # segment_sum does on the CPU, and reruns bitwise on the card (an
+    # index_add_ there adds with atomics, in no fixed order). The products
+    # round to the output type, as JAX's do; a bf16 row is summed in float32
+    # and rounded once (JAX rounds at every add; index_add_ on the CPU summed
+    # in float32 too, and the bf16 tests hold it to the exact product).
+    cols, data, offsets = _coo_order(A)
+
     def part(Bc):
-        contrib = A.data[:, None] * take_clip(Bc, A.col)
-        return segment_sum(contrib, A.row, A.shape[0])
+        contrib = data[:, None] * Bc.index_select(0, cols)
+        acc = torch.promote_types(contrib.dtype, torch.float32)
+        return torch.segment_reduce(contrib.to(acc), "sum", offsets=offsets,
+                                    axis=0).to(contrib.dtype)
     return by_columns(part, B, A.capacity)
 
 

@@ -9,13 +9,14 @@ Prefill is ONE forward per admission batch (``model.prefill_cache``):
 pending requests accumulate in a queue and are admitted together whenever
 slots free up, padded to pow2 (rows, prompt-len) buckets (the JAX package's
 jit-cache buckets; here they keep the shapes, and so the results, of the
-reference). Families without an addressable kv cache fall back to per-token
-prefill through the decode path. Steps run eagerly on the engine's device,
-the card unless the caller names the CPU.
+reference). The other families (the vlm, ssm and hybrid ones) prefill each
+request by decode steps on its own slot. Steps run eagerly on the engine's
+device, the card unless the caller names the CPU.
 
 Usage:
   python -m repro_torch.launch.serve --arch stablelm_1_6b --smoke --device cpu \
       --requests 8 --slots 4 --max-new 16
+  python -m repro_torch.launch.serve --arch mamba2_2_7b --smoke --device cpu
   python -m repro_torch.launch.serve --arch minitron_8b --max-len 1024   # on the card
 """
 from __future__ import annotations
@@ -61,12 +62,17 @@ class DecodeEngine:
     the per-request share (total / n). Each refill and step ends by reading
     the greedy tokens on the host, which waits for the device.
 
-    The cache is the JAX engine's (``model.init_cache(slots, max_len)``,
-    bf16 k/v) on ``device``; the engine reads and writes whatever
-    :attr:`cache` holds, so a caller may put another of the same shape there.
+    The cache is the JAX engine's (``model.init_cache(slots, max_len)``:
+    bf16 k/v, bf16 conv windows, float32 SSM state) on ``device``; the
+    engine reads and writes whatever :attr:`cache` holds, so a caller may
+    put another of the same shape there. With ``record_logits``,
+    :attr:`logits_log` maps each request id to the logits rows the engine
+    computed for it, in order (every prompt position when prefilled by
+    decode, the last one from a batched prefill, then one a step).
     """
 
-    def __init__(self, model, params, slots: int, max_len: int, device: DeviceLike = None):
+    def __init__(self, model, params, slots: int, max_len: int, device: DeviceLike = None,
+                 record_logits: bool = False):
         self.model = model
         self.params = params
         self.slots = slots
@@ -84,6 +90,8 @@ class DecodeEngine:
         self._req_meta: dict = {}           # rid -> in-flight timestamps
         self._step = model.decode_step
         self._prefill = model.prefill_cache
+        self.logits_log: Optional[dict] = {} if record_logits else None
+        self._slot_rows: dict = {}  # slot -> logits rows of its prefill (record_logits)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.tensor(a, device=self.device)
@@ -125,6 +133,8 @@ class DecodeEngine:
             self.tokens[s] = tok
             self.pos[s] = len(prompt)
             self.outputs[s] = [tok]
+            if self.logits_log is not None:
+                self.logits_log[rid] = self._slot_rows.pop(s)
             meta = self._req_meta.get(rid)
             if meta is not None:
                 meta["t_admit"] = t_admit
@@ -152,20 +162,36 @@ class DecodeEngine:
         logits, self.cache = self._prefill(self.params, self.cache, self._dev(tokens),
                                            self._dev(srows), self._dev(lengths))
         self.prefill_calls += 1
+        if self.logits_log is not None:
+            for i, s in enumerate(slots):
+                self._slot_rows[int(s)] = [logits[i]]
         nxt = torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)
         return [int(t) for t in nxt[:len(batch)]]
 
     def _prefill_by_decode(self, prompt: np.ndarray, s: int) -> int:
-        """Fallback for recurrent-state families (ssm/hybrid): the cache
-        is positional, so the prompt must be stepped token by token."""
-        logits = None
+        """Prefill of the families without :meth:`prefill_cache`: the prompt
+        stepped token by token through the decode path, on slot ``s`` alone.
+
+        The recurrent ``conv``/``ssm`` state is not positional: it carries
+        whatever was stepped into it. So the slot's state is zeroed first
+        (a reused slot would start from the last request's), and each step
+        runs on views ``[:, s:s+1]`` of every cache leaf, which leaves every
+        other slot's state where it was. Each request then starts from the
+        state the single-request decode chain gives it."""
         self.prefill_calls += 1
-        for i, t in enumerate(prompt):
-            self.tokens[s] = t
-            self.pos[s] = i
-            logits, self.cache = self._step(self.params, self.cache,
-                                            self._dev(self.tokens), self._dev(self.pos))
-        return int(torch.argmax(logits[s]).item())
+        view = {name: t[:, s:s + 1] for name, t in self.cache.items()}
+        for name in ("conv", "ssm"):
+            if name in view:
+                view[name].zero_()
+        tokens = self._dev(np.asarray(prompt, np.int32))
+        positions = torch.arange(len(prompt), dtype=torch.int32, device=self.device)
+        rows = []
+        for i in range(len(prompt)):
+            logits, _ = self._step(self.params, view, tokens[i:i + 1], positions[i:i + 1])
+            rows.append(logits[0])
+        if self.logits_log is not None:
+            self._slot_rows[s] = rows
+        return int(torch.argmax(rows[-1]).item())
 
     # -- decode ------------------------------------------------------------
 
@@ -181,6 +207,8 @@ class DecodeEngine:
             if not self.active[s]:
                 continue
             self.outputs[s].append(int(nxt[s]))
+            if self.logits_log is not None:
+                self.logits_log[self.request_ids[s]].append(logits[s])
             self.tokens[s] = nxt[s]
             self.pos[s] += 1
             done = (len(self.outputs[s]) >= max_new or int(nxt[s]) == eos
@@ -241,7 +269,8 @@ def main(argv=None):
 
     cfg = get_config(args.arch, smoke=args.smoke)
     if cfg.encoder_only:
-        raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
+        raise SystemExit(f"{cfg.name} is encoder-only ({cfg.family}): it has no decode "
+                         "cache to serve from")
     model = build_model(cfg)
     dev = resolve_device(args.device)
     params = model.init(args.seed, device=dev)

@@ -2,9 +2,10 @@
 
 Ported so far: :class:`LinearSparse`, the linear layer over a dynamic
 sparse weight, with ``prune_magnitude`` and ``WEIGHT_CANDIDATES``; and the
-dense decoder's serving half: ``spec``, ``layers``, ``flash`` (forward),
-``attention``, ``sharding_ctx``, ``transformer``, ``model`` (:class:`Model`,
-:func:`build_model`) and ``weights`` (param and cache trees across packages).
+serving half of every model family: ``spec``, ``layers``, ``flash``
+(forward), ``attention``, ``moe``, ``mamba2``, ``sharding_ctx``,
+``transformer``, ``model`` (:class:`Model`, :func:`build_model`) and
+``weights`` (param and cache trees across packages).
 """
 from repro_torch.models.linear_sparse import LinearSparse, WEIGHT_CANDIDATES, prune_magnitude
 from repro_torch.models.model import Model, build_model

@@ -11,8 +11,10 @@
     prefill_cache(...)           one forward that primes the decode cache
     decode_step(params, cache, tokens, pos)   one-token serve step
 
-The dense family is ported; ``build_model`` raises ``NotImplementedError``
-for the others. Training (``loss``, ``lm_loss``) comes in a later slice.
+Every family of ``configs/`` builds. The decode cache is written in place:
+each step stores its k/v, conv window and SSM state into the cache tensors
+it was given (JAX returns updated copies). Training (``loss``, ``lm_loss``)
+comes in a later slice: ``loss`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,13 +25,15 @@ import torch
 from repro_torch.configs.registry import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import spec as spec_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import embed_apply, mlp_apply, rms_norm, unembed_apply
 
 
 # ---------------------------------------------------------------------------
-# Decode body
+# Decode bodies
 # ---------------------------------------------------------------------------
 
 
@@ -46,8 +50,51 @@ def _decode_attn_family(params, cache, x, pos, cfg):
                                     *scales)[0]
         x = x + out
         h2 = rms_norm(x, pl["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(pl["mlp"], h2, cfg.mlp_act)
+        if cfg.family == "moe":
+            h2, _ = moe_mod.moe_apply(pl["moe"], h2, cfg)
+        else:
+            h2 = mlp_apply(pl["mlp"], h2, cfg.mlp_act)
+        x = x + h2
     return x, cache
+
+
+def _mamba_step(pl, x, cache, i, cfg):
+    h = rms_norm(x, pl["ln"], cfg.norm_eps)
+    out = m2.mamba_decode(pl["mixer"], h, cache["conv"][i], cache["ssm"][i], cfg)[0]
+    return x + out
+
+
+def _decode_ssm_family(params, cache, x, pos, cfg):
+    """Every Mamba2 layer's one-token step; layer ``i`` updates
+    ``cache["conv"][i]`` and ``cache["ssm"][i]`` in place."""
+    del pos  # the recurrent state is not positional
+    blocks = params["blocks"]
+    for i in range(cfg.n_layers):
+        x = _mamba_step(tfm.layer_view(blocks, i), x, cache, i, cfg)
+    return x, cache
+
+
+def _decode_hybrid(params, cache, x, pos, cfg):
+    """Groups of ``attn_every`` Mamba2 steps, each followed by the shared
+    attention block on the group's k/v cache ``cache["k"][group]``."""
+    g = cfg.attn_every
+    blocks, shared = params["blocks"], params["shared_attn"]
+    dcfg = tfm._as_dense(cfg)
+    for grp in range(cfg.n_layers // g):
+        for i in range(grp * g, (grp + 1) * g):
+            x = _mamba_step(tfm.layer_view(blocks, i), x, cache, i, cfg)
+        h = rms_norm(x, shared["ln1"], cfg.norm_eps)
+        out = attn.decode_attention(shared["attn"], h, cache["k"][grp], cache["v"][grp],
+                                    pos, dcfg)[0]
+        x = x + out
+        h2 = rms_norm(x, shared["ln2"], cfg.norm_eps)
+        x = x + mlp_apply(shared["mlp"], h2, cfg.mlp_act)
+    return x, cache
+
+
+_DECODE = {"dense": _decode_attn_family, "moe": _decode_attn_family,
+           "vlm": _decode_attn_family, "ssm": _decode_ssm_family,
+           "hybrid": _decode_hybrid}
 
 
 # ---------------------------------------------------------------------------
@@ -82,24 +129,44 @@ class Model:
     def forward(self, params, batch, **kw):
         return tfm.forward(params, batch, self.cfg, **kw)
 
+    def loss(self, params, batch, **kw):
+        raise NotImplementedError(
+            "Model.loss: training is not ported yet: see ROADMAP.md Queue 1 item 2 "
+            "(training: lm_loss, the backward passes, optim/, checkpoint/, data/)")
+
     # -- serving -----------------------------------------------------------
     def cache_specs(self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
                     kv_quant: bool = False) -> dict:
-        """Meta-device tensors of the decode cache: k and v of shape
-        (L, B, S_max, KV, hd). ``kv_quant=True``: int8 k/v + bf16
-        per-(token, head) scales, 4x smaller than bf16 k/v."""
+        """Meta-device tensors of the decode cache, JAX's keys and shapes.
+
+        Attention families: k and v of shape (L, B, S_max, KV, hd);
+        ``kv_quant=True``: int8 k/v + bf16 per-(token, head) scales, 4x
+        smaller than bf16 k/v. ssm: ``conv`` (L, B, W-1, conv_dim) in
+        ``dtype`` and ``ssm`` (L, B, H, N, P) in float32; hybrid adds k/v of
+        (L / attn_every, B, S_max, KV, hd) (no int8 mode, as in JAX). The
+        audio encoder has no decode cache: ``ValueError``."""
         cfg = self.cfg
-        tfm.check_family(cfg)
 
         def meta(shape, dt):
             return torch.empty(shape, dtype=dt, device="meta")
 
-        kv = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.hd)
-        if kv_quant:
-            return {"k": meta(kv, torch.int8), "v": meta(kv, torch.int8),
-                    "k_scale": meta(kv[:-1], torch.bfloat16),
-                    "v_scale": meta(kv[:-1], torch.bfloat16)}
-        return {"k": meta(kv, dtype), "v": meta(kv, dtype)}
+        if cfg.family in ("dense", "moe", "vlm"):
+            kv = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.hd)
+            if kv_quant:
+                return {"k": meta(kv, torch.int8), "v": meta(kv, torch.int8),
+                        "k_scale": meta(kv[:-1], torch.bfloat16),
+                        "v_scale": meta(kv[:-1], torch.bfloat16)}
+            return {"k": meta(kv, dtype), "v": meta(kv, dtype)}
+        if cfg.family not in ("ssm", "hybrid"):
+            raise ValueError(f"{cfg.family} has no decode cache")
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+        out = {"conv": meta((cfg.n_layers, batch, cfg.ssm_conv - 1, conv_dim), dtype),
+               "ssm": meta((cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_state,
+                            cfg.ssm_head_dim), torch.float32)}
+        if cfg.family == "hybrid":
+            kv = (cfg.n_layers // cfg.attn_every, batch, max_len, cfg.n_kv, cfg.hd)
+            out.update(k=meta(kv, dtype), v=meta(kv, dtype))
+        return out
 
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
                    kv_quant: bool = False, device: DeviceLike = None) -> dict:
@@ -111,9 +178,12 @@ class Model:
         """tokens: (B,) int; pos: (B,) write positions. -> (logits, cache);
         ``cache`` is updated in place and returned."""
         cfg = self.cfg
-        tfm.check_family(cfg)
+        decode = _DECODE.get(cfg.family)
+        if decode is None:
+            raise ValueError(f"{cfg.family} has no decode cache")
+        # the vlm decodes on tokens alone, as the JAX package's does
         x = embed_apply(params["embed"], tokens, tfm.compute_dtype(cfg))[:, None, :]
-        x, cache = _decode_attn_family(params, cache, x, pos, cfg)
+        x, cache = decode(params, cache, x, pos, cfg)
         x = rms_norm(x, params["final_ln"], cfg.norm_eps)
         logits = unembed_apply(params["unembed"], x)[:, 0]
         return logits, cache
@@ -124,7 +194,8 @@ class Model:
 
     def supports_prefill_cache(self) -> bool:
         """Whether :meth:`prefill_cache` is available: attention families
-        with a token frontend (the kv cache is addressable by position)."""
+        with a token frontend (the kv cache is addressable by position;
+        ssm/hybrid recurrent state is built by stepping)."""
         return self.cfg.family in ("dense", "moe")
 
     def prefill_cache(self, params, cache, tokens, slots, lengths):
@@ -164,5 +235,4 @@ class Model:
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    tfm.check_family(cfg)
     return Model(cfg)

@@ -1,9 +1,12 @@
-"""Model assembly (port of ``repro.models.transformer``), the dense family.
+"""Model assembly (port of ``repro.models.transformer``): the stacks of every
+family.
 
-Layers are stacked (a leading ``layers`` dim on every block param, as in the
-JAX package) and driven by a Python loop over ``i`` that takes views of the
-stacked params, never copies. The moe, vlm, audio, ssm and hybrid families
-follow in later slices (``ROADMAP.md`` Queue 1 item 2).
+One decoder/encoder runtime covers dense / moe / audio / vlm; the ssm family
+stacks Mamba2 blocks; hybrid (zamba2) interleaves groups of Mamba2 blocks
+with one *shared* attention block (one parameter set, applied after every
+group). Layers are stacked (a leading ``layers`` dim on every block param,
+as in the JAX package) and driven by a Python loop over ``i`` that takes
+views of the stacked params, never copies.
 """
 from __future__ import annotations
 
@@ -13,21 +16,15 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (P, embed_apply, embed_specs, mlp_apply,
                                        mlp_specs, rms_norm, unembed_apply,
                                        unembed_specs)
 from repro_torch.models.sharding_ctx import constrain
 from repro_torch.models.spec import tree_map
 
-PORTED_FAMILIES = ("dense",)
-
-
-def check_family(cfg) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) is not ported yet: see ROADMAP.md "
-            "Queue 1 item 2 (model stack and serving); ported: "
-            f"{', '.join(PORTED_FAMILIES)}")
+ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -52,12 +49,16 @@ def layer_view(stacked, i: int):
 
 
 def _attn_block_specs(cfg) -> dict:
-    return {
+    s = {
         "ln1": P((cfg.d_model,), ("embed",), init="ones"),
         "attn": attn.attn_specs(cfg),
         "ln2": P((cfg.d_model,), ("embed",), init="ones"),
-        "mlp": mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp_act),
     }
+    if cfg.family == "moe":
+        s["moe"] = moe_mod.moe_specs(cfg)
+    else:
+        s["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp_act)
+    return s
 
 
 def _attn_block(p, x, cfg, *, causal, positions=None, q_chunk, kv_chunk,
@@ -68,27 +69,65 @@ def _attn_block(p, x, cfg, *, causal, positions=None, q_chunk, kv_chunk,
                                  unroll=unroll, return_kv=return_kv)
     x = x + h
     hin = rms_norm(x, p["ln2"], cfg.norm_eps)
-    h = mlp_apply(p["mlp"], hin, cfg.mlp_act)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "moe":
+        h, aux = moe_mod.moe_apply(p["moe"], hin, cfg)
+    else:
+        h = mlp_apply(p["mlp"], hin, cfg.mlp_act)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_kv:
         return x + h, aux, kv
     return x + h, aux
 
 
+def _mamba_block_specs(cfg) -> dict:
+    return {"ln": P((cfg.d_model,), ("embed",), init="ones"),
+            "mixer": m2.mamba_specs(cfg)}
+
+
+def _mamba_block(p, x, cfg, *, return_state=False, unroll=False):
+    h, state = m2.mamba_apply(p["mixer"], rms_norm(x, p["ln"], cfg.norm_eps),
+                              cfg, return_state=return_state, unroll=unroll)
+    return x + h, state
+
+
 # ---------------------------------------------------------------------------
-# Specs
+# Specs per family
 # ---------------------------------------------------------------------------
 
 
 def model_specs(cfg) -> dict:
-    check_family(cfg)
     d, v = cfg.d_model, cfg.padded_vocab
-    s: Dict[str, Any] = {"final_ln": P((d,), ("embed",), init="ones"),
-                         "embed": embed_specs(v, d)}
-    if not cfg.encoder_only:
+    s: Dict[str, Any] = {"final_ln": P((d,), ("embed",), init="ones")}
+
+    if cfg.frontend == "audio":
+        s["frontend"] = {"proj": P((cfg.frontend_dim, d), (None, "embed"))}
+    elif cfg.frontend == "vision":
+        s["frontend"] = {"proj": P((cfg.frontend_dim, d), (None, "embed"))}
+        s["embed"] = embed_specs(v, d)
+    else:
+        s["embed"] = embed_specs(v, d)
+
+    if not cfg.encoder_only or cfg.family == "audio":
         s["unembed"] = unembed_specs(d, v)
-    s["blocks"] = _stack_specs(_attn_block_specs(cfg), cfg.n_layers)
+
+    if cfg.family in ATTN_FAMILIES:
+        s["blocks"] = _stack_specs(_attn_block_specs(cfg), cfg.n_layers)
+    elif cfg.family == "ssm":
+        s["blocks"] = _stack_specs(_mamba_block_specs(cfg), cfg.n_layers)
+    elif cfg.family == "hybrid":
+        if cfg.n_layers % cfg.attn_every:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not groups of "
+                             f"attn_every = {cfg.attn_every}")
+        s["blocks"] = _stack_specs(_mamba_block_specs(cfg), cfg.n_layers)
+        # one block, reused after every attn_every Mamba2 blocks
+        s["shared_attn"] = _attn_block_specs(_as_dense(cfg))
+    else:
+        raise ValueError(cfg.family)
     return s
+
+
+def _as_dense(cfg):
+    return dataclasses.replace(cfg, family="dense")
 
 
 # ---------------------------------------------------------------------------
@@ -97,8 +136,17 @@ def model_specs(cfg) -> dict:
 
 
 def _embed_inputs(params, batch, cfg, dtype):
-    """Token embedding (the token frontend). Returns (x, positions)."""
-    x = embed_apply(params["embed"], batch["tokens"], dtype)
+    """Token/frontend embedding. Returns (x, positions): audio frames and
+    vision patches go through ``frontend.proj``; patches come before the
+    token embeddings."""
+    if cfg.frontend == "audio":
+        x = batch["frames"].to(dtype) @ params["frontend"]["proj"].to(dtype)
+    elif cfg.frontend == "vision":
+        pe = batch["patches"].to(dtype) @ params["frontend"]["proj"].to(dtype)
+        te = embed_apply(params["embed"], batch["tokens"], dtype)
+        x = torch.cat([pe, te], dim=1)
+    else:
+        x = embed_apply(params["embed"], batch["tokens"], dtype)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
     return x, positions
@@ -108,36 +156,58 @@ def forward(params, batch, cfg, *, remat: bool = True,
             q_chunk: int = 512, kv_chunk: int = 1024,
             logits_mode: str = "all", unroll: bool = False,
             collect_kv: bool = False):
-    """Full-sequence forward. Returns (logits, aux_loss).
+    """Full-sequence forward. Returns (logits, aux_loss); aux sums the MoE
+    layers' load-balance losses (0 for the other families).
 
     logits_mode: 'all' | 'last' (prefill serving) | 'none' (the final-norm
     activations). collect_kv: also return every layer's projected (k, v),
     stacked to (L, B, S, KV, hd) each, so a serving prefill primes the
     decode cache from ONE forward; the return becomes (out, aux, (k, v)).
+    Attention families only: ssm/hybrid state is recurrent, not a kv cache.
     ``remat`` and ``unroll`` are accepted for the JAX signature and change
     no value: nothing is differentiated here, and the loops are Python loops.
+    An encoder-only model attends without the causal mask.
     """
     del remat
-    check_family(cfg)
     dtype = compute_dtype(cfg)
     x, positions = _embed_inputs(params, batch, cfg, dtype)
     x = constrain(x, "act")
     causal = not cfg.encoder_only
+    if collect_kv and cfg.family not in ATTN_FAMILIES:
+        raise ValueError(f"collect_kv: {cfg.family} has no kv cache — "
+                         "prefill ssm/hybrid families by decode steps")
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
     blocks = params["blocks"]
-    for i in range(cfg.n_layers):
-        out = _attn_block(layer_view(blocks, i), x, cfg, causal=causal,
-                          positions=positions, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                          unroll=unroll, return_kv=collect_kv)
-        if collect_kv:
-            x, a, (k, v) = out
-            ks.append(k)
-            vs.append(v)
-        else:
-            x, a = out
-        x, aux = constrain(x, "act"), aux + a
+    if cfg.family in ATTN_FAMILIES:
+        for i in range(cfg.n_layers):
+            out = _attn_block(layer_view(blocks, i), x, cfg, causal=causal,
+                              positions=positions, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                              unroll=unroll, return_kv=collect_kv)
+            if collect_kv:
+                x, a, (k, v) = out
+                ks.append(k)
+                vs.append(v)
+            else:
+                x, a = out
+            x, aux = constrain(x, "act"), aux + a
+    elif cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            x, _ = _mamba_block(layer_view(blocks, i), x, cfg, unroll=unroll)
+            x = constrain(x, "act")
+    elif cfg.family == "hybrid":
+        g = cfg.attn_every
+        dcfg = _as_dense(cfg)
+        for grp in range(cfg.n_layers // g):
+            for i in range(grp * g, (grp + 1) * g):
+                x, _ = _mamba_block(layer_view(blocks, i), x, cfg, unroll=unroll)
+            x, a = _attn_block(params["shared_attn"], x, dcfg, causal=causal,
+                               positions=positions, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                               unroll=unroll)
+            x, aux = constrain(x, "act"), aux + a
+    else:
+        raise ValueError(cfg.family)
 
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None

@@ -1469,3 +1469,91 @@ def test_serve_cli_on_card(card, capsys):
     assert main(["--arch", "minitron_8b", "--smoke", "--requests", "4", "--slots", "2"]) == 0
     out = capsys.readouterr().out
     assert "served 4 requests, 64 tokens" in out and "on cuda" in out
+
+
+# ---------------------------------------------------------------------------
+# the moe, ssm and hybrid families (smoke size): the card vs the CPU
+# ---------------------------------------------------------------------------
+
+
+def test_coo_spmm_on_card_reruns_bitwise(card):
+    """The plain COO SpMM (the moe ``coo`` dispatch's combine) reduces each
+    row in entry order without atomics: two runs on the card are equal
+    bitwise, and agree with the CPU."""
+    rng = np.random.default_rng(30)
+    m, n, nnz = 300, 200, 20000  # ~67 entries a row, rows repeated
+    row = torch.from_numpy(rng.integers(0, m, nnz).astype(np.int32))
+    col = torch.from_numpy(rng.integers(0, n, nnz).astype(np.int32))
+    for dtype_name, dt in DTYPES.items():
+        val = _rand(rng, (nnz,), dt, "cpu")
+        B = _rand(rng, (n, 64), dt, "cpu")
+        A = COO(row=row, col=col, data=val, shape=(m, n), nnz=nnz)
+        Ag = COO(row=row.to(card), col=col.to(card), data=val.to(card), shape=(m, n), nnz=nnz)
+        y1, y2 = spmm(Ag, B.to(card)), spmm(Ag, B.to(card))
+        assert torch.equal(y1, y2), dtype_name
+        assert torch.allclose(y1.cpu().float(), spmm(A, B).float(), **TOL[dtype_name])
+
+
+@pytest.mark.parametrize("dispatch", ["dense", "sort", "coo"])
+def test_moe_dispatch_on_card_matches_cpu(card, dispatch):
+    from repro_torch.models import moe
+    from repro_torch.models.spec import tree_map
+    cfg, model, cpu = _dense_smoke("deepseek_moe_16b")
+    layer = tree_map(lambda t: t[0], cpu["blocks"]["moe"])  # layer 0
+    layer["router"] = layer["router"] * 30  # routing decided by the input
+    x = _rand(np.random.default_rng(31), (4, 64, cfg.d_model), torch.float32, "cpu")
+    yc, auxc = moe.moe_apply(layer, x, cfg, dispatch=dispatch)
+    lg = _to(layer, card)
+    yg, auxg = moe.moe_apply(lg, x.to(card), cfg, dispatch=dispatch)
+    assert torch.allclose(yg.cpu(), yc, **TOL["float32"])
+    assert abs(float(auxg) - float(auxc)) < 1e-5
+    if dispatch != "dense":  # no atomics: reruns bitwise (bf16 too)
+        xb = x.to(card, torch.bfloat16)
+        assert torch.equal(moe.moe_apply(lg, xb, cfg, dispatch=dispatch)[0],
+                           moe.moe_apply(lg, xb, cfg, dispatch=dispatch)[0])
+
+
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "mamba2_2_7b", "zamba2_2_7b"])
+def test_family_forward_and_decode_on_card_match_cpu(card, arch):
+    cfg, model, cpu = _dense_smoke(arch)
+    gpu = _to(cpu, card)
+    tokens = torch.from_numpy(np.random.default_rng(32).integers(0, cfg.vocab, (2, 32)))
+    out_c, aux_c = model.forward(cpu, {"tokens": tokens})
+    out_g, aux_g = model.forward(gpu, {"tokens": tokens.to(card)})
+    assert torch.allclose(out_g.cpu(), out_c, **TOL["float32"])
+    assert abs(float(aux_g) - float(aux_c)) < 1e-5
+    cc = model.init_cache(2, 16, torch.float32, device="cpu")
+    cg = model.init_cache(2, 16, torch.float32, device=card)
+    assert all(t.device.type == "cuda" for t in cg.values())
+    pos = torch.tensor([0, 3])
+    for i in range(6):
+        lc, _ = model.decode_step(cpu, cc, tokens[:, i], pos + i)
+        lgg, _ = model.decode_step(gpu, cg, tokens[:, i].to(card), (pos + i).to(card))
+        assert torch.allclose(lgg.cpu(), lc, **TOL["float32"]), i
+    for name in cc:
+        assert torch.allclose(cg[name].cpu(), cc[name], **TOL["float32"]), name
+
+
+@pytest.mark.parametrize("arch", ["mamba2_2_7b", "zamba2_2_7b"])
+def test_recurrent_engine_on_card_matches_the_cpu_chain(card, arch):
+    """2 slots, 5 requests (slot reuse): every logit the engine computes on
+    the card equals the CPU's single-request decode chain fed the same
+    tokens, within 1e-4 * max|logit|."""
+    from repro_torch.launch.serve import DecodeEngine, serve
+    cfg, model, cpu = _dense_smoke(arch)
+    rng = np.random.default_rng(33)
+    reqs = [(i, rng.integers(0, cfg.vocab, (n,)).astype(np.int32))
+            for i, n in enumerate((5, 9, 3, 7, 4))]
+    engine = DecodeEngine(model, _to(cpu, card), 2, 14, device=card, record_logits=True)
+    engine.cache = model.init_cache(2, 14, torch.float32, device=card)
+    done, _ = serve(engine, reqs, 6)
+    assert engine.prefill_calls == len(reqs)
+    for rid, prompt in reqs:
+        fed = list(prompt) + dict(done)[rid][:-1]
+        cache = model.init_cache(1, 14, torch.float32, device="cpu")
+        ref = torch.stack([model.decode_step(cpu, cache, torch.tensor([int(t)]),
+                                             torch.tensor([i]))[0][0]
+                           for i, t in enumerate(fed)])
+        got = torch.stack(engine.logits_log[rid]).cpu()
+        assert got.shape == ref.shape
+        assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), rid

@@ -66,7 +66,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.attention", "repro_torch.models.sharding_ctx",
             "repro_torch.models.transformer", "repro_torch.models.model",
             "repro_torch.models.weights", "repro_torch.launch",
-            "repro_torch.launch.serve"} <= loaded
+            "repro_torch.launch.serve", "repro_torch.models.moe",
+            "repro_torch.models.mamba2", "repro_torch.configs.deepseek_moe_16b",
+            "repro_torch.configs.llama4_scout_17b_a16e", "repro_torch.configs.mamba2_2_7b",
+            "repro_torch.configs.zamba2_2_7b", "repro_torch.configs.internvl2_26b",
+            "repro_torch.configs.hubert_xlarge"} <= loaded
 
 
 def test_every_arch_config_is_the_ports_own():

@@ -138,11 +138,14 @@ def test_minitron_full_size_numbers():
                                   "internvl2_26b", "hubert_xlarge", "mamba2_2_7b",
                                   "zamba2_2_7b"])
 def test_unported_family_raises(arch):
+    """Every family builds and serves now (tests/test_torch_families.py);
+    what stays unported is training: ``loss`` raises, naming the ROADMAP
+    item."""
     cfg = tconfigs.get_config(arch, smoke=True)
+    m = build_model(cfg)
+    assert m == Model(cfg) and "blocks" in m.specs()
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
-        build_model(cfg)
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        Model(cfg).specs()
+        m.loss({}, {})
 
 
 def test_entry_points_default_to_the_card():

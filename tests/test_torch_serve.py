@@ -219,5 +219,9 @@ def test_cli_defaults_to_the_card_and_refuses_encoders():
         tserve.DecodeEngine(m, m.init(0, device=DEV), 2, 8)
     with pytest.raises(SystemExit, match="encoder-only"):
         tserve.main(["--arch", "hubert_xlarge", "--smoke", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tserve.main(["--arch", "mamba2_2_7b", "--smoke", "--device", "cpu"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):  # the recurrent families serve now
+        assert tserve.main(["--arch", "mamba2_2_7b", "--smoke", "--device", "cpu",
+                            "--requests", "3", "--slots", "2", "--max-new", "2"]) == 0
+    assert "served 3 requests, 6 tokens" in out.getvalue()
+    assert "3 by-decode prefills" in out.getvalue()

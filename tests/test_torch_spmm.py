@@ -116,6 +116,42 @@ def test_spmm_t_bf16_matches_jax_and_oracle(fmt):
     np.testing.assert_allclose(_f(y), oracle, **tol("bfloat16"))
 
 
+@pytest.mark.parametrize("dtype_name", DTYPE_NAMES)
+def test_coo_spmm_sums_rows_in_entry_order(dtype_name):
+    """The plain COO SpMM reduces each row over its entries in entry order
+    (one segment a row, no atomics): against JAX's ``_spmm_coo`` on entries
+    in no row order, rows repeated, explicit zeros, an entry past the last
+    row (dropped) and a column past the last (clamped). In float32 the sum
+    is JAX's, in the same order: equal bitwise here. In bf16 a row is summed
+    in float32 and rounded once, where JAX rounds at every add."""
+    rng = np.random.default_rng(23)
+    m, n, w = 12, 10, 5
+    row = rng.integers(0, m, 60).astype(np.int32)
+    col = rng.integers(0, n, 60).astype(np.int32)
+    val = rng.standard_normal(60).astype(np.float32)
+    row[:6] = 3  # one row of many entries, interleaved with the others
+    val[10:16] = 0.0  # explicit zeros
+    row[20], col[21] = m + 2, n + 3
+    B = rng.standard_normal((n, w)).astype(np.float32)
+    jd, td = JAX_DTYPES[dtype_name], TORCH_DTYPES[dtype_name]
+    Jc = jf.COO(row=jnp.asarray(row), col=jnp.asarray(col), data=jnp.asarray(val, jd),
+                shape=(m, n), nnz=60)
+    Pc = tf.COO(row=_t(row), col=_t(col), data=_t(val, dtype_name), shape=(m, n), nnz=60)
+    y = tops.spmm(Pc, _t(B, dtype_name))
+    yj = np.asarray(jops._spmm_coo(Jc, jnp.asarray(B, jd)).astype(jnp.float32))
+    assert y.dtype == td and y.shape == (m, w)
+    if dtype_name == "float32":
+        np.testing.assert_array_equal(y.numpy(), yj)
+    else:
+        np.testing.assert_allclose(_f(y), yj, **tol("bfloat16"))
+    keep = row < m
+    dense = np.zeros((m, n))
+    np.add.at(dense, (row[keep], np.minimum(col[keep], n - 1)),
+              _rounded(val, dtype_name)[keep])
+    np.testing.assert_allclose(_f(y), dense @ _rounded(B, dtype_name), **tol(dtype_name))
+    assert torch.equal(y, tops.spmm(Pc, _t(B, dtype_name)))
+
+
 def _csr_ragged(n, seed):
     """CSR with empty first/middle/last rows, one long row, columns past both
     edges and 37 capacity slots of NaN past indptr[-1]."""
