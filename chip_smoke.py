@@ -188,22 +188,60 @@ Phases, in order (any failure exits nonzero and prints no result line):
       128): chunk 256 vs 64 and float64 vs float32; (j6) hubert-xlarge's
       encoder forward on frames (2, 1024, 512) and internvl2-26b in bf16:
       prefill on 256 patches + 256 tokens, 8 decode steps on tokens alone.
+   k. training (``repro_torch.launch.train``, ``optim``, ``checkpoint``,
+      ``data``; no sparse kernel on this path, and none may launch): (k1)
+      stablelm-1.6b at full size (24 layers, d_model 2048, 32 heads, d_ff
+      5632, vocab 100352; random weights from seed 0; bf16 compute, f32
+      params and AdamW state) through ``launch.train.main`` in this process,
+      (4, 2048) tokens from ``SyntheticLM``, remat on, the chunked CE (two
+      chunks of 1024), 6 steps: every loss and gradient norm finite; ms a
+      step (host clock around a synchronised step, CUDA events), tokens/s,
+      peak memory, the share of the bound (4 forwards' FLOPs at the bf16
+      peak + AdamW's bytes at the memory rate); (k2) float32 gradients
+      against float64: stablelm at full width cut to 2 layers on (2, 512)
+      tokens, every leaf (GRAD_F64_REL), remat on against off bitwise under
+      deterministic algorithms; flash_attention's dq/dk/dv at (2, 2048, 32,
+      64), causal and not, against autograd of the unchunked float64 softmax
+      attention (FLASH_F64_REL); one deepseek-moe-16b MoE layer in f32 on
+      (4, 512): the dense, sort and coo gradients against each other
+      (JAX's forward bounds, * max|g|) and the sort dispatch's on fixed
+      routing against float64 (MOE_GRAD_F64_REL); (k3) ``launch.train.main``
+      on stablelm --smoke: 8 steps checkpointing every 4, then --resume
+      from the step-4 checkpoint alone: 'restoring step 4' and steps 4-7's
+      losses bitwise the uninterrupted run's (deterministic algorithms);
+      (k4) mamba2-2.7b at full size (64 layers, chunk 256), (2, 1024)
+      tokens, 3 steps: every loss and gradient finite (the SSD decay masked
+      before exp), ms a step, peak memory; (k5) ``train_moe_sparse`` at the
+      example's defaults (200 steps, batch 8, seq 256): the three dispatch
+      times and the pick, the loss falls, the example's LEARNING test
+      reported beside it.
+
+``python3 chip_smoke.py --profile-train`` runs only a ``torch.profiler``
+pass over one training step each of (k1) and (k4) (``profile_training``).
 
 The last three lines of standard output are the kernels' JSON record (all
-eleven kernels, launches summed over paths (a)-(j), and each kernel's
+eleven kernels, launches summed over paths (a)-(k), and each kernel's
 launches on its token-major and dense-tile schedules), the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import time
+
+# cuBLAS reads this once, at the process's first GEMM: path (k) checks remat
+# and resume bitwise under torch.use_deterministic_algorithms(True), which
+# refuses cuBLAS without one of its deterministic workspace settings
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GRID = (104, 104, 104)  # HPCG's shipped hpcg.dat default local grid
@@ -3825,6 +3863,362 @@ def phase_families(torch, np, smi, peak_bw, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Path (k): training at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "stablelm_1_6b", 4, 2048, 6  # (k1)
+SSM_TRAIN_ARCH, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = "mamba2_2_7b", 2, 1024, 3
+GRAD_LAYERS, GRAD_TOKENS = 2, (2, 512)  # (k2) stablelm cut to 2 layers, (B, S) tokens
+FLASH_GRAD_SHAPE = (2, 2048, 32, 64)  # (k2) q, k, v: (B, S, H, D)
+# (k2) float32 gradients against float64, per leaf: max|g32 - g64| <= REL *
+# max|g64|. The model's bound covers its bf16-free f32 path over 2 layers
+# and a 100352-way softmax; flash's the chunked f32 sums over 2048 keys.
+GRAD_F64_REL, FLASH_F64_REL, MOE_GRAD_F64_REL = 1e-4, 2e-5, 1e-5
+# (k2) the MoE dispatches' gradients against each other, * max|g|: JAX's
+# forward bounds of tests/test_moe.py (dense vs sort 1e-4, sort vs coo 1e-6)
+MOE_GRAD_DENSE_REL, MOE_GRAD_COO_REL = 1e-4, 1e-6
+RESUME_STEPS, RESUME_EVERY = 8, 4  # (k3) stablelm --smoke on the card
+BF16_PEAK = 989e12  # H100 SXM data sheet, dense bf16 tensor-core FLOP/s
+
+
+def _train_flops(cfg, b, s) -> float:
+    """Forward FLOPs of one training batch: 2 a parameter a token for every
+    matmul weight (the input embedding is a gather), the causal attention
+    (QK^T and PV over half the S x S scores) or the SSD scan's chunk
+    einsums. A step's work is 4 of these: the forward, the remat recompute
+    (layers and CE chunks) and the backward's two."""
+    from repro_torch.models import build_model
+    from repro_torch.models.spec import tree_leaves
+    specs = build_model(cfg).specs()
+    mm = sum(math.prod(p.shape) for p in tree_leaves(specs) if len(p.shape) >= 2)
+    mm -= math.prod(specs["embed"]["tokens"].shape)
+    flops = 2.0 * mm * b * s
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
+        flops += cfg.n_layers * 2.0 * b * s * s * cfg.n_heads * cfg.hd  # causal: half of 4BS^2HD
+    if cfg.family in ("ssm", "hybrid"):
+        q, h, p, n = min(cfg.ssm_chunk, s), cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        per_chunk = 2 * b * q * q * n + 2 * b * h * q * q * p + 4 * b * q * n * h * p
+        flops += cfg.n_layers * (s // q) * per_chunk
+    return flops
+
+
+def _timed_training(torch, argv, what, smi, peak_bw):
+    """``launch.train.main(argv)`` in this process with each step timed
+    (host clock around a synchronised step; CUDA events) and each step's
+    global gradient norm recorded as AdamW receives it. Every loss and norm
+    must be finite. Returns main's result and the timings."""
+    from repro_torch.launch import train
+    from repro_torch.models.spec import tree_leaves
+    from repro_torch.optim import adamw
+
+    rec = {"host": [], "events": [], "gnorm": []}
+    make_step, update = train.make_train_step, adamw.AdamW.update
+
+    def timed_make_step(*a, **kw):
+        fn = make_step(*a, **kw)
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            s_.record()
+            out = fn(state, batch)
+            e_.record()
+            torch.cuda.synchronize()
+            rec["host"].append((time.perf_counter() - t0) * 1e3)
+            rec["events"].append(s_.elapsed_time(e_))
+            return out
+        return step
+
+    def recorded_update(self, grads, state, params):
+        rec["gnorm"].append(torch.sqrt(sum(torch.dot(g.reshape(-1).float(), g.reshape(-1).float())
+                                           for g in tree_leaves(grads))))
+        return update(self, grads, state, params)
+
+    train.make_train_step, adamw.AdamW.update = timed_make_step, recorded_update
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out = train.main(argv)
+    finally:
+        train.make_train_step, adamw.AdamW.update = make_step, update
+    wall = time.perf_counter() - t0
+    losses = [lv for _, lv in out["losses"]]
+    norms = [float(g) for g in rec["gnorm"]]
+    check(len(losses) == len(norms) == len(rec["host"]) and all(map(math.isfinite, losses + norms)),
+          f"{what}: {len(losses)} steps, every loss and gradient norm finite: losses "
+          + ", ".join(f"{v:.4f}" for v in losses) + "; grad norms "
+          + ", ".join(f"{v:.3f}" for v in norms) + f" [{smi}]")
+    return out, rec, wall
+
+
+def _report_steps(torch, cfg, b, s, n_params, rec, wall, what, smi, peak_bw):
+    """ms a step after the first (host, events), tokens/s, peak memory, and
+    the share of the bound: 4 forwards' FLOPs over the bf16 peak plus
+    AdamW's bytes (params, m, v read and written, grads read: 7 f32 words a
+    parameter) over the memory rate."""
+    host = statistics.median(rec["host"][1:])
+    ev = statistics.median(rec["events"][1:])
+    flops = 4 * _train_flops(cfg, b, s)
+    bound = (flops / BF16_PEAK + 7 * 4 * n_params / peak_bw) * 1e3
+    print(f"  {what}: ms a step (median of steps 1..{len(rec['host']) - 1}) host {host:.3f}, "
+          f"CUDA events {ev:.3f}; first step {rec['host'][0]:.3f} ms; {b * s / host * 1e3:,.0f} "
+          f"tokens/s; bound {bound:.3f} ms ({flops / 1e12:.2f} TFLOP at the bf16 peak + AdamW's "
+          f"{7 * 4 * n_params / 1e9:.2f} GB) = {bound / ev:.1%} of it; peak "
+          f"{_peak(torch)}; main() {wall:.1f} s [{smi}]", flush=True)
+
+
+def train_full_width(torch, smi, peak_bw):
+    """(k1) stablelm-1.6b at full size trained through launch.train.main:
+    bf16 compute, f32 params and AdamW state, remat on, the chunked CE."""
+    from repro_torch.models import build_model
+    cfg = full_config(TRAIN_ARCH)
+    check(TRAIN_SEQ % 1024 == 0 and TRAIN_SEQ // 1024 > 1
+          and TRAIN_SEQ * cfg.padded_vocab > 2 ** 27,
+          f"(k1) {TRAIN_SEQ} x {cfg.padded_vocab} > 2^27: Model.loss takes the chunked CE "
+          f"({TRAIN_SEQ // 1024} chunks of 1024)")
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--log-every", "1"]
+    out, rec, wall = _timed_training(torch, argv, "(k1) " + cfg.name, smi, peak_bw)
+    _report_steps(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, build_model(cfg).n_params(), rec, wall,
+                  f"(k1) {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}), "
+                  f"({TRAIN_BATCH}, {TRAIN_SEQ}) tokens", smi, peak_bw)
+    del out
+
+
+def _leaf_reading(torch, got, want):
+    """max over leaves of max|got - want| / max|want|, and the worst leaf."""
+    from repro_torch.models.spec import tree_leaves
+    worst, at = 0.0, -1
+    for i, (a, b) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        r = _rel(torch, a, b)
+        if r > worst:
+            worst, at = r, i
+    return worst, at
+
+
+def _model_grads(torch, model, params, batch, **kw):
+    from repro_torch.launch import train
+    from repro_torch.models.spec import tree_map
+    params = train.trainable(params)
+    loss = model.loss(params, batch, **kw)
+    loss.backward()
+    return loss.detach(), tree_map(lambda t: t.grad, params)
+
+
+def grad_witness_dense(torch, np, smi, dev):
+    """(k2) stablelm-1.6b at full width cut to GRAD_LAYERS layers: the loss's
+    gradient in float32 against float64, every leaf; remat on against off,
+    bitwise under deterministic algorithms."""
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.models import build_model
+    from repro_torch.models.spec import tree_leaves, tree_map
+
+    b, s = GRAD_TOKENS
+    cfg32 = full_config(TRAIN_ARCH, n_layers=GRAD_LAYERS, dtype="float32")
+    model32 = build_model(cfg32)
+    base = model32.init(SEED, device=dev)
+    batch = to_device(SyntheticLM(cfg32.vocab, s, b, seed=SEED).batch_at(0), dev)
+    kw = dict(q_chunk=512, kv_chunk=512)
+    loss32, g32 = _model_grads(torch, model32, tree_map(lambda t: t.clone(), base), batch, **kw)
+    torch.use_deterministic_algorithms(True)
+    try:
+        la, ga = _model_grads(torch, model32, tree_map(lambda t: t.clone(), base), batch, **kw)
+        lb, gb = _model_grads(torch, model32, tree_map(lambda t: t.clone(), base), batch,
+                              remat=False, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = torch.equal(la, lb) and all(torch.equal(x, y) for x, y in
+                                        zip(tree_leaves(ga), tree_leaves(gb)))
+    check(same, f"(k2) {cfg32.name} at {GRAD_LAYERS} layers: loss and every gradient leaf "
+                f"bitwise equal with remat on and off (deterministic algorithms) [{smi}]")
+    del ga, gb
+    model64 = build_model(full_config(TRAIN_ARCH, n_layers=GRAD_LAYERS, dtype="float64"))
+    loss64, g64 = _model_grads(torch, model64, tree_map(lambda t: t.double(), base), batch, **kw)
+    worst, at = _leaf_reading(torch, g32, g64)
+    n = len(tree_leaves(g32))
+    check(worst <= GRAD_F64_REL and all(bool(torch.isfinite(g).all()) for g in tree_leaves(g32)),
+          f"(k2) {cfg32.name} at {GRAD_LAYERS} layers, full width, {GRAD_TOKENS} tokens: loss "
+          f"f32 {float(loss32):.6f} vs f64 {float(loss64):.6f}; the float32 gradient of every "
+          f"one of {n} leaves within {worst:.3e} * max|g64| (leaf {at}; <= {GRAD_F64_REL}) "
+          f"[{smi}]")
+
+
+def _softmax_attention(torch, q, k, v, causal):
+    g = q.shape[2] // k.shape[2]
+    k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
+    if causal:
+        n = q.shape[1]
+        sc = sc.masked_fill(~torch.tril(torch.ones(n, n, dtype=torch.bool, device=q.device)),
+                            float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, dim=-1), v)
+
+
+def grad_witness_flash(torch, np, smi, dev):
+    """(k2) flash_attention's dq/dk/dv at FLASH_GRAD_SHAPE in float32 (the
+    training chunks, 512 x 1024) against autograd of the unchunked float64
+    softmax attention, causal and not."""
+    from repro_torch.models.flash import flash_attention
+
+    rng = np.random.default_rng(SEED + 9)
+    arrs = [rng.standard_normal(FLASH_GRAD_SHAPE).astype(np.float32) for _ in range(4)]
+
+    def grads(dtype, fn):
+        ts = [torch.tensor(a, dtype=dtype, device=dev, requires_grad=True) for a in arrs[:3]]
+        (fn(*ts) * torch.tensor(arrs[3], dtype=dtype, device=dev)).sum().backward()
+        return [t.grad for t in ts]
+
+    for causal in (True, False):
+        got = grads(torch.float32, lambda a, b, c: flash_attention(a, b, c, causal, 512, 1024))
+        want = grads(torch.float64, lambda a, b, c: _softmax_attention(torch, a, b, c, causal))
+        rels = [_rel(torch, g, w) for g, w in zip(got, want)]
+        check(max(rels) <= FLASH_F64_REL,
+              f"(k2) flash_attention backward {FLASH_GRAD_SHAPE} (B, S, H, D), causal={causal}: "
+              f"dq/dk/dv within " + ", ".join(f"{r:.3e}" for r in rels)
+              + f" * max|g64| (<= {FLASH_F64_REL}) [{smi}]")
+        del got, want
+
+
+def grad_witness_moe(torch, np, smi, dev):
+    """(k2) one deepseek-moe-16b MoE layer at full width in f32 on (4, 512)
+    tokens, as (j2): the gradients (x and every layer param) of the three
+    dispatches against each other, and the sort dispatch's on fixed routing
+    against float64."""
+    from repro_torch.models import moe
+    from repro_torch.models.spec import init_params, tree_leaves, tree_map
+
+    cfg = full_config(MOE_ARCH, dtype="float32")
+    p0 = init_params(moe.moe_specs(cfg), SEED + 5, dev)
+    b, t = MOE_LAYER_TOKENS
+    rng = np.random.default_rng(SEED + 5)
+    x0 = torch.from_numpy(rng.standard_normal((b, t, cfg.d_model)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal((b, t, cfg.d_model)).astype(np.float32)).to(dev)
+
+    def grads(dispatch):
+        p = tree_map(lambda a: a.clone().requires_grad_(True), p0)
+        x = x0.clone().requires_grad_(True)
+        y, aux = moe.moe_apply(p, x, cfg, dispatch=dispatch)
+        ((y * w).sum() + aux).backward()
+        return {"x": x.grad, "p": tree_map(lambda a: a.grad, p)}
+
+    g = {name: grads(name) for name in moe.DISPATCH}
+    r_dense, _ = _leaf_reading(torch, g["dense"], g["sort"])
+    r_coo, _ = _leaf_reading(torch, g["coo"], g["sort"])
+    n = len(tree_leaves(g["sort"]))
+    check(r_dense <= MOE_GRAD_DENSE_REL and r_coo <= MOE_GRAD_COO_REL,
+          f"(k2) one {cfg.name} MoE layer, f32, x {tuple(x0.shape)}: gradients of x and every "
+          f"param ({n} leaves) dense vs sort {r_dense:.3e}, coo vs sort {r_coo:.3e} * max|g| "
+          f"(<= {MOE_GRAD_DENSE_REL}, {MOE_GRAD_COO_REL}) [{smi}]")
+    del g
+    gates, idx, _ = moe._route(p0, x0, cfg)
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        leaf = lambda a: a.detach().to(dt, copy=True).requires_grad_(True)  # noqa: E731
+        p, x, gt = {"experts": tree_map(leaf, p0["experts"])}, leaf(x0), leaf(gates)
+        (moe.DISPATCH["sort"](p, x, gt, idx, cfg) * w.to(dt)).sum().backward()
+        out[dt] = {"x": x.grad, "gates": gt.grad, "p": tree_map(lambda a: a.grad, p)}
+    rel, at = _leaf_reading(torch, out[torch.float32], out[torch.float64])
+    check(rel <= MOE_GRAD_F64_REL,
+          f"(k2) the sort dispatch's gradients (x, gates, experts) on fixed routing: float32 "
+          f"vs float64 {rel:.3e} * max|g| (leaf {at}; <= {MOE_GRAD_F64_REL}) [{smi}]")
+
+
+def train_resume(torch, smi):
+    """(k3) launch.train.main on stablelm --smoke on the card: RESUME_STEPS
+    steps checkpointing every RESUME_EVERY, then --resume in a fresh state
+    from a directory holding only the step-RESUME_EVERY checkpoint; the
+    resumed losses equal the uninterrupted run's bitwise under
+    deterministic algorithms."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import train
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    base = ["--arch", TRAIN_ARCH, "--smoke", "--steps", str(RESUME_STEPS), "--batch", "4",
+            "--seq", "128", "--log-every", "1"]
+    torch.use_deterministic_algorithms(True)
+    try:
+        full = train.main(base + ["--ckpt-dir", os.path.join(tmp, "a"),
+                                  "--ckpt-every", str(RESUME_EVERY)])
+        step_dir = f"step_{RESUME_EVERY:08d}"
+        shutil.copytree(os.path.join(tmp, "a", step_dir), os.path.join(tmp, "b", step_dir))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            resumed = train.main(base + ["--ckpt-dir", os.path.join(tmp, "b"), "--resume"])
+        text = buf.getvalue()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(text, end="", flush=True)
+    check(f"[resume] restoring step {RESUME_EVERY}" in text,
+          f"(k3) --resume printed 'restoring step {RESUME_EVERY}' [{smi}]")
+    want = full["losses"][RESUME_EVERY:]
+    check(resumed["losses"] == want,
+          f"(k3) steps {RESUME_EVERY}..{RESUME_STEPS - 1} after the resume equal the "
+          f"uninterrupted run's bitwise (deterministic algorithms): "
+          + ", ".join(f"{a!r}" for _, a in resumed["losses"]) + f" vs "
+          + ", ".join(f"{a!r}" for _, a in want) + f" [{smi}]")
+
+
+def train_ssm_full_width(torch, smi, peak_bw):
+    """(k4) mamba2-2.7b at full size (64 layers, chunk 256) through
+    launch.train.main: bf16 compute, f32 params and AdamW state."""
+    from repro_torch.models import build_model
+    cfg = full_config(SSM_TRAIN_ARCH)
+    argv = ["--arch", SSM_TRAIN_ARCH, "--steps", str(SSM_TRAIN_STEPS), "--batch",
+            str(SSM_TRAIN_BATCH), "--seq", str(SSM_TRAIN_SEQ), "--log-every", "1"]
+    out, rec, wall = _timed_training(torch, argv, f"(k4) {cfg.name}, chunk {cfg.ssm_chunk}",
+                                     smi, peak_bw)
+    _report_steps(torch, cfg, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, build_model(cfg).n_params(), rec,
+                  wall, f"(k4) {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}), "
+                  f"({SSM_TRAIN_BATCH}, {SSM_TRAIN_SEQ}) tokens", smi, peak_bw)
+    del out
+
+
+def train_moe_example(torch, smi):
+    """(k5) train_moe_sparse at the example's defaults: the three dispatch
+    times and the pick; the loss must fall."""
+    from repro_torch import train_moe_sparse
+    t0 = time.perf_counter()
+    out = train_moe_sparse.main([])
+    check(out["last"] < out["first"],
+          f"(k5) train_moe_sparse (200 steps, batch 8, seq 256): dispatch forward ms "
+          + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in out["times"].items())
+          + f" -> '{out['dispatch']}'; loss {out['first']:.4f} -> {out['last']:.4f} falls "
+          f"(the example's own test, a drop > 0.5: "
+          f"{'LEARNING' if out['learning'] else 'not met'}); training {out['seconds']:.1f} s, "
+          f"all {time.perf_counter() - t0:.1f} s [{smi}]")
+
+
+def phase_training(torch, np, smi, peak_bw, dev):
+    """Path (k): training at full width, its gradients, resume, the MoE
+    example."""
+    print(f"== path (k): training: {TRAIN_ARCH} and {SSM_TRAIN_ARCH} at full size, gradient "
+          f"witnesses, resume, train_moe_sparse [{smi}]", flush=True)
+    start_path(torch)
+    t = {}
+    for name, fn in (("k1", lambda: train_full_width(torch, smi, peak_bw)),
+                     ("k2 dense", lambda: grad_witness_dense(torch, np, smi, dev)),
+                     ("k2 flash", lambda: grad_witness_flash(torch, np, smi, dev)),
+                     ("k2 moe", lambda: grad_witness_moe(torch, np, smi, dev)),
+                     ("k3", lambda: train_resume(torch, smi)),
+                     ("k4", lambda: train_ssm_full_width(torch, smi, peak_bw)),
+                     ("k5", lambda: train_moe_example(torch, smi))):
+        t0 = time.perf_counter()
+        fn()
+        _free(torch)
+        t[name] = time.perf_counter() - t0
+    print("  path (k) seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in t.items()), flush=True)
+    counts = read_path(torch, "(k)", ())
+    from repro_torch.kernels import ops as kops
+    check(all(counts[k] == 0 for k in kops.LAUNCH_COUNTERS),
+          "path (k) launches none of the eleven sparse kernels (the JAX training path reaches "
+          "no Pallas kernel; the moe coo dispatch's COO has none)")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3904,8 +4298,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts_j = phase_families(torch, np, smi, peak_bw, torch.device("cuda"))
     lap("path (j)")
+    torch.cuda.empty_cache()
+    counts_k = phase_training(torch, np, smi, peak_bw, torch.device("cuda"))
+    lap("path (k)")
     paths = (counts_a, counts_b, counts_c, counts_d, counts_e, counts_f, counts_g, counts_h,
-             counts_i, counts_j)
+             counts_i, counts_j, counts_k)
     for name, rec in records.items():
         rec["launches"] = sum(c[name] for c in paths)
     from repro_torch.kernels import ops as kops
@@ -3929,5 +4326,61 @@ def main() -> int:
     return 0
 
 
+PROFILE_CELLS = ((TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ), (SSM_TRAIN_ARCH, SSM_TRAIN_BATCH,
+                                                         SSM_TRAIN_SEQ))
+
+
+def profile_training() -> int:
+    """``python3 chip_smoke.py --profile-train``: one training step each of
+    (k1) and (k4) (full size, after two warm-up steps) under
+    ``torch.profiler``: the step's host time, the kernels' device time and
+    the share of the step it fills, the kernel and aten-call counts, and
+    the ops by device time. Not part of the default run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        print("chip_smoke --profile-train: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamW
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch, b, s in PROFILE_CELLS:
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        params = train.trainable(model.init(SEED, device="cuda"))
+        opt = AdamW(lr=3e-3, total_steps=10, warmup_steps=1)
+        step = train.make_train_step(model, opt, "cuda", q_chunk=min(s, 512),
+                                     kv_chunk=min(s, 1024))
+        state = train.TrainState(params, opt.init(params))
+        src = SyntheticLM(cfg.vocab, s, b, seed=SEED)
+        for i in range(2):
+            state, _ = step(state, src.batch_at(i))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = step(state, src.batch_at(2))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = prof.key_averages()
+        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        naten = sum(e.count for e in ev if e.key.startswith("aten::"))
+        print(f"== {arch} ({b}, {s}): step {wall:.1f} ms (host clock, profiled), kernels "
+              f"{dev_ms:.1f} ms ({dev_ms / wall:.1%} of the step), {len(kernels)} kernels, "
+              f"{naten} aten calls [{smi}]", flush=True)
+        print(ev.table(sort_by="self_device_time_total", row_limit=18,
+                       max_name_column_width=70), flush=True)
+        del state, params
+        _free(torch)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(profile_training() if sys.argv[1:] == ["--profile-train"] else main())

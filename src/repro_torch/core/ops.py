@@ -82,9 +82,13 @@ def coo_row_order(A: COO):
     offsets)``, with each row's live entries in entry order (a stable sort)
     and its segment ``offsets[i]:offsets[i + 1]``; dead entries (the
     capacity padding, row 0 value 0, of which an edge shard's part holds
-    tens of thousands) sort past ``offsets[m]`` and are never reduced."""
+    tens of thousands) sort past ``offsets[m]`` and are never reduced.
+    When ``data`` requires grad, a stored zero of a row in range stays
+    live: its gradient is dY[row] . B[col], as JAX's ``segment_sum`` gives."""
     m, n = A.shape
-    live = (A.data != 0) & (A.row >= 0) & (A.row < m)
+    live = (A.row >= 0) & (A.row < m)
+    if not A.data.requires_grad:
+        live &= A.data != 0
     rows, order = torch.sort(torch.where(live, A.row, torch.full_like(A.row, m)), stable=True)
     cols = A.col.index_select(0, order).long().clamp(0, max(n - 1, 0))
     offsets = torch.searchsorted(rows, torch.arange(m + 1, dtype=rows.dtype, device=rows.device))
@@ -98,6 +102,8 @@ _COO_ORDER: "weakref.WeakKeyDictionary[COO, tuple]" = weakref.WeakKeyDictionary(
 
 
 def _coo_order(A: COO):
+    if A.data.requires_grad:  # a new graph a call: nothing cached holds one
+        return coo_row_order(A)
     order = _COO_ORDER.get(A)
     if order is None:
         order = _COO_ORDER[A] = coo_row_order(A)

@@ -117,5 +117,6 @@ def unembed_specs(d: int, vocab: int) -> dict:
 
 
 def unembed_apply(p, x):
-    # logits in f32 for numerically-stable CE; the product in x's dtype
-    return (x @ p["out"].to(x.dtype)).float()
+    # logits in f32 for numerically-stable CE (f64 for a float64 witness);
+    # the product in x's dtype
+    return (x @ p["out"].to(x.dtype)).to(acc_dtype(x.dtype))

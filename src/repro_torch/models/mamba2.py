@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import P, _silu, acc_dtype, rms_norm
 
@@ -45,12 +46,38 @@ def _softplus(x):
 
 def _segsum_decay(dA):
     """dA: (..., Q) per-step log-decay -> (..., Q, Q) lower-tri decay matrix
-    L[q, s] = exp(sum_{s < i <= q} dA_i), 0 for s > q."""
+    L[q, s] = exp(sum_{s < i <= q} dA_i), 0 for s > q.
+
+    The mask is applied before ``exp``: above the diagonal ``diff`` is a
+    sum of positive terms, and over a long chunk its ``exp`` overflows
+    float32; the JAX package masks after ``exp``, so its backward multiplies
+    the masked zero cotangent by inf and its gradient is NaN at mamba2's
+    chunk 256. ``exp(-inf) = 0`` keeps the forward bitwise JAX's."""
     q = dA.shape[-1]
     cs = torch.cumsum(dA, dim=-1)
     diff = cs[..., :, None] - cs[..., None, :]  # (..., q, s)
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dA.device))
-    return torch.where(mask, torch.exp(diff), torch.zeros((), dtype=dA.dtype, device=dA.device))
+    return torch.exp(torch.where(mask, diff, float("-inf")))
+
+
+def _ssd_step(hs, x_i, dt_i, A, B_i, C_i):
+    """One chunk of the SSD scan (inputs already in the f32/f64 internal
+    dtype): the chunk's output and the state carried past it."""
+    dA = dt_i * A  # (b,q,h) log decay (A negative)
+    dA_cum = torch.cumsum(dA, dim=1)  # inclusive over q
+    xdt = x_i * dt_i[..., None]
+    # intra-chunk (quadratic within the chunk only)
+    L = _segsum_decay(dA.transpose(1, 2))  # (b,h,q,s)
+    scores = torch.einsum("bqn,bsn->bqs", C_i, B_i)
+    y_diag = torch.einsum("bhqs,bshp->bqhp", scores[:, None] * L, xdt)
+    # contribution of the carried state
+    in_decay = torch.exp(dA_cum)  # (b,q,h)
+    y_off = torch.einsum("bqn,bhnp->bqhp", C_i, hs) * in_decay[..., None]
+    # state update
+    decay_to_end = torch.exp(dA_cum[:, -1:, :] - dA_cum)  # (b,q,h)
+    S = torch.einsum("bsn,bshp->bhnp", B_i, decay_to_end[..., None] * xdt)
+    chunk_decay = torch.exp(dA_cum[:, -1, :])  # (b,h)
+    return y_diag + y_off, hs * chunk_decay[..., None, None] + S
 
 
 def ssd_chunked(x, dt, A, B, C, chunk: int, unroll: bool = False):
@@ -59,8 +86,10 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, unroll: bool = False):
 
     A Python loop over chunks: each step does the quadratic intra-chunk work
     of its own chunk and carries the inter-chunk state, so one chunk's
-    (Q x Q) decay matrices exist at a time (b*h*Q^2, not b*nc*h*Q^2).
-    ``unroll`` is accepted for the JAX signature: the loop is unrolled."""
+    (Q x Q) decay matrices exist at a time (b*h*Q^2, not b*nc*h*Q^2). Under
+    autograd each step is remat'd (``checkpoint``), as the JAX package's
+    ``jax.checkpoint`` step is. ``unroll`` is accepted for the JAX
+    signature: the loop is unrolled."""
     del unroll
     b, t, h, p = x.shape
     n = B.shape[-1]
@@ -70,26 +99,15 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, unroll: bool = False):
     adt = acc_dtype(x.dtype)
     A = A.to(adt)
     hs = torch.zeros((b, h, n, p), dtype=adt, device=x.device)
+    step = _ssd_step
+    if torch.is_grad_enabled():
+        step = lambda *args: checkpoint(_ssd_step, *args, use_reentrant=False)  # noqa: E731
     ys = []
     for i in range(t // q):
         sl = slice(i * q, (i + 1) * q)
-        x_i, dt_i, B_i, C_i = (a[:, sl].to(adt) for a in (x, dt, B, C))
-        dA = dt_i * A  # (b,q,h) log decay (A negative)
-        dA_cum = torch.cumsum(dA, dim=1)  # inclusive over q
-        xdt = x_i * dt_i[..., None]
-        # intra-chunk (quadratic within the chunk only)
-        L = _segsum_decay(dA.transpose(1, 2))  # (b,h,q,s)
-        scores = torch.einsum("bqn,bsn->bqs", C_i, B_i)
-        y_diag = torch.einsum("bhqs,bshp->bqhp", scores[:, None] * L, xdt)
-        # contribution of the carried state
-        in_decay = torch.exp(dA_cum)  # (b,q,h)
-        y_off = torch.einsum("bqn,bhnp->bqhp", C_i, hs) * in_decay[..., None]
-        # state update
-        decay_to_end = torch.exp(dA_cum[:, -1:, :] - dA_cum)  # (b,q,h)
-        S = torch.einsum("bsn,bshp->bhnp", B_i, decay_to_end[..., None] * xdt)
-        chunk_decay = torch.exp(dA_cum[:, -1, :])  # (b,h)
-        hs = hs * chunk_decay[..., None, None] + S
-        ys.append((y_diag + y_off).to(x.dtype))
+        y_i, hs = step(hs, *(a[:, sl].to(adt) for a in (x, dt)), A,
+                       *(a[:, sl].to(adt) for a in (B, C)))
+        ys.append(y_i.to(x.dtype))
     return torch.cat(ys, dim=1), hs
 
 

@@ -1,26 +1,28 @@
-"""Public model API (port of ``repro.models.model``), its serving half.
+"""Public model API (port of ``repro.models.model``).
 
 ``build_model(cfg)`` returns a ``Model`` with:
     specs()                      parameter P-spec tree
     init(seed, device=)          materialized params (the card by default)
     abstract_params()            meta-device tensors (no allocation)
-    forward(params, batch)       logits (prefill)
+    forward(params, batch)       logits (train/prefill)
+    loss(params, batch)          scalar LM loss (+ 0.01 * MoE aux)
     cache_specs(b, s)            decode cache shapes (meta-device tensors)
     init_cache(b, s, device=)    decode cache
     prefill(params, batch)       last-token logits
     prefill_cache(...)           one forward that primes the decode cache
     decode_step(params, cache, tokens, pos)   one-token serve step
 
-Every family of ``configs/`` builds. The decode cache is written in place:
-each step stores its k/v, conv window and SSM state into the cache tensors
-it was given (JAX returns updated copies). Training (``loss``, ``lm_loss``)
-comes in a later slice: ``loss`` raises ``NotImplementedError``.
+Every family builds, serves and trains. The decode cache is written in
+place: each step stores its k/v, conv window and SSM state into the cache
+tensors it was given (JAX returns updated copies); the training forward
+never takes that path.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.registry import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -29,7 +31,52 @@ from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import spec as spec_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import embed_apply, mlp_apply, rms_norm, unembed_apply
+from repro_torch.models.layers import (acc_dtype, embed_apply, mlp_apply, rms_norm,
+                                       unembed_apply)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def _nll_sum(logits, labels, vocab: int):
+    """(sum of the token NLLs where label >= 0, count of such labels), the
+    NLLs in f32 (f64 for float64 logits)."""
+    logp = torch.log_softmax(logits.to(acc_dtype(logits.dtype)), dim=-1)
+    mask = labels >= 0
+    safe = torch.clamp(labels, 0, vocab - 1).long()
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return torch.sum(nll * mask), torch.sum(mask)
+
+
+def lm_loss(logits, labels, vocab: int):
+    """Token cross-entropy, f32, ignoring label == -1."""
+    tot, cnt = _nll_sum(logits, labels, vocab)
+    return tot / torch.clamp(cnt, min=1)
+
+
+def _ce_chunk(w, xi, li, vocab: int):
+    return _nll_sum(unembed_apply({"out": w}, xi), li, vocab)
+
+
+def lm_loss_chunked(unembed_params, x, labels, vocab: int, chunk: int,
+                    unroll: bool = False):
+    """CE without materialising the full (B, S, V) logits: a loop over
+    sequence chunks, each chunk's body under ``checkpoint`` (JAX's
+    ``jax.checkpoint`` scan), bounds peak memory at one (B, chunk, V) chunk.
+    ``unroll`` is accepted for the JAX signature: the loop is a Python loop."""
+    del unroll
+    s = x.shape[1]
+    adt = acc_dtype(x.dtype)
+    tot = torch.zeros((), dtype=adt, device=x.device)
+    cnt = torch.zeros((), dtype=adt, device=x.device)
+    for i in range(s // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        t, c = checkpoint(_ce_chunk, unembed_params["out"], x[:, sl], labels[:, sl], vocab,
+                          use_reentrant=False)
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp(cnt, min=1)
 
 
 # ---------------------------------------------------------------------------
@@ -129,10 +176,18 @@ class Model:
     def forward(self, params, batch, **kw):
         return tfm.forward(params, batch, self.cfg, **kw)
 
-    def loss(self, params, batch, **kw):
-        raise NotImplementedError(
-            "Model.loss: training is not ported yet: see ROADMAP.md Queue 1 item 2 "
-            "(training: lm_loss, the backward passes, optim/, checkpoint/, data/)")
+    def loss(self, params, batch, ce_chunk: int = 1024, **kw):
+        cfg = self.cfg
+        labels = batch["labels"]
+        s = labels.shape[1]
+        # chunk the CE when the full (B,S,V) logits tensor is memory-hostile
+        if s % max(1, ce_chunk) == 0 and s // ce_chunk > 1 \
+                and s * cfg.padded_vocab > 2 ** 27:
+            x, aux = tfm.forward(params, batch, cfg, logits_mode="none", **kw)
+            ce = lm_loss_chunked(params["unembed"], x, labels, cfg.padded_vocab, ce_chunk)
+            return ce + 0.01 * aux
+        logits, aux = tfm.forward(params, batch, cfg, **kw)
+        return lm_loss(logits, labels, cfg.padded_vocab) + 0.01 * aux
 
     # -- serving -----------------------------------------------------------
     def cache_specs(self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,

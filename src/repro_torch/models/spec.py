@@ -47,11 +47,12 @@ def is_spec(x) -> bool:
     return isinstance(x, P)
 
 
-def tree_map(fn: Callable, tree):
-    """``fn`` over the leaves of a nested dict (specs, tensors or arrays)."""
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of a nested dict (specs, tensors or arrays);
+    with ``rest``, over the matching leaves of trees of the same structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> List:

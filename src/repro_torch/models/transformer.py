@@ -14,6 +14,7 @@ import dataclasses
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
@@ -27,8 +28,13 @@ from repro_torch.models.spec import tree_map
 ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
+_COMPUTE = {"bfloat16": torch.bfloat16, "float64": torch.float64}
+
+
 def compute_dtype(cfg) -> torch.dtype:
-    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    """The activations' dtype: bf16 or f32 as in the JAX package; the port
+    also runs ``dtype="float64"`` (its float64 witnesses)."""
+    return _COMPUTE.get(cfg.dtype, torch.float32)
 
 
 def _stack_specs(specs: dict, n: int) -> dict:
@@ -41,6 +47,15 @@ def _stack_specs(specs: dict, n: int) -> dict:
 def layer_view(stacked, i: int):
     """Layer ``i`` of a stacked params (or cache) tree: views, no copies."""
     return tree_map(lambda a: a[i], stacked)
+
+
+def layer_views(stacked, n: int) -> list:
+    """All ``n`` layers of a stacked params tree as views, by one ``unbind``
+    a leaf: its backward stacks the layers' gradients once, where ``a[i]``
+    a layer would add a zero-padded full-size gradient into the leaf's for
+    every layer."""
+    cols = tree_map(lambda a: a.unbind(0), stacked)
+    return [tree_map(lambda c: c[i], cols) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +167,14 @@ def _embed_inputs(params, batch, cfg, dtype):
     return x, positions
 
 
+def _remat(fn, on: bool):
+    """``fn`` under ``checkpoint`` (JAX's ``jax.checkpoint``) when ``on``:
+    its activations are recomputed in the backward instead of saved."""
+    if not on:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def forward(params, batch, cfg, *, remat: bool = True,
             q_chunk: int = 512, kv_chunk: int = 1024,
             logits_mode: str = "all", unroll: bool = False,
@@ -159,16 +182,17 @@ def forward(params, batch, cfg, *, remat: bool = True,
     """Full-sequence forward. Returns (logits, aux_loss); aux sums the MoE
     layers' load-balance losses (0 for the other families).
 
-    logits_mode: 'all' | 'last' (prefill serving) | 'none' (the final-norm
-    activations). collect_kv: also return every layer's projected (k, v),
-    stacked to (L, B, S, KV, hd) each, so a serving prefill primes the
-    decode cache from ONE forward; the return becomes (out, aux, (k, v)).
-    Attention families only: ssm/hybrid state is recurrent, not a kv cache.
-    ``remat`` and ``unroll`` are accepted for the JAX signature and change
-    no value: nothing is differentiated here, and the loops are Python loops.
-    An encoder-only model attends without the causal mask.
+    logits_mode: 'all' (training CE) | 'last' (prefill serving) | 'none'
+    (the final-norm activations). collect_kv: also return every layer's
+    projected (k, v), stacked to (L, B, S, KV, hd) each, so a serving
+    prefill primes the decode cache from ONE forward; the return becomes
+    (out, aux, (k, v)). Attention families only: ssm/hybrid state is
+    recurrent, not a kv cache. ``remat`` wraps each layer's body (a hybrid
+    group's Mamba2 blocks and shared attention block as one unit) in
+    ``checkpoint`` when autograd is recording; it changes no value.
+    ``unroll`` is accepted for the JAX signature: the loops are Python
+    loops. An encoder-only model attends without the causal mask.
     """
-    del remat
     dtype = compute_dtype(cfg)
     x, positions = _embed_inputs(params, batch, cfg, dtype)
     x = constrain(x, "act")
@@ -176,15 +200,19 @@ def forward(params, batch, cfg, *, remat: bool = True,
     if collect_kv and cfg.family not in ATTN_FAMILIES:
         raise ValueError(f"collect_kv: {cfg.family} has no kv cache — "
                          "prefill ssm/hybrid families by decode steps")
+    remat = remat and torch.is_grad_enabled()
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
-    blocks = params["blocks"]
+    blocks = layer_views(params["blocks"], cfg.n_layers)
     if cfg.family in ATTN_FAMILIES:
+        def body(x, i):
+            return _attn_block(blocks[i], x, cfg, causal=causal,
+                               positions=positions, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                               unroll=unroll, return_kv=collect_kv)
+        body = _remat(body, remat)
         for i in range(cfg.n_layers):
-            out = _attn_block(layer_view(blocks, i), x, cfg, causal=causal,
-                              positions=positions, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                              unroll=unroll, return_kv=collect_kv)
+            out = body(x, i)
             if collect_kv:
                 x, a, (k, v) = out
                 ks.append(k)
@@ -193,18 +221,22 @@ def forward(params, batch, cfg, *, remat: bool = True,
                 x, a = out
             x, aux = constrain(x, "act"), aux + a
     elif cfg.family == "ssm":
+        body = _remat(lambda x, i: _mamba_block(blocks[i], x, cfg, unroll=unroll)[0], remat)
         for i in range(cfg.n_layers):
-            x, _ = _mamba_block(layer_view(blocks, i), x, cfg, unroll=unroll)
-            x = constrain(x, "act")
+            x = constrain(body(x, i), "act")
     elif cfg.family == "hybrid":
         g = cfg.attn_every
         dcfg = _as_dense(cfg)
-        for grp in range(cfg.n_layers // g):
+
+        def group_body(x, grp):
             for i in range(grp * g, (grp + 1) * g):
-                x, _ = _mamba_block(layer_view(blocks, i), x, cfg, unroll=unroll)
-            x, a = _attn_block(params["shared_attn"], x, dcfg, causal=causal,
+                x, _ = _mamba_block(blocks[i], x, cfg, unroll=unroll)
+            return _attn_block(params["shared_attn"], x, dcfg, causal=causal,
                                positions=positions, q_chunk=q_chunk, kv_chunk=kv_chunk,
                                unroll=unroll)
+        group_body = _remat(group_body, remat)
+        for grp in range(cfg.n_layers // g):
+            x, a = group_body(x, grp)
             x, aux = constrain(x, "act"), aux + a
     else:
         raise ValueError(cfg.family)

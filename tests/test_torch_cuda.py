@@ -1557,3 +1557,70 @@ def test_recurrent_engine_on_card_matches_the_cpu_chain(card, arch):
         got = torch.stack(engine.logits_log[rid]).cpu()
         assert got.shape == ref.shape
         assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), rid
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_on_card_matches_float64(card, causal):
+    """dq/dk/dv of the chunked backward in float32 on the card against
+    autograd of the unchunked float64 softmax attention, within 1e-5 *
+    max|g| (GQA, 8 heads over 4 kv heads)."""
+    from repro_torch.models.flash import flash_attention
+    rng = np.random.default_rng(40)
+    q, k, v, w = (rng.standard_normal(s).astype(np.float32)
+                  for s in ((2, 256, 8, 64), (2, 256, 4, 64), (2, 256, 4, 64), (2, 256, 8, 64)))
+
+    def grads(dtype, fn):
+        ts = [torch.tensor(a, dtype=dtype, device=card, requires_grad=True) for a in (q, k, v)]
+        (fn(*ts) * torch.tensor(w, dtype=dtype, device=card)).sum().backward()
+        return [t.grad.double().cpu() for t in ts]
+
+    def oracle(a, b, c):
+        b, c = b.repeat_interleave(2, dim=2), c.repeat_interleave(2, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", a, b) * a.shape[-1] ** -0.5
+        if causal:
+            s = s.masked_fill(~torch.tril(torch.ones(256, 256, dtype=torch.bool, device=card)),
+                              float("-inf"))
+        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), c)
+
+    got = grads(torch.float32, lambda a, b, c: flash_attention(a, b, c, causal, 64, 128))
+    want = grads(torch.float64, oracle)
+    for g, o in zip(got, want):
+        assert float((g - o).abs().max()) <= 1e-5 * float(o.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["stablelm_1_6b", "deepseek_moe_16b", "mamba2_2_7b",
+                                  "zamba2_2_7b", "internvl2_26b", "hubert_xlarge"])
+def test_train_step_on_card_has_finite_grads(card, arch):
+    """One full train step of each family's smoke model on the card (bf16
+    compute, f32 params and AdamW state): finite loss and gradients, params
+    moved and finite; the loss is the CPU's within bf16's tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_source, to_device
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.models.spec import tree_leaves, tree_map
+    from repro_torch.optim.adamw import AdamW
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg)
+    batch = make_source(cfg, 64, 2, seed=1).batch_at(0)
+    if cfg.frontend == "vision":
+        batch["tokens"] = batch["tokens"][:, :64 - cfg.n_patches]
+        batch["patches"] = np.random.default_rng(41).standard_normal(
+            (2, cfg.n_patches, cfg.frontend_dim)).astype(np.float32)
+    losses = {}
+    cpu = model.init(0, device="cpu")  # the CPU's and the card's generators draw apart
+    for dev in (torch.device("cpu"), card):
+        params = train.trainable(tree_map(lambda t: t.to(dev, copy=True), cpu))
+        before = [t.detach().clone() for t in tree_leaves(params)]
+        loss = model.loss(params, to_device(batch, dev), q_chunk=32, kv_chunk=32)
+        loss.backward()
+        assert torch.isfinite(loss)
+        grads = tree_map(lambda t: t.grad, params)
+        assert all(g is not None and bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+        opt = AdamW(lr=1e-3)
+        opt.update(grads, opt.init(params), params)
+        after = tree_leaves(params)
+        assert all(bool(torch.isfinite(a).all()) for a in after)
+        assert any(not torch.equal(a.detach(), b) for a, b in zip(after, before))
+        losses[dev.type] = float(loss.detach())
+    assert abs(losses["cpu"] - losses["cuda"]) <= 2e-2 * abs(losses["cpu"])

@@ -11,6 +11,9 @@ either package). Tolerances are ``torch_parity.tol``. The ssm and hybrid
 families are in ``tests/test_torch_recurrent.py``, the serving engine on
 these families in ``tests/test_torch_family_engines.py``.
 """
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
@@ -22,8 +25,9 @@ from repro_torch import configs as tconfigs
 from repro_torch.models import build_model
 from repro_torch.models import weights
 from repro_torch.models.spec import tree_leaves
-from torch_families import (ALL_ARCHS, DEV, DTYPES, cfg_pair, check_decode_chain,
-                            check_decode_matches_forward, check_forward, compute_refs)
+from torch_families import (ALL_ARCHS, B, DEV, DTYPES, S, batch_to_torch, cfg_pair,
+                            check_decode_chain, check_decode_matches_forward, check_forward,
+                            compute_refs, make_batch)
 
 ARCHS = ["deepseek_moe_16b", "llama4_scout_17b_a16e", "internvl2_26b", "hubert_xlarge"]
 DECODE_ARCHS = ARCHS[:-1]
@@ -126,6 +130,17 @@ def test_encoder_is_not_causal(refs):
 
 
 def test_loss_is_not_ported_yet():
-    m = build_model(tconfigs.get_config("deepseek_moe_16b", smoke=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
-        m.loss({}, {})
+    """Training is ported now: the MoE loss runs and carries 0.01 * the
+    load-balance aux of every layer (the gradients are held against JAX
+    in tests/test_torch_training_moe.py)."""
+    from repro_torch.models.model import lm_loss
+    cfg = dataclasses.replace(tconfigs.get_config("deepseek_moe_16b", smoke=True),
+                              dtype="float32")
+    m = build_model(cfg)
+    params = m.init(0, device=DEV)
+    batch = batch_to_torch(make_batch(cfg, 4), torch.float32)
+    labels = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (B, S)))
+    logits, aux = m.forward(params, batch)
+    loss = m.loss(params, dict(batch, labels=labels))
+    assert float(aux) > 0 and torch.isfinite(loss)
+    assert torch.equal(loss, lm_loss(logits, labels, cfg.padded_vocab) + 0.01 * aux)

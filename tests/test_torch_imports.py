@@ -70,7 +70,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.mamba2", "repro_torch.configs.deepseek_moe_16b",
             "repro_torch.configs.llama4_scout_17b_a16e", "repro_torch.configs.mamba2_2_7b",
             "repro_torch.configs.zamba2_2_7b", "repro_torch.configs.internvl2_26b",
-            "repro_torch.configs.hubert_xlarge"} <= loaded
+            "repro_torch.configs.hubert_xlarge", "repro_torch.data.pipeline",
+            "repro_torch.optim.adamw", "repro_torch.optim.grad_compress",
+            "repro_torch.checkpoint.ckpt", "repro_torch.launch.train",
+            "repro_torch.train_moe_sparse", "repro_torch.serve_decode"} <= loaded
 
 
 def test_every_arch_config_is_the_ports_own():

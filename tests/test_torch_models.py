@@ -138,14 +138,22 @@ def test_minitron_full_size_numbers():
                                   "internvl2_26b", "hubert_xlarge", "mamba2_2_7b",
                                   "zamba2_2_7b"])
 def test_unported_family_raises(arch):
-    """Every family builds and serves now (tests/test_torch_families.py);
-    what stays unported is training: ``loss`` raises, naming the ROADMAP
-    item."""
-    cfg = tconfigs.get_config(arch, smoke=True)
+    """Every family builds, serves (tests/test_torch_families.py) and now
+    trains, so nothing is left to raise: ``loss`` is the CE of
+    ``forward``'s logits plus 0.01 * the MoE aux loss (the gradients are
+    held against JAX in tests/test_torch_training_*.py)."""
+    from repro_torch.models.model import lm_loss
+    from torch_families import batch_to_torch, make_batch
+    cfg = dataclasses.replace(tconfigs.get_config(arch, smoke=True), dtype="float32")
     m = build_model(cfg)
     assert m == Model(cfg) and "blocks" in m.specs()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
-        m.loss({}, {})
+    params = m.init(0, device=DEV)
+    batch = batch_to_torch(make_batch(cfg, 3), torch.float32)
+    logits, aux = m.forward(params, batch, q_chunk=8, kv_chunk=8)
+    labels = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, logits.shape[:2]))
+    loss = m.loss(params, dict(batch, labels=labels), q_chunk=8, kv_chunk=8)
+    assert loss.shape == () and torch.isfinite(loss)
+    assert torch.equal(loss, lm_loss(logits, labels, cfg.padded_vocab) + 0.01 * aux)
 
 
 def test_entry_points_default_to_the_card():
