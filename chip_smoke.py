@@ -18,7 +18,11 @@ Phases, in order (any failure exits nonzero and prints no result line):
    ``torch.sparse_csr_tensor``; for BSR ``torch.sparse_bsr_tensor`` at block
    size 8 times x; a yardstick only), beside the least time
    the card could take (bytes over the memory rate, operations over the
-   float32 peak); a HYB line (the ELL and CSR kernels composed);
+   float32 peak); a HYB line (the ELL and CSR kernels composed); CSR's
+   long-row schedule at its edges (rows of L and L + 1 entries, CHUNK +- 1,
+   a row of 2^20, 100 back-to-back calls on one plan) and on a 2^20-row
+   power-law matrix (f32 and bf16: the first call with its plan under
+   ``set_sync_debug_mode("error")``, time, bound, plain and library times);
    then the six SpMM kernels (``csr_spmm``, ``csr_spmm_t``, ``ell_spmm``,
    ``ell_spmm_t``, ``sell_spmm``, ``sell_spmm_t``) against their plain
    versions at minitron-8b MLP width (the up and down weights, 4096 <->
@@ -112,8 +116,11 @@ Phases, in order (any failure exits nonzero and prints no result line):
       its kernel against its plain version (rows mostly empty, rectangular
       halo columns, padding in row 0); ms a dist_spmv (uniform and ml, in
       turns with the single-device DIA kernel), the V-cycle's and a
-      dist_spmv's host / device times, the plain COO SpMV three ways
-      (atomic adds, a sort a call, the kept row order), the build's phases.
+      dist_spmv's host / device times, the padded CSR parts (the last
+      level's color blocks 0 and 7, the P = 8 boundary parts of shards 0
+      and 4) against their bounds, the library call and each other, the
+      plain COO SpMV three ways (atomic adds, a sort a call, the kept row
+      order), the build's phases.
    h. observability (``repro_torch.obs``) at 104^3, after path (e) and on
       its store: (h1) under tracing("full") with the ledger on, the ml pick
       (DIA), CG with backend='auto', a P = 8 Multi-Format build and a
@@ -333,8 +340,11 @@ def compare(name, y_k, y_k2, y_p, dtype_name, scale=None, record=False):
     the same k products in different orders differ by up to about
     k * 2^-24 * scale, so for the 1024- and 4096-term rows of the sparse
     weights an output near zero is compared at the scale of its terms, and
-    a bf16 output at one rounding of its own size. ``record`` keeps the
-    reading for the summary of the weight-shape checks."""
+    a bf16 output at one rounding of its own size. csr_spmv's long rows (up
+    to 2^20 terms) are held so too: the plain version sums a row with
+    ``index_add_``, whose order on the card changes from run to run, so its
+    own f32 total of a cancelling row moves by more than 1e-4 of |y|.
+    ``record`` keeps the reading for the summary of the weight-shape checks."""
     import torch
     torch.cuda.synchronize()
     check(y_k.shape == y_p.shape and bool(torch.isfinite(y_k).all()),
@@ -410,7 +420,143 @@ def ragged_cases(rng, torch, dtype):
         compare(f"csr_spmv ragged m={m} cap={cap} vec={vec}",
                 kc.csr_spmv(indptr, idx, val, x, m, vec=vec),
                 kc.csr_spmv(indptr, idx, val, x, m, vec=vec), y_p, name)
+    long_row_cases(rng, torch, dtype, name)
     ragged_menu_cases(rng, torch, dtype, name)
+
+
+def long_row_cases(rng, torch, dtype, name):
+    """csr_spmv at the edges of its long-row schedule, every width: rows of
+    exactly L and L + 1 entries (L = LONG_STEPS * vec: one-entry rows keep
+    the average row below L / LONG_OVER_AVG), k * CHUNK +- 1, a row of 2^20
+    entries, NaN capacity past indptr[-1]; 100 back-to-back calls on one
+    plan launch 100 times, give the same bits and leave the arrival counters
+    at 0; a second plan built for the call gives them too. Held against the
+    plain version at each row's sum of |products| (``compare``'s scale)."""
+    from repro_torch.kernels import csr_spmv as kc
+    from repro_torch.kernels.ref import csr_spmv_ref
+    n, pad = 5000, 37
+    for vec in kc.VEC_WIDTHS:
+        L, C = kc.LONG_STEPS * vec, kc.CHUNK
+        lens = [0, L, L + 1, 0, L - 1, C - 1, C, C + 1, 2 * C - 1, 2 * C, 2 * C + 1, 1, 0,
+                5 * C + 3, 1 << 20, 3, 0]
+        a = L // kc.LONG_OVER_AVG
+        lens += [1] * max(0, -(-(sum(lens) + pad - a * len(lens)) // (a - 1)))
+        m, nnz = len(lens), sum(lens)
+        ip = torch.tensor([0] + list(itertools.accumulate(lens)), dtype=torch.int32,
+                          device="cuda")
+        cap = nnz + pad
+        ix = torch.from_numpy(rng.integers(-3, n + 3, cap).astype("int32")).cuda()
+        val = _rand(rng, torch, cap, dtype)
+        val[nnz:] = float("nan")
+        x = _rand(rng, torch, n, dtype)
+        plan = kc.long_row_plan(ip, cap, vec)
+        check(plan.threshold == L, f"csr_spmv long rows vec={vec}: rows above {L} are long")
+        before = kc.launches
+        ys = [kc.csr_spmv(ip, ix, val, x, m, vec=vec, plan=plan) for _ in range(100)]
+        torch.cuda.synchronize()
+        check(kc.launches - before == 100 and all(torch.equal(ys[0], y) for y in ys[1:])
+              and not bool(plan.arrive.any()),
+              f"csr_spmv long rows vec={vec} {name}: 100 calls on one plan, 100 launches, the "
+              f"same bits, arrival counters back at 0")
+        compare(f"csr_spmv long rows vec={vec} (L={L}, chunks of {C}, a row of 2^20, m={m})",
+                ys[0], kc.csr_spmv(ip, ix, val, x, m, vec=vec), csr_spmv_ref(ip, ix, val, x, m),
+                name, scale=csr_spmv_ref(ip, ix, val.abs(), x.abs(), m))
+
+
+# csr_spmv's power-law input (kernels/csr_spmv.py's long-row schedule): M = N
+# = 2^20, row lengths 1 + floor(pareto(1.5) * 4) capped at 65,536, columns
+# uniform and unique within a row, values standard normal, from SEED.
+POWERLAW_M = 1 << 20
+POWERLAW_LONGEST = 65536
+# csr_spmv's readings beside the 104^3 one (the power-law input, path (g)'s
+# padded parts), in its record of the kernels line under "readings".
+CSR_READINGS = {}
+
+
+def powerlaw_csr_np(np, seed, m, longest):
+    """(indptr, indices, values) of the power-law CSR, made with numpy."""
+    rng = np.random.default_rng(seed)
+    lens = np.minimum(1 + np.floor(rng.pareto(1.5, m) * 4).astype(np.int64), longest)
+    indptr = np.concatenate([[0], np.cumsum(lens)])
+    nnz = int(indptr[-1])
+    rows = np.repeat(np.arange(m, dtype=np.int64), lens)
+    cols = rng.integers(0, m, nnz)
+    while True:  # redraw the columns a row repeats until none does
+        key = rows * m + cols
+        order = np.argsort(key, kind="stable")
+        keys = key[order]
+        dup = np.zeros(nnz, bool)
+        dup[order[1:]] = keys[1:] == keys[:-1]
+        if not dup.any():
+            break
+        cols[dup] = rng.integers(0, m, int(dup.sum()))
+    return (indptr.astype(np.int32), (keys - rows * m).astype(np.int32),
+            rng.standard_normal(nnz).astype(np.float32))
+
+
+def powerlaw_readings(torch, np, peak_bw, peak_flops):
+    """csr_spmv on the power-law CSR in f32 and bf16 through the container
+    route: its first call under set_sync_debug_mode("error") (the plan is
+    built there), against the plain version, its time beside its bound, the
+    plain version's and torch.sparse_csr_tensor @ x's."""
+    from repro_torch.core.formats import CSR
+    from repro_torch.kernels import csr_spmv as kc
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import csr_spmv_ref
+    t0 = time.perf_counter()
+    indptr, idx, val = powerlaw_csr_np(np, SEED, POWERLAW_M, POWERLAW_LONGEST)
+    m = n = POWERLAW_M
+    nnz, lens = int(indptr[-1]), np.diff(indptr)
+    ip, ix = torch.from_numpy(indptr).cuda(), torch.from_numpy(idx).cuda()
+    v32 = torch.from_numpy(val).cuda()
+    x32 = torch.from_numpy(np.random.default_rng(SEED + 1).standard_normal(n)
+                           .astype(np.float32)).cuda()
+    print(f"  power-law CSR {m}x{n}: {nnz} entries, rows of 1 + floor(pareto(1.5) * 4) up to "
+          f"{POWERLAW_LONGEST} (longest {int(lens.max())}), made on the host in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "float32" if dtype == torch.float32 else "bfloat16"
+        v, x = v32.to(dtype), x32.to(dtype)
+        A = CSR(ip, ix, v, shape=(m, n), nnz=nnz)
+        vec = kops.default_config(A)["vec"]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y1 = kops.csr_spmv(A, x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        plan = kops.csr_plan(A, vec)
+        nlong, nchunks = int((lens > plan.threshold).sum()), int(plan.chunk_end[-1])
+        before = kc.launches
+        y2 = kops.csr_spmv(A, x)
+        check(kc.launches - before == 1, f"csr_spmv power-law {name}: one launch a call")
+        err = compare(f"csr_spmv power-law vec={vec} ({nlong} rows above {plan.threshold} "
+                      f"entries, {nchunks} chunks; the first call, plan included, under "
+                      f"set_sync_debug_mode('error'))", y1, y2, csr_spmv_ref(ip, ix, v, x, m),
+                      name, scale=csr_spmv_ref(ip, ix, v.abs(), x.abs(), m))
+        ms = time_ms(lambda: kops.csr_spmv(A, x), 100)
+        plain_ms = time_ms(lambda: csr_spmv_ref(ip, ix, v, x, m), 10)
+        plan_ms = time_ms(lambda: kc.long_row_plan(ip, nnz, vec), 20)
+        lib_ms, lib_note = None, ""
+        try:
+            lib = torch.sparse_csr_tensor(ip, ix, v, size=(m, n))
+            lib_ms = time_ms(lambda: torch.mv(lib, x), 100)
+        except (RuntimeError, NotImplementedError) as e:
+            lib_note = f" ({type(e).__name__}: {str(e).splitlines()[0][:80]})"
+        es = x.element_size()
+        nbytes = (m + 1) * 4 + nnz * (4 + es) + n * es + m * es
+        t_bytes, t_ops = nbytes / peak_bw * 1e3, 2 * nnz / peak_flops * 1e3
+        bound = max(t_bytes, t_ops)
+        lib_s = f"{lib_ms:.4f} ms" if lib_ms is not None else "n/a" + lib_note
+        print(f"  csr_spmv power-law {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library torch.sparse_csr_tensor @ x {lib_s}, bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB) -> {bound / ms:.1%} of bound; the plan built apart "
+              f"{plan_ms:.4f} ms", flush=True)
+        CSR_READINGS[f"powerlaw_{name}"] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
+            "max_abs_err": err, "plan_ms": plan_ms, "vec": vec, "long_rows": nlong,
+            "chunks": nchunks}
 
 
 def _ragged_dense(rng, m, n):
@@ -516,8 +662,9 @@ def sweep_launch_geometry(kname, dia, csr, x, m, n):
         knobs = {f"block={b}": (lambda b=b: kd.dia_spmv(dia.offsets, dia.data, x, n, block=b))
                  for b in (128, 256, 512, 1024)}
     else:
+        plans = {v: kc.long_row_plan(csr.indptr, csr.capacity, v) for v in kc.VEC_WIDTHS}
         knobs = {f"vec={v}": (lambda v=v: kc.csr_spmv(csr.indptr, csr.indices, csr.data, x, m,
-                                                      vec=v))
+                                                      vec=v, plan=plans[v]))
                  for v in kc.VEC_WIDTHS}
     times = ", ".join(f"{k} {time_ms(fn, 50):.4f}" for k, fn in knobs.items())
     print(f"  {kname} float32 launch-geometry sweep (ms): {times}", flush=True)
@@ -565,6 +712,7 @@ def phase_kernels(torch, np, prob, peak_bw, peak_flops):
           f"BSR bs={bs} blocks={bsr.nblocks}, HYB k={hyb.k} tail={hyb.coo.nnz}", flush=True)
     x32 = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
     cfg_csr = kops.default_config(csr)
+    plan_csr = kc.long_row_plan(csr.indptr, csr.capacity, cfg_csr["vec"])  # the cached one's
     lib = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data, size=csr.shape)
     bsr_lib_ms, bsr_lib_err = _bsr_library(torch, bsr, x32)
     print(f"  library torch.sparse_bsr_tensor @ x f32: "
@@ -586,7 +734,8 @@ def phase_kernels(torch, np, prob, peak_bw, peak_flops):
             return dia_spmv_ref(dia.offsets, d_data, x, n)
 
         def run_csr():
-            return kc.csr_spmv(csr.indptr, csr.indices, c_data, x, m, vec=cfg_csr["vec"])
+            return kc.csr_spmv(csr.indptr, csr.indices, c_data, x, m, vec=cfg_csr["vec"],
+                               plan=plan_csr)
 
         def plain_csr():
             return csr_spmv_ref(csr.indptr, csr.indices, c_data, x, m)
@@ -674,6 +823,7 @@ def phase_kernels(torch, np, prob, peak_bw, peak_flops):
             else:
                 records[kname]["max_abs_err_bf16"] = errs[kname]
         hyb_line(torch, hyb, x, es, m, peak_bw, name)
+    powerlaw_readings(torch, np, peak_bw, peak_flops)
     return records
 
 
@@ -689,10 +839,13 @@ def hyb_line(torch, hyb, x, es, m, peak_bw, name):
             hyb_plain(H, x), name)
     tail = kops.tail_csr(H.coo, m)
     vec = kops.default_config(H)["csr"]["vec"]
+    plan = kops._csr.long_row_plan(tail[0], tail[2].shape[0], vec)
     parts = {"whole": lambda: kops.hyb_spmv(H, x),
              "ell part": lambda: kops.ell_spmv(H.ell, x),
              "tail sort+indptr": lambda: kops.tail_csr(H.coo, m),
-             "csr tail": lambda: kops._csr.csr_spmv(*tail, x, m, vec=vec)}
+             "tail long-row plan": lambda: kops._csr.long_row_plan(tail[0], tail[2].shape[0],
+                                                                   vec),
+             "csr tail": lambda: kops._csr.csr_spmv(*tail, x, m, vec=vec, plan=plan)}
     times = {k: time_ms(fn, 50) for k, fn in parts.items()}
     ell_b = (hyb.nnz - hyb.coo.nnz) * (4 + es)
     tail_b = hyb.coo.nnz * (4 + es) + (m + 1) * 4
@@ -1429,27 +1582,59 @@ def queued_ms(torch, fn, x, calls: int = 20) -> float:
     return e0.elapsed_time(e1) / calls
 
 
-def dist_padding_probe(torch, hier, D):
+def dist_padding_probe(torch, hier, D, peak_bw):
     """The CSR parts of stacked containers keep their capacity padding (row
     0, value 0: the JAX package's layout) at the end of row 0, which the CSR
-    kernel reads with that row's few lanes: device ms of a color block and a
-    boundary part with and without it."""
+    kernel's long-row schedule cuts into chunks: device ms of the last
+    level's color blocks 0 and 7 and of the boundary parts of shards 0 and
+    P/2, each beside its bound, the library call (torch.sparse_csr_tensor @
+    x on the same arrays, launches queued alike) and a check against the
+    plain version; then the padded part's time over the unpadded one's (the
+    schedule's goal: at most 2x)."""
     from repro_torch.core.ops import spmv
     lev = hier.levels[-1]
-    cases = [(f"level {hier.nlevels - 1} color {c} block {blk.shape[0]}x{blk.shape[1]}", blk)
+    cases = [(f"level {hier.nlevels - 1} color {c} block {blk.shape[0]}x{blk.shape[1]}",
+              f"color{c}", blk)
              for c, blk in ((c, lev.colored.shard_blocks[c][0]) for c in (0, 7))]
     if "boundary" in D.shard_parts:
         for p in (0, D.nshards // 2):
-            cases.append((f"P={D.nshards} shard {p} boundary", D.shard_parts["boundary"][p]))
-    for label, C in cases:
+            cases.append((f"P={D.nshards} shard {p} boundary", f"boundary{p}",
+                          D.shard_parts["boundary"][p]))
+    tol = TOL["float32"]
+    got = {}
+    for label, key, C in cases:
         if C.format.name != "CSR":
+            print(f"  {label}: {C.format.name}, not CSR", flush=True)
             continue
-        x = torch.ones(C.shape[1], device="cuda")
+        m, n = C.shape
+        x = torch.ones(n, device="cuda")
+        nnz = int(C.indptr[-1])
         dead = int((C.data == 0).sum())
         row0 = int(C.indptr[1] - C.indptr[0])
+        y_k, y_p = spmv(C, x), spmv(C, x, backend="ref")
+        check(bool(torch.allclose(y_k, y_p, **tol)) and torch.equal(y_k, spmv(C, x)),
+              f"{label} CSR: kernel within rtol={tol['rtol']}, atol={tol['atol']} of plain "
+              f"(max_abs_err={float((y_k - y_p).abs().max()):.3e}), bitwise rerun")
+        ms = queued_ms(torch, lambda v: spmv(C, v), x)
+        lib = torch.sparse_csr_tensor(C.indptr, C.indices[:nnz], C.data[:nnz], size=C.shape)
+        lib_ms = queued_ms(torch, lambda v: torch.mv(lib, v), x)
+        nbytes = (m + 1) * 4 + nnz * 8 + (n + m) * 4  # every entry in a row, padding too
+        bound = nbytes / peak_bw * 1e3
         print(f"  {label} CSR: {C.capacity} stored, {dead} dead (padding), row 0 holds {row0}; "
-              f"{queued_ms(torch, lambda v: spmv(C, v), x):.4f} ms a call on the device "
-              f"(launches queued)", flush=True)
+              f"{ms:.4f} ms a call on the device (launches queued), bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.2f} MB), library torch.sparse_csr_tensor @ x {lib_ms:.4f} ms",
+              flush=True)
+        got[key] = (ms, row0)
+        CSR_READINGS[f"{key}_P{D.nshards if key.startswith('boundary') else DIST_MG_SHARDS}"] = {
+            "ms": ms, "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
+            "stored": C.capacity, "dead": dead, "row0": row0}
+    for a, b in (("color0", "color7"), ("boundary0", f"boundary{D.nshards // 2}")):
+        if a in got and b in got:
+            (pad, _), (plain, _) = sorted((got[a], got[b]), key=lambda t: -t[1])
+            r = pad / plain
+            print(f"  {a} / {b}: the part whose row 0 holds the padding takes {r:.2f}x the "
+                  f"other's time (the long-row schedule's goal, at most 2x: "
+                  f"{'met' if r <= 2 else 'missed'})", flush=True)
 
 
 def dist_build_phases(torch, prob, nshards):
@@ -1485,7 +1670,7 @@ def dist_build_phases(torch, prob, nshards):
     return out
 
 
-def phase_dist(torch, np, prob, A, b, cg_dia):
+def phase_dist(torch, np, prob, A, b, cg_dia, peak_bw):
     """Path (g): the distributed layer at 104^3 on one card. (g1) uniform
     DIA/COO and (g2) Multi-Format (ml, then analytic) at P = 8: dist_spmv
     against the single-device CSR kernel, bitwise and without a sync, CG
@@ -1644,7 +1829,7 @@ def phase_dist(torch, np, prob, A, b, cg_dia):
           f"Multi-Format ml {spmv_ms['ml']}", flush=True)
     time_v_cycle(torch, lambda v: dist_spmv(Du, v), x, f"dist_spmv P={P} uniform DIA/COO")
     time_v_cycle(torch, lambda v: dist_spmv(Dml, v), x, f"dist_spmv P={P} Multi-Format ml")
-    dist_padding_probe(torch, hier, mats["multiformat analytic"][0])
+    dist_padding_probe(torch, hier, mats["multiformat analytic"][0], peak_bw)
     coo_plain_times(torch, A, D.activate(Format.HYB, k=18).concrete, Du, x)
     phases = dist_build_phases(torch, prob, P)
     print("  build seconds, P=8 Multi-Format, each phase apart: "
@@ -1966,9 +2151,12 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
                     from repro_torch.kernels import csr_spmv as kc
                     x1 = X[0].contiguous()
                     vec = kops.default_config(csr)["vec"]
-                    print(f"  {lname} T=1 beside SpMV at the same nnz: csr_spmv "
-                          f"{time_ms(lambda: kc.csr_spmv(csr.indptr, csr.indices, cd, x1, m, vec=vec), 20):.4f} ms",
-                          flush=True)
+                    plan = kc.long_row_plan(csr.indptr, csr.capacity, vec)
+                    spmv_ms = time_ms(lambda: kc.csr_spmv(csr.indptr, csr.indices, cd, x1, m,
+                                                          vec=vec, plan=plan), 20)
+                    print(f"  {lname} T=1 beside SpMV at the same nnz: csr_spmv {spmv_ms:.4f} ms "
+                          f"(vec={vec}: rows above {plan.threshold} entries in "
+                          f"{int(plan.chunk_end[-1]) if plan.k_max else 0} chunks)", flush=True)
         del mats, csr, ell, sell, hyb, lib, w_dense
         torch.cuda.empty_cache()
     print("  weight-shape readings (|y_k - y_p| / limit; at most 1 passes): largest sound "
@@ -4275,7 +4463,7 @@ def main() -> int:
     counts_f, _ = phase_mg(torch, np, prob, A, b, cg_dia)
     lap("path (f)")
     torch.cuda.empty_cache()
-    counts_g = phase_dist(torch, np, prob, A, b, cg_dia)
+    counts_g = phase_dist(torch, np, prob, A, b, cg_dia, peak_bw)
     lap("path (g)")
     del A, b
     torch.cuda.empty_cache()
@@ -4305,6 +4493,7 @@ def main() -> int:
              counts_i, counts_j, counts_k)
     for name, rec in records.items():
         rec["launches"] = sum(c[name] for c in paths)
+    records["csr_spmv"]["readings"] = CSR_READINGS
     from repro_torch.kernels import ops as kops
     for sched in kops.SCHEDULE_COUNTERS:  # "kernel:schedule"
         kname, knob = sched.split(":")

@@ -25,6 +25,7 @@ call raises; nothing falls back to the plain version.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Optional
 
 import torch
@@ -194,9 +195,28 @@ def dia_spmv(A: DIA, x: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tenso
     return _dia.dia_spmv(A.offsets, A.data, x, A.shape[1], block=_pick(cfg, "block", A))
 
 
+# The CSR kernel's long-row plan of each container, by ``vec``, made at the
+# container's first SpMV at that width. Containers are immutable (new values
+# make a new container; the plan reads only indptr), so the plan holds for
+# the container's life; the entry goes with it.
+_CSR_PLANS: "weakref.WeakKeyDictionary[CSR, dict]" = weakref.WeakKeyDictionary()
+
+
+def csr_plan(A: CSR, vec: int) -> "_csr.LongRowPlan":
+    """``A``'s cached :func:`~repro_torch.kernels.csr_spmv.long_row_plan` at
+    ``vec`` lanes a short row (built on A's device, no host sync)."""
+    plans = _CSR_PLANS.setdefault(A, {})
+    plan = plans.get(vec)
+    if plan is None:
+        plan = plans[vec] = _csr.long_row_plan(A.indptr, A.capacity, vec)
+    return plan
+
+
 def csr_spmv(A: CSR, x: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
     cfg = resolve_config(A, cfg)
-    return _csr.csr_spmv(A.indptr, A.indices, A.data, x, A.shape[0], vec=_pick(cfg, "vec", A))
+    vec = _pick(cfg, "vec", A)
+    return _csr.csr_spmv(A.indptr, A.indices, A.data, x, A.shape[0], vec=vec,
+                         plan=csr_plan(A, vec))
 
 
 def ell_spmv(A: ELL, x: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tensor:
@@ -232,6 +252,7 @@ def hyb_spmv(A: HYB, x: torch.Tensor, cfg: Optional[dict] = None) -> torch.Tenso
     COO tail, as the JAX package composes them."""
     cfg = resolve_config(A, cfg)
     indptr, indices, data = tail_csr(A.coo, A.shape[0])
+    # the tail is sorted anew every call, and its long-row plan built with it
     tail = _csr.csr_spmv(indptr, indices, data, x, A.shape[0],
                          vec=_hyb_tail_knob(A, cfg, "vec", "spmv", None))
     return ell_spmv(A.ell, x) + tail

@@ -19,7 +19,7 @@ from repro_torch import hpcg_solve
 from repro_torch.core import hpcg
 from repro_torch.core.convert import convert
 from repro_torch.core.dynamic import DynamicMatrix
-from repro_torch.core.formats import COO, HYB, Format, coo_from_dense_np, to_numpy
+from repro_torch.core.formats import COO, CSR, HYB, Format, coo_from_dense_np, to_numpy
 from repro_torch.core.ops import spmm, spmm_t, spmv
 from repro_torch.kernels import bsr_spmm as kb
 from repro_torch.kernels import csr_spmm as kcm
@@ -35,6 +35,7 @@ from repro_torch.kernels.ref import (bsr_spmm_ref, csr_spmm_ref, csr_spmm_t_ref,
                                      ell_spmv_ref, sell_spmm_ref, sell_spmm_t_ref, sell_spmv_ref)
 from repro_torch.models import LinearSparse, prune_magnitude
 from repro_torch.tuning import FormatPolicy, PatternFeatures
+from torch_long_rows import csr_arrays, powerlaw_csr, ragged_lens, with_filler
 
 pytestmark = pytest.mark.cuda
 
@@ -109,6 +110,118 @@ def test_wrappers_check_their_inputs(card):
     with pytest.raises(ValueError, match="share dtype"):
         kc.csr_spmv(ip, ip[:1], torch.ones(1, device=card, dtype=torch.float64),
                     torch.ones(3, device=card, dtype=torch.float64), 1, vec=4)
+
+
+def _close_to_plain(y, ip, ix, v, x, m, dtype_name):
+    """``y`` within TOL's rtol of each row's sum of |products| (plus its
+    atol) of the plain version: a long row's f32 sum taken in another order
+    moves by about its length times 2^-24 of that scale, which for a row
+    of 2^20 random terms is more than 1e-4 of a total that cancels; the
+    plain version's own order (``index_add_``) changes from run to run."""
+    tol = TOL[dtype_name]
+    y_p = csr_spmv_ref(ip, ix, v, x, m).float()
+    scale = csr_spmv_ref(ip, ix, v.abs(), x.abs(), m).float()
+    err = (y.float() - y_p).abs()
+    assert bool((err <= tol["atol"] + tol["rtol"] * scale).all()), float(err.max())
+
+
+def _csr(ip, ix, v, shape):
+    return CSR(ip, ix, v, shape=shape, nnz=int(v.shape[0]))
+
+
+def _on(card, dt, *arrays):
+    ip, ix, v = arrays[:3]
+    out = [torch.from_numpy(ip).to(card), torch.from_numpy(ix).to(card),
+           torch.from_numpy(v).to(card, dt)]
+    return out + [torch.from_numpy(a).to(card, dt) for a in arrays[3:]]
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+def test_csr_long_rows_match_plain_at_every_width(card, dtype_name):
+    """Rows of exactly L and L + 1 entries (L = 32 * vec), k * CHUNK +- 1,
+    one row holding every entry, a row of 2^20 entries; NaN capacity past
+    indptr[-1] (|NaN| is NaN: never read either). Each call is one launch;
+    reruns are bitwise (the second call builds its plan anew)."""
+    rng = np.random.default_rng(11)
+    dt = DTYPES[dtype_name]
+    n = 5000
+    for vec in kc.VEC_WIDTHS:
+        for name, lens in ragged_lens(vec).items():
+            ip, ix, v, x = _on(card, dt, *csr_arrays(rng, lens, n),
+                               rng.standard_normal(n).astype(np.float32))
+            m = len(lens)
+            before = kc.launches
+            y1 = kc.csr_spmv(ip, ix, v, x, m, vec=vec)
+            y2 = kc.csr_spmv(ip, ix, v, x, m, vec=vec)
+            torch.cuda.synchronize()
+            assert kc.launches == before + 2, (vec, name)
+            assert bool(torch.isfinite(y1).all()), (vec, name)
+            _close_to_plain(y1, ip, ix, v, x, m, dtype_name)
+            assert torch.equal(y1, y2), (vec, name)
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+def test_csr_power_law_matches_plain(card, dtype_name):
+    """M = N = 2^20, rows of 1 + floor(pareto(1.5) * 4) entries up to
+    65,536 (~8.9 M entries): through the container route, with its cached
+    plan, and through the wrapper with a plan built for the call."""
+    dt = DTYPES[dtype_name]
+    indptr, idx, val = powerlaw_csr(0, 1 << 20)
+    ip, ix, v, x = _on(card, dt, indptr, idx, val,
+                       np.random.default_rng(1).standard_normal(1 << 20).astype(np.float32))
+    A = _csr(ip, ix, v, (1 << 20, 1 << 20))
+    vec = kops.default_config(A)["vec"]
+    y1, y2 = kops.csr_spmv(A, x), kc.csr_spmv(ip, ix, v, x, A.shape[0], vec=vec)
+    torch.cuda.synchronize()
+    _close_to_plain(y1, ip, ix, v, x, A.shape[0], dtype_name)
+    assert torch.equal(y1, y2)
+
+
+def test_csr_long_rows_make_no_host_sync_from_the_first_call(card):
+    """The plan is built on the device inside the checked region: on a new
+    container's first call, and by the wrapper when it is given none."""
+    rng = np.random.default_rng(12)
+    ip, ix, v, x = _on(card, torch.float32, *csr_arrays(rng, ragged_lens(2)["edges"], 900),
+                       rng.standard_normal(900).astype(np.float32))
+    A = _csr(ip, ix, v, (ip.shape[0] - 1, 900))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y1 = kops.csr_spmv(A, x, cfg={"vec": 2})
+        y2 = kc.csr_spmv(ip, ix, v, x, A.shape[0], vec=2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(y1, y2)
+    _close_to_plain(y1, ip, ix, v, x, A.shape[0], "float32")
+
+
+def test_csr_long_rows_100_back_to_back_calls_give_the_same_bits(card):
+    """The arrival counters go back to 0 at the end of every call, so the
+    plan serves the next call on the stream: 100 calls, one launch each, no
+    synchronisation between them."""
+    rng = np.random.default_rng(13)
+    lens = with_filler([0, 40 * 256 + 3, 5, 3 * 256, 700, 0, 2 * 256 + 1], 2)
+    ip, ix, v, x = _on(card, torch.float32, *csr_arrays(rng, lens, 900),
+                       rng.standard_normal(900).astype(np.float32))
+    plan = kc.long_row_plan(ip, v.shape[0], 2)
+    before = kc.launches
+    ys = [kc.csr_spmv(ip, ix, v, x, len(lens), vec=2, plan=plan) for _ in range(100)]
+    torch.cuda.synchronize()
+    assert kc.launches == before + 100
+    assert all(torch.equal(ys[0], y) for y in ys[1:])
+    assert not plan.arrive.any()
+    _close_to_plain(ys[0], ip, ix, v, x, len(lens), "float32")
+
+
+def test_csr_wrapper_refuses_a_plan_of_another_width(card):
+    ip = torch.tensor([0, 3, 600], dtype=torch.int32, device=card)
+    ix = torch.zeros(600, dtype=torch.int32, device=card)
+    v = torch.ones(600, device=card)
+    plan = kc.long_row_plan(ip, 600, 2)
+    with pytest.raises(ValueError, match="built for vec=2, not vec=4"):
+        kc.csr_spmv(ip, ix, v, torch.ones(4, device=card), 2, vec=4, plan=plan)
+    y = kc.csr_spmv(ip, ix, v, torch.ones(4, device=card), 2, vec=2, plan=plan)
+    assert y.tolist() == [3.0, 597.0]
 
 
 def test_main_path_formats_run_their_kernels(card):
