@@ -3,9 +3,11 @@
 
 Phases, in order (any failure exits nonzero and prints no result line):
 
-1. device and build: the card's name and power limit (``nvidia-smi``), then
-   every CUDA source under ``src/repro_torch/csrc`` compiled with ``nvcc``
-   for sm_90a, one compiler per source, all at once;
+1. device and build: the card's name and power limit (``nvidia-smi``), the
+   process settings (``repro_torch.env.apply()``: cuBLAS's deterministic
+   workspace unless the caller set one, TF32 off; ``env.describe()``
+   printed), then every CUDA source under ``src/repro_torch/csrc`` compiled
+   with ``nvcc`` for sm_90a, one compiler per source, all at once;
 2. kernels: each hand-written kernel (DIA, CSR, ELL, SELL, BSR) against its
    plain torch version on the card, at the HPCG 104^3 shapes of the main
    paths (BSR at block size 8) and on ragged cases (empty rows, rectangular
@@ -222,12 +224,31 @@ Phases, in order (any failure exits nonzero and prints no result line):
       example's defaults (200 steps, batch 8, seq 256): the three dispatch
       times and the pick, the loss falls, the example's LEARNING test
       reported beside it.
+   l. the launch plumbing (``repro_torch.launch.pipeline``, ``dryrun``,
+      ``mesh``, ``sharding``; no sparse kernel on this path, and none may
+      launch): (l1) the GPipe schedule at stablelm-1.6b's full width in
+      f32 (random weights from seed 0): its 24 layers cut into 4 stages of
+      6 by ``stage_params``, each stage ``transformer._attn_block`` over
+      its slab, 8 microbatches of (1, 1024) tokens embedded as path (k)
+      embeds them; the pipeline's output within PIPE_FWD_TOL * max|y| and
+      every block gradient within PIPE_GRAD_REL * max|g| of the serial
+      24-layer stack on the same inputs (one batch of 8 rows); ms a
+      forward + backward of each and of the serial stack run one
+      microbatch at a time (CUDA events, median of PIPE_ITERS after a
+      warm-up, in turns), their peak memory, the ticks and the share of
+      (stage, microbatch) pairs skipped; (l2) ``python -m
+      repro_torch.launch.dryrun --all --mesh both`` in this process on the
+      meta device (every cell's line, the skips, the wall time), then
+      stablelm-1.6b's f32 params and AdamW state made on the card with
+      path (k1)'s calls: the ``memory_allocated`` delta within 1% of the
+      dry-run's per-device bytes for params + AdamW state on a (1, 1)
+      mesh descriptor (``dryrun.step_args``/``argument_bytes``).
 
 ``python3 chip_smoke.py --profile-train`` runs only a ``torch.profiler``
 pass over one training step each of (k1) and (k4) (``profile_training``).
 
 The last three lines of standard output are the kernels' JSON record (all
-eleven kernels, launches summed over paths (a)-(k), and each kernel's
+eleven kernels, launches summed over paths (a)-(l), and each kernel's
 launches on its token-major and dense-tile schedules), the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": ...}``.
 """
@@ -244,11 +265,6 @@ import statistics
 import subprocess
 import sys
 import time
-
-# cuBLAS reads this once, at the process's first GEMM: path (k) checks remat
-# and resume bitwise under torch.use_deterministic_algorithms(True), which
-# refuses cuBLAS without one of its deterministic workspace settings
-os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GRID = (104, 104, 104)  # HPCG's shipped hpcg.dat default local grid
@@ -4407,6 +4423,185 @@ def phase_training(torch, np, smi, peak_bw, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Path (l): the launch plumbing: the GPipe pipeline at full width, the dry-run
+# ---------------------------------------------------------------------------
+
+PIPE_ARCH, PIPE_STAGES, PIPE_MICRO, PIPE_TOKENS = "stablelm_1_6b", 4, 8, 1024  # (l1)
+PIPE_ITERS = 3  # (l1) timed forward + backward passes of each, after one warm-up
+# (l1) the pipeline against the serial stack: tests/test_pipeline.py's limits
+PIPE_FWD_TOL, PIPE_GRAD_REL = 1e-5, 1e-4
+DRYRUN_BYTES_REL = 0.01  # (l2) allocated vs predicted bytes of params + AdamW state
+
+
+def _fwd_bwd(torch, fn, params):
+    """One forward + backward of ``fn(params)`` (loss: the mean square of the
+    output); returns the output and the gradients, and clears them."""
+    from repro_torch.models.spec import tree_leaves
+    y = fn(params)
+    y.square().mean().backward()
+    leaves = tree_leaves(params)
+    grads = [p.grad for p in leaves]
+    for p in leaves:
+        p.grad = None
+    return y.detach(), grads
+
+
+def pipeline_full_width(torch, np, smi, peak_flops, dev):
+    """(l1) stablelm-1.6b's 24 layers as 4 GPipe stages against the serial
+    stack: outputs, gradients, ms, peak memory."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.pipeline import pipeline_apply, schedule, stage_params
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import embed_apply
+    from repro_torch.models.spec import tree_leaves, tree_map
+    cfg = full_config(PIPE_ARCH, dtype="float32")
+    s, m, t = PIPE_STAGES, PIPE_MICRO, PIPE_TOKENS
+    params = build_model(cfg).init(SEED, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab, (m, t))).to(dev)
+    x = embed_apply(params["embed"], tokens, tfm.compute_dtype(cfg))  # (M, T, d), as forward
+    blocks = tree_map(lambda a: a.requires_grad_(True), params["blocks"])
+    staged = tree_map(lambda a: a.requires_grad_(True),
+                      stage_params(tree_map(lambda a: a.detach().clone(), blocks), s))
+    del params
+    pos = torch.arange(t, dtype=torch.int32, device=dev)[None, :]
+    n_block = sum(a.numel() for a in tree_leaves(blocks))
+
+    def stack(slab, h):
+        for p in tfm.layer_views(slab, tree_leaves(slab)[0].shape[0]):
+            h, _ = tfm._attn_block(p, h, cfg, causal=True, positions=pos, q_chunk=512,
+                                   kv_chunk=1024)
+        return h
+
+    mesh = make_mesh((s,), ("stage",))
+    # the serial stack on the whole batch, and one microbatch at a time (the
+    # pipeline's GEMM shapes without its recompute)
+    runs = {"pipeline": lambda: _fwd_bwd(torch, lambda p: pipeline_apply(
+                stack, p, x[:, None], mesh)[:, 0], staged),
+            "serial": lambda: _fwd_bwd(torch, lambda p: stack(p, x), blocks),
+            "serial by microbatch": lambda: _fwd_bwd(
+                torch, lambda p: torch.cat([stack(p, x[i:i + 1]) for i in range(m)]), blocks)}
+    ms, peak, out = {k: [] for k in runs}, {}, {}
+    for k, run in runs.items():  # warm-up: the readings, the peak memory
+        _free(torch)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = run()
+        torch.cuda.synchronize()
+        peak[k] = (torch.cuda.max_memory_allocated(), torch.cuda.max_memory_allocated() - held)
+        if k in ("pipeline", "serial"):
+            out[k] = res
+        del res
+    for _ in range(PIPE_ITERS):  # in turns
+        for k, run in runs.items():
+            s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s_.record()
+            run()
+            e_.record()
+            torch.cuda.synchronize()
+            ms[k].append(s_.elapsed_time(e_))
+    (y_p, g_p), (y_s, g_s) = out["pipeline"], out["serial"]
+    fwd = float((y_p - y_s).abs().max()) / float(y_s.abs().max())
+    grad = max(float((a.reshape(b.shape) - b).abs().max()) / float(b.abs().max())
+               for a, b in zip(g_p, g_s))
+    ticks = schedule(s, m)
+    ran = sum(len(tk) for tk in ticks)
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    flops = 6.0 * n_block * m * t  # the block matmuls' forward + backward, no attention
+    print(f"  (l1) {cfg.name} f32, {cfg.n_layers} layers ({n_block:,} block params) in {s} "
+          f"stages of {cfg.n_layers // s}, {m} microbatches of (1, {t}) tokens: "
+          f"{len(ticks)} ticks, {ran} of {s * len(ticks)} (stage, microbatch) pairs run, "
+          f"{s * len(ticks) - ran} skipped ({(s * len(ticks) - ran) / (s * len(ticks)):.1%}) "
+          f"[{smi}]", flush=True)
+    for k in runs:
+        print(f"  (l1) {k}: forward + backward {med[k]:.3f} ms (median of {PIPE_ITERS}: "
+              + ", ".join(f"{v:.3f}" for v in ms[k]) + f"; CUDA events), peak "
+              f"{peak[k][0] / 2**30:.2f} GiB ({peak[k][1] / 2**30:.2f} above the "
+              f"{(peak[k][0] - peak[k][1]) / 2**30:.2f} held); block matmuls "
+              f"{flops / 1e12:.1f} TFLOP = {flops / peak_flops / med[k] * 1e3:.1%} of the "
+              f"f32 peak [{smi}]", flush=True)
+    by_mb = med["serial by microbatch"]
+    print(f"  (l1) pipeline / serial: {med['pipeline'] / med['serial']:.3f}x the time "
+          f"(microbatching {by_mb / med['serial']:.3f}x, then recompute and schedule "
+          f"{med['pipeline'] / by_mb:.3f}x), {peak['pipeline'][1] / peak['serial'][1]:.3f}x "
+          f"the memory above held [{smi}]", flush=True)
+    check(math.isfinite(fwd) and fwd <= PIPE_FWD_TOL,
+          f"(l1) pipeline output vs the serial stack: max|dy| / max|y| {fwd:.3e} <= "
+          f"{PIPE_FWD_TOL:g} [{smi}]")
+    check(len(g_p) == len(g_s) and math.isfinite(grad) and grad <= PIPE_GRAD_REL,
+          f"(l1) every block gradient ({len(g_s)} leaves) vs the serial stack: worst "
+          f"max|dg| / max|g| {grad:.3e} <= {PIPE_GRAD_REL:g} [{smi}]")
+
+
+def dryrun_against_card(torch, smi, dev):
+    """(l2) the dry-run over every cell on the meta device, then its bytes
+    for params + AdamW state against what the card allocates for them."""
+    from repro_torch.configs import SHAPES, list_archs, skip_reason
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamW
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = dryrun.main(["--all", "--mesh", "both"])
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    cells = [ln for ln in lines if ln.startswith("[")]
+    for ln in cells:
+        print("    " + ln)
+    skips = sum(1 for ln in cells if "] SKIP: " in ln)
+    want_skips = 2 * sum(skip_reason(full_config(a), sh) is not None
+                         for a in list_archs() for sh in SHAPES)
+    check(rc == 0 and len(cells) == 2 * len(list_archs()) * len(SHAPES) and skips == want_skips,
+          f"(l2) python -m repro_torch.launch.dryrun --all --mesh both: {len(cells)} cells, "
+          f"{skips} skipped (skip_reason: {want_skips}), {wall:.2f} s wall on the meta device "
+          f"[{smi}]")
+
+    cfg = full_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    args, pspecs = dryrun.step_args(model, cfg, SHAPES["train_4k"], mesh)
+    parts = dryrun.argument_bytes(args, pspecs, mesh)
+    want = parts["params"] + parts["opt_state"]
+    _free(torch)
+    before = torch.cuda.memory_allocated()
+    params = train.trainable(model.init(SEED, device=dev))  # path (k1)'s calls
+    opt = AdamW().init(params)
+    torch.cuda.synchronize()
+    got = torch.cuda.memory_allocated() - before
+    rel = abs(got - want) / want
+    print(f"  (l2) {cfg.name} f32 params + AdamW state on the card: memory_allocated delta "
+          f"{got:,} B; the dry-run on a (1, 1) mesh: params {parts['params']:,} + AdamW "
+          f"{parts['opt_state']:,} = {want:,} B [{smi}]", flush=True)
+    del params, opt
+    check(rel <= DRYRUN_BYTES_REL,
+          f"(l2) allocated within {DRYRUN_BYTES_REL:.0%} of the dry-run's bytes: "
+          f"|got - want| / want {rel:.3e} [{smi}]")
+
+
+def phase_launch(torch, np, smi, peak_flops, dev):
+    """Path (l): the launch plumbing on the card."""
+    print(f"== path (l): the launch plumbing: the GPipe pipeline at {PIPE_ARCH}'s full width, "
+          f"the dry-run against the card [{smi}]", flush=True)
+    start_path(torch)
+    t = {}
+    for name, fn in (("l1", lambda: pipeline_full_width(torch, np, smi, peak_flops, dev)),
+                     ("l2", lambda: dryrun_against_card(torch, smi, dev))):
+        t0 = time.perf_counter()
+        fn()
+        _free(torch)
+        t[name] = time.perf_counter() - t0
+    print("  path (l) seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in t.items()), flush=True)
+    counts = read_path(torch, "(l)", ())
+    from repro_torch.kernels import ops as kops
+    check(all(counts[k] == 0 for k in kops.LAUNCH_COUNTERS),
+          "path (l) launches none of the eleven sparse kernels (no Pallas kernel in the JAX "
+          "launch layer)")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4416,6 +4611,12 @@ def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     import numpy as np
     import repro_torch  # noqa: F401  (fails when run outside the checkout)
+    from repro_torch import env
+    # before the first GEMM: path (k) checks remat and resume bitwise under
+    # torch.use_deterministic_algorithms(True), which refuses cuBLAS without
+    # one of its deterministic workspace settings; TF32 off for f32 parity.
+    # The backend is named: REPRO_BACKEND must not switch TF32 back on here.
+    env.apply("cuda")
 
     t_start = time.perf_counter()
     laps, t_lap = [], [t_start]
@@ -4432,8 +4633,10 @@ def main() -> int:
     print(f"== device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"peaks used for bounds ({card} data sheet): {peak_bw / 1e12:.2f} TB/s, "
           f"{peak_flops / 1e12:.0f} TFLOP/s f32", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    print(f"== process settings (repro_torch.env.describe()): {json.dumps(env.describe())}",
+          flush=True)
+    check(env.describe()["tf32"] == {"matmul": False, "cudnn": False},
+          "env.apply('cuda') turned TF32 off for matmul and cuDNN")
     phase_build()
     lap("build")
 
@@ -4489,8 +4692,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts_k = phase_training(torch, np, smi, peak_bw, torch.device("cuda"))
     lap("path (k)")
+    torch.cuda.empty_cache()
+    counts_l = phase_launch(torch, np, smi, peak_flops, torch.device("cuda"))
+    lap("path (l)")
     paths = (counts_a, counts_b, counts_c, counts_d, counts_e, counts_f, counts_g, counts_h,
-             counts_i, counts_j, counts_k)
+             counts_i, counts_j, counts_k, counts_l)
     for name, rec in records.items():
         rec["launches"] = sum(c[name] for c in paths)
     records["csr_spmv"]["readings"] = CSR_READINGS
@@ -4531,6 +4737,7 @@ def profile_training() -> int:
         print("chip_smoke --profile-train: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch import env
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch import train
@@ -4539,7 +4746,7 @@ def profile_training() -> int:
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    torch.backends.cuda.matmul.allow_tf32 = False
+    env.apply("cuda")
     for arch, b, s in PROFILE_CELLS:
         cfg = get_config(arch)
         model = build_model(cfg)

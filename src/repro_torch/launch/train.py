@@ -12,9 +12,14 @@ A step is ``loss = model.loss(...)``, ``loss.backward()``,
 resumes the other's; ``--resume`` restores the latest valid step, and the
 data pipeline is stateless-seekable, so step k always sees batch k.
 
-The port has no device mesh: ``--mesh local`` (one device) is the only
-layout; ``--mesh production`` and ``--multi-pod`` raise
-``NotImplementedError`` (ROADMAP.md Queue 1 item 5, launch plumbing).
+``--mesh local`` trains on one device under a ``(1, 1)`` ``("data",
+"model")`` mesh descriptor: each step runs under the activation policy
+JAX's launcher sets, and the caller's policy is restored after it.
+``--mesh production`` (or ``--multi-pod``) prints the dry-run's
+per-device layout and argument bytes for the arch at the run's batch and
+sequence (:mod:`repro_torch.launch.dryrun`), then raises ``ValueError``:
+that mesh needs 256 (512) ranks, and one process of the port drives one
+device.
 """
 from __future__ import annotations
 
@@ -24,9 +29,12 @@ from typing import Any, NamedTuple
 
 from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.configs import get_config
+from repro_torch.configs.shapes import ShapeCell
 from repro_torch.data.pipeline import make_source, to_device
 from repro_torch.device import resolve_device
-from repro_torch.models import build_model
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import dp_axes, make_mesh, tp_axis
+from repro_torch.models import build_model, sharding_ctx
 from repro_torch.models.spec import tree_leaves, tree_map
 from repro_torch.optim.adamw import AdamW, AdamWState
 
@@ -63,14 +71,33 @@ def trainable(params) -> dict:
     return params
 
 
+def production_layout(args, cfg) -> None:
+    """``--mesh production``: print the dry-run's per-device layout and
+    argument bytes of this run's train step on the production mesh, then
+    raise ``ValueError`` naming the ranks that mesh needs."""
+    cell = ShapeCell(f"train_b{args.batch}_s{args.seq}", args.seq, args.batch, "train")
+    rec = dryrun.cell_record(args.arch, cell.name, args.multi_pod, cfg=cfg, cell=cell,
+                             save=False)
+    print(f"[layout] mesh {rec['mesh_shape']}; params and AdamW m, v share a spec")
+    for path, spec in rec["layout"].items():
+        if not path.startswith("opt_state/"):
+            print(f"  {path}: {spec}")
+    print("[bytes a device] " + ", ".join(f"{k} {v:,}" for k, v in rec["argument_bytes"].items()))
+    raise ValueError(
+        f"--mesh production{' --multi-pod' if args.multi_pod else ''} needs {rec['chips']} "
+        f"ranks, one a device of the {rec['mesh_shape']} mesh; this process has 1 (the port "
+        "drives one device a process). Use --mesh local.")
+
+
 def train_loop(args) -> dict:
-    if args.mesh == "production" or args.multi_pod:
-        raise NotImplementedError(
-            "--mesh production / --multi-pod: the port has no device mesh yet "
-            "(ROADMAP.md Queue 1 item 5, launch plumbing); use --mesh local")
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.mesh == "production" or args.multi_pod:  # --multi-pod names the 2x16x16 mesh
+        production_layout(args, cfg)
+    dev = resolve_device(args.device)
     model = build_model(cfg)
+    mesh = make_mesh((1, 1), ("data", "model"))  # one device
+    dp = dp_axes(mesh)  # the activation policy of JAX's make_train_step
+    policy = sharding_ctx.Policy(dp=dp if len(dp) > 1 else dp[0], tp=tp_axis(mesh))
 
     optimizer = AdamW(lr=args.lr, total_steps=args.steps,
                       warmup_steps=min(100, max(1, args.steps // 10)))
@@ -99,7 +126,8 @@ def train_loop(args) -> dict:
     losses = []
     t_start = time.perf_counter()
     for step in range(start_step, args.steps):
-        state, loss = step_fn(state, source.batch_at(step))
+        with sharding_ctx.policy(policy.dp, policy.tp, policy.sp):  # restored after
+            state, loss = step_fn(state, source.batch_at(step))
         if step % args.log_every == 0 or step == args.steps - 1:
             lv = float(loss)
             losses.append((step, lv))

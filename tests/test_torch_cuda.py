@@ -1737,3 +1737,59 @@ def test_train_step_on_card_has_finite_grads(card, arch):
         assert any(not torch.equal(a.detach(), b) for a, b in zip(after, before))
         losses[dev.type] = float(loss.detach())
     assert abs(losses["cpu"] - losses["cuda"]) <= 2e-2 * abs(losses["cpu"])
+
+
+@pytest.mark.parametrize("stages,micro", [(2, 4), (4, 3)])
+def test_pipeline_on_card_matches_the_serial_stack(card, stages, micro):
+    """stablelm-1.6b's width cut to 4 layers, f32: the GPipe schedule on the
+    card against the serial 4-layer stack on the same inputs (forward
+    within 1e-5 x max|y|, every gradient within 1e-4 x max|g|)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.pipeline import pipeline_apply, stage_params
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.spec import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config("stablelm_1_6b"), n_layers=4, dtype="float32")
+    blocks = build_model(cfg).init(0, device=card)["blocks"]
+    staged = stage_params(tree_map(lambda t: t.clone(), blocks), stages)
+    seq = 128
+    x = torch.randn(micro, 1, seq, cfg.d_model, device=card,
+                    generator=torch.Generator(device=card).manual_seed(1))
+    pos = torch.arange(seq, dtype=torch.int32, device=card)[None]
+
+    def stack(slab, h):
+        for p in tfm.layer_views(slab, tree_leaves(slab)[0].shape[0]):
+            h, _ = tfm._attn_block(p, h, cfg, causal=True, positions=pos, q_chunk=64,
+                                   kv_chunk=128)
+        return h
+
+    def grads(fn, params):
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        y = fn(params)
+        y.square().sum().backward()
+        return y.detach(), [p.grad for p in tree_leaves(params)]
+
+    y_ser, g_ser = grads(lambda p: stack(p, x.reshape(micro, seq, -1)), blocks)
+    y_pipe, g_pipe = grads(
+        lambda p: pipeline_apply(stack, p, x, make_mesh((stages,), ("stage",))), staged)
+    assert float((y_pipe.reshape(y_ser.shape) - y_ser).abs().max()) <= \
+        1e-5 * float(y_ser.abs().max())
+    for a, b in zip(g_pipe, g_ser):
+        assert float((a.reshape(b.shape) - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_env_apply_turns_tf32_off_on_the_card(card, monkeypatch):
+    from repro_torch import env
+    monkeypatch.setattr(env, "_applied", None)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    torch.zeros(1, device=card)  # CUDA initialised: apply warns that cuBLAS may have read it
+    with pytest.warns(RuntimeWarning, match="after CUDA was initialised"):
+        got = env.apply("cuda")
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    assert got["tf32"] == {"matmul": False, "cudnn": False}
+    assert got["backend"] == "cuda" and got["cuda_initialized_before"]
+    assert env.describe() == got

@@ -73,7 +73,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.configs.hubert_xlarge", "repro_torch.data.pipeline",
             "repro_torch.optim.adamw", "repro_torch.optim.grad_compress",
             "repro_torch.checkpoint.ckpt", "repro_torch.launch.train",
-            "repro_torch.train_moe_sparse", "repro_torch.serve_decode"} <= loaded
+            "repro_torch.train_moe_sparse", "repro_torch.serve_decode",
+            "repro_torch.env", "repro_torch.core.compat", "repro_torch.launch.mesh",
+            "repro_torch.launch.sharding", "repro_torch.launch.dryrun",
+            "repro_torch.launch.pipeline"} <= loaded
 
 
 def test_every_arch_config_is_the_ports_own():

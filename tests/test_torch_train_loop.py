@@ -87,7 +87,10 @@ def test_main_resumes_bitwise(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--mesh", "production"], ["--multi-pod"]])
 def test_production_mesh_raises(flag):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    """A production mesh needs 256 ranks (512 multi-pod); one process of the
+    port drives one device, so the launcher prints the layout and raises."""
+    ranks = 512 if "--multi-pod" in flag else 256
+    with pytest.raises(ValueError, match=f"needs {ranks} ranks"):
         train.main(SMOKE + ["--steps", "1"] + flag)
 
 
