@@ -36,7 +36,12 @@ Phases, in order (any failure exits nonzero and prints no result line):
    fault the check must catch, with their times, bounds, plain times and two
    yardsticks (``torch.sparse_csr_tensor`` times X^T or B, and the dense
    X @ W in float32 without TF32), a HYB SpMM line (ell_spmm + csr_spmm)
-   and a token-tile sweep; then csr_spmm_t, ell_spmm_t, sell_spmm_t,
+   and a token-tile sweep; SELL's slice schedule (sell_spmm at Kb <= 8,
+   sell_spmm_t at xt = 0) at width 1 on both weights in both dtypes beside
+   its bound, the library call and the dense product, and swept over T in
+   {1, 2, 4, 8, 16, 32} and Kb in {1, 2, 4, 8} (checked, with a planted
+   fault, timed, with the plan that ran: staged or L1-gathered rhs, the
+   cluster split); then csr_spmm_t, ell_spmm_t, sell_spmm_t,
    ell_spmm, csr_spmm and sell_spmm on each of their schedules (the ``xt``
    knob: the old schedule, row or SELL slice, and the token-major one; for
    csr_spmm and sell_spmm also the ``tc`` knob, the dense-tile schedule on
@@ -246,6 +251,10 @@ Phases, in order (any failure exits nonzero and prints no result line):
 
 ``python3 chip_smoke.py --profile-train`` runs only a ``torch.profiler``
 pass over one training step each of (k1) and (k4) (``profile_training``).
+``python3 chip_smoke.py --spmm-phase [TREE]`` runs only the build and the
+SpMM kernel phase, of this checkout or of the checkout at TREE (its own
+``chip_smoke.py`` and ``src/``), so that two trees are read in turns on one
+card (``spmm_phase``).
 
 The last three lines of standard output are the kernels' JSON record (all
 eleven kernels, launches summed over paths (a)-(l), and each kernel's
@@ -256,6 +265,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import itertools
 import json
@@ -1879,6 +1889,12 @@ SPMM_REPLACES = {"csr_spmm": "src/repro/kernels/csr_spmm.py:158",
                  "sell_spmm": "src/repro/kernels/sell_spmv.py:133",
                  "sell_spmm_t": "src/repro/kernels/sell_spmv.py:190"}
 ORACLE_RTOL = 1e-4  # max |y - oracle| / max |oracle|, float32 against float64
+# SELL's slice schedule (sell_spmm for Kb <= 8, sell_spmm_t at xt = 0): its
+# width-1 cells on both weights and dtypes, and its sweep of widths
+SELL_SLICE_KERNELS = ("sell_spmm", "sell_spmm_t")
+SLICE_SWEEP_T = (1, 2, 4, 8, 16, 32)  # below ops.SELL_XT_FROM = 64
+SLICE_SWEEP_KB = (1, 2, 4, 8)  # up to sell_spmm.SLICE_MAX_TOKENS
+SELL_WIDTH1 = {}  # "kernel weight dtype" -> the width-1 readings
 
 
 def make_weights(np):
@@ -2056,6 +2072,12 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
             name = "float32" if dtype == torch.float32 else "bfloat16"
             es = torch.empty((), dtype=dtype).element_size()
             cd, ed, sd = (c.data.to(dtype) for c in (csr, ell, sell))
+            # the library call in this dtype (f32: the weight as stored) and
+            # the dense product in this dtype, timed for every cell of the
+            # slice schedule's width-1 rows and the up f32 cells
+            lib_dt = lib if dtype == torch.float32 else torch.sparse_csr_tensor(
+                csr.indptr, csr.indices, cd, size=csr.shape)
+            w_dt = w_dense.to(dtype)
             for t in (DECODE, PREFILL):
                 X = _rand(rng, torch, (t, n), dtype)
                 B = X.T.contiguous()
@@ -2071,35 +2093,35 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
                                                       **cfg_cb),
                                  lambda: csr_spmm_ref(csr.indptr, csr.indices, cd, B, m),
                                  lambda: csr_spmm_ref(csr.indptr, csr.indices, cd.abs(), Ba, m),
-                                 lambda: lib @ B, f"K={t} {cfg_cb}"),
+                                 lambda: lib_dt @ B, f"K={t} {cfg_cb}"),
                     "csr_spmm_t": (lambda: kcm.csr_spmm_t(csr.indptr, csr.indices, cd, X, m,
                                                           **cfg_c),
                                    lambda: csr_spmm_t_ref(csr.indptr, csr.indices, cd, X, m),
                                    lambda: csr_spmm_t_ref(csr.indptr, csr.indices, cd.abs(),
                                                           Xa, m),
-                                   lambda: lib @ X.T, f"T={t} {cfg_c}"),
+                                   lambda: lib_dt @ X.T, f"T={t} {cfg_c}"),
                     "ell_spmm_t": (lambda: kem.ell_spmm_t(ell.cols, ed, X, **cfg_e),
                                    lambda: ell_spmm_t_ref(ell.cols, ed, X),
                                    lambda: ell_spmm_t_ref(ell.cols, ed.abs(), Xa),
-                                   lambda: lib @ X.T, f"T={t} {cfg_e}"),
+                                   lambda: lib_dt @ X.T, f"T={t} {cfg_e}"),
                     "sell_spmm_t": (lambda: ksm.sell_spmm_t(sell.slice_ptrs, sell.cols, sd,
                                                             sell.perm, X, m, sell.c, **cfg_s),
                                     lambda: sell_spmm_t_ref(sell.slice_ptrs, sell.cols, sd,
                                                             sell.perm, X, m, sell.c),
                                     lambda: sell_spmm_t_ref(sell.slice_ptrs, sell.cols,
                                                             sd.abs(), sell.perm, Xa, m, sell.c),
-                                    lambda: lib @ X.T, f"T={t} {cfg_s}"),
+                                    lambda: lib_dt @ X.T, f"T={t} {cfg_s}"),
                     "ell_spmm": (lambda: kem.ell_spmm(ell.cols, ed, B, **cfg_eb),
                                  lambda: ell_spmm_ref(ell.cols, ed, B),
                                  lambda: ell_spmm_ref(ell.cols, ed.abs(), Ba),
-                                 lambda: lib @ B, f"K={t} {cfg_eb}"),
+                                 lambda: lib_dt @ B, f"K={t} {cfg_eb}"),
                     "sell_spmm": (lambda: ksm.sell_spmm(sell.slice_ptrs, sell.cols, sd,
                                                         sell.perm, B, m, sell.c, **cfg_sb),
                                   lambda: sell_spmm_ref(sell.slice_ptrs, sell.cols, sd,
                                                         sell.perm, B, m, sell.c),
                                   lambda: sell_spmm_ref(sell.slice_ptrs, sell.cols, sd.abs(),
                                                         sell.perm, Ba, m, sell.c),
-                                  lambda: lib @ B, f"K={t} {cfg_sb}"),
+                                  lambda: lib_dt @ B, f"K={t} {cfg_sb}"),
                 }
                 # the planted fault: each checked kernel's plain version on its
                 # values with every FAULT_EVERY-th stored entry dropped
@@ -2135,16 +2157,23 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
                     bound = max(t_bytes, t_ops)
                     ms = time_ms(run, 20)
                     full = lname == "up" and dtype == torch.float32
+                    width1 = kname in SELL_SLICE_KERNELS and t == DECODE
+                    plan = ksm.last_plan.describe() if width1 else None
                     plain_ms = time_ms(plain, 3) if full else None
-                    lib_ms = time_ms(library, 10) if full else None
-                    dense_ms = time_ms(lambda: X @ w_dense, 20) if full else None
+                    lib_ms = time_ms(library, 10) if full or width1 else None
+                    dense_ms = (time_ms(lambda: X @ w_dt, 20) if full or width1 else None)
                     print(f"  {kname} {lname} {name} {what}: kernel {ms:.4f} ms, bound "
                           f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} Gop, "
                           f"{'bytes' if t_bytes >= t_ops else 'operations'}) -> "
                           f"{bound / ms:.1%} of bound"
-                          + (f"; plain {plain_ms:.4f} ms, library sparse_csr @ "
-                             f"{lib_ms:.4f} ms, dense X @ W f32 {dense_ms:.4f} ms"
-                             if full else ""), flush=True)
+                          + (f"; plain {plain_ms:.4f} ms" if full else "")
+                          + (f"; library sparse_csr @ {lib_ms:.4f} ms, dense X @ W {name} "
+                             f"{dense_ms:.4f} ms" if full or width1 else "")
+                          + (f"; slice plan: {plan}" if width1 else ""), flush=True)
+                    if width1:
+                        SELL_WIDTH1[f"{kname} {lname} {name}"] = {
+                            "ms": ms, "bound_ms": bound, "share": bound / ms,
+                            "library_ms": lib_ms, "dense_ms": dense_ms, "plan": plan}
                     if full:
                         sfx = "" if t == PREFILL else "_t1"
                         rec = records.setdefault(kname, {
@@ -2173,8 +2202,13 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
                     print(f"  {lname} T=1 beside SpMV at the same nnz: csr_spmv {spmv_ms:.4f} ms "
                           f"(vec={vec}: rows above {plan.threshold} entries in "
                           f"{int(plan.chunk_end[-1]) if plan.k_max else 0} chunks)", flush=True)
+            sweep_slice_schedule(torch, lname, csr, sell, sd, lib_dt, w_dt, rng, name,
+                                 peak_bw, peak_flops)
+            del lib_dt, w_dt
         del mats, csr, ell, sell, hyb, lib, w_dense
         torch.cuda.empty_cache()
+    print(f"  sell width-1 readings (kernel ms, bound ms, share of bound, library ms, dense "
+          f"ms, plan): {json.dumps(SELL_WIDTH1)}", flush=True)
     print("  weight-shape readings (|y_k - y_p| / limit; at most 1 passes): largest sound "
           + ", ".join(f"{k} {v:.3e}" for k, v in READINGS["sound"].items())
           + f"; smallest planted fault (every {FAULT_EVERY}th entry dropped) "
@@ -2182,6 +2216,127 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
     for dtype in (torch.float32, torch.bfloat16):
         ragged_spmm_cases(rng, torch, dtype, "float32" if dtype == torch.float32 else "bfloat16")
     return records
+
+
+DEVICE_CALLS = 20  # calls device_ms reads
+
+
+def device_ms(torch, fn):
+    """Milliseconds a call of ``fn`` keeps the card busy: the durations of
+    every kernel that DEVICE_CALLS calls launch (torch.profiler's CUDA
+    events), summed, over DEVICE_CALLS; without the gaps the host leaves
+    between launches, which a CUDA-event median of a ~50 us call can
+    include. None where the profiler sees no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(DEVICE_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    durs = [e.time_range.elapsed_us() for e in prof.events() if e.device_type.name == "CUDA"]
+    return sum(durs) / 1e3 / DEVICE_CALLS if durs else None
+
+
+def device_readings(torch, np, weights):
+    """Times on the device (device_ms) at both weights in both dtypes: rows
+    6-11 (the six SpMM kernels on their default configuration) and the
+    library call at width 1, and SELL's slice schedule across its sweep
+    (SLICE_SWEEP_T, SLICE_SWEEP_KB), with this process's ``repro_torch``, so
+    that ``--spmm-phase TREE`` reads any tree's kernels the same way. Run
+    after the CUDA-event timings: on an H100, width-1 event medians taken
+    after a profiler session in the same process spread by up to 60%
+    (PERF.md)."""
+    from repro_torch.kernels import csr_spmm as kcm, ell_spmm as kem, sell_spmm as ksm
+    from repro_torch.kernels import ops as kops
+    print(f"== times on the device (ms a call, torch.profiler, {DEVICE_CALLS} calls)",
+          flush=True)
+    rng = np.random.default_rng(SEED + 2)
+    for lname, (w, _) in weights.items():
+        mats = weight_containers(torch, w)
+        csr, ell, sell = mats["CSR"], mats["ELL"], mats["SELL"]
+        m, n = csr.shape
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "float32" if dtype == torch.float32 else "bfloat16"
+            cd, ed, sd = (c.data.to(dtype) for c in (csr, ell, sell))
+            lib = torch.sparse_csr_tensor(csr.indptr, csr.indices, cd, size=csr.shape)
+            X = _rand(rng, torch, (1, n), dtype)
+            B = X.T.contiguous()
+            cfg = {k: kops.default_config(a, op=op, ncols=1) for k, a, op in (
+                ("csr_spmm", _with_values(csr, cd), "spmm"), ("csr_spmm_t", csr, "spmm_t"),
+                ("ell_spmm", ell, "spmm"), ("ell_spmm_t", ell, "spmm_t"))}
+            calls = {
+                "csr_spmm": lambda: kcm.csr_spmm(csr.indptr, csr.indices, cd, B, m,
+                                                 **cfg["csr_spmm"]),
+                "csr_spmm_t": lambda: kcm.csr_spmm_t(csr.indptr, csr.indices, cd, X, m,
+                                                     **cfg["csr_spmm_t"]),
+                "ell_spmm": lambda: kem.ell_spmm(ell.cols, ed, B, **cfg["ell_spmm"]),
+                "ell_spmm_t": lambda: kem.ell_spmm_t(ell.cols, ed, X, **cfg["ell_spmm_t"]),
+                "library": lambda: lib @ B}
+            for kname, widths in (("sell_spmm_t", SLICE_SWEEP_T),
+                                  ("sell_spmm", SLICE_SWEEP_KB)):
+                for width in widths:
+                    Xw = _rand(rng, torch, (width, n), dtype)
+                    rhs = Xw if kname == "sell_spmm_t" else Xw.T.contiguous()
+                    calls[f"{kname} {width}"] = functools.partial(
+                        getattr(ksm, kname), sell.slice_ptrs, sell.cols, sd, sell.perm, rhs, m,
+                        sell.c)
+            print(f"  {lname} {name}: " + ", ".join(
+                f"{k} {_ms_str(device_ms(torch, f))}" for k, f in calls.items()), flush=True)
+        del mats, csr, ell, sell
+        torch.cuda.empty_cache()
+
+
+def _ms_str(ms):
+    return "n/a" if ms is None else f"{ms:.4f} ms"
+
+
+def sweep_slice_schedule(torch, lname, csr, sell, sd, lib_dt, w_dt, rng, name, peak_bw,
+                         peak_flops):
+    """The slice schedule of both SELL kernels across its widths on one
+    weight in one dtype: sell_spmm_t at T in SLICE_SWEEP_T (the default
+    token tile, xt = 0) and sell_spmm at Kb in SLICE_SWEEP_KB, each against
+    its plain version (SPMM_TOL, bitwise reruns, the planted fault), its
+    median time beside its bound, the library call and the dense product,
+    and the plan that ran (staged or L1-gathered rhs, the split). Their
+    times on the device come later, from device_readings."""
+    from repro_torch.kernels import sell_spmm as ksm
+    from repro_torch.kernels.ref import sell_spmm_ref, sell_spmm_t_ref
+    m, n = csr.shape
+    es = sd.element_size()
+    args = (sell.slice_ptrs, sell.cols, sd, sell.perm)
+    absargs = (sell.slice_ptrs, sell.cols, sd.abs(), sell.perm)
+    cells = [("sell_spmm_t", t) for t in SLICE_SWEEP_T] + [("sell_spmm", k)
+                                                          for k in SLICE_SWEEP_KB]
+    for kname, width in cells:
+        X = _rand(rng, torch, (width, n), sd.dtype)
+        if kname == "sell_spmm_t":
+            rhs, fn, ref, lib_call = X, ksm.sell_spmm_t, sell_spmm_t_ref, lambda: lib_dt @ X.T
+        else:
+            rhs = X.T.contiguous()
+            fn, ref, lib_call = ksm.sell_spmm, sell_spmm_ref, lambda: lib_dt @ rhs
+
+        def run():
+            return fn(*args, rhs, m, sell.c)
+        what = f"{kname} {lname} {'T' if kname == 'sell_spmm_t' else 'Kb'}={width} slice sweep"
+        y_p, scale = ref(*args, rhs, m, sell.c), ref(*absargs, rhs.abs(), m, sell.c)
+        compare(what, run(), run(), y_p, name, scale=scale, record=True)
+        planted_fault(sd, lambda d: ref(sell.slice_ptrs, sell.cols, d, sell.perm, rhs, m,
+                                        sell.c), y_p, scale, what, name)
+        del y_p, scale
+        plan = ksm.last_plan.describe()
+        sell_idx = sell.perm.numel() * 4 + (sell.nslices + 1) * 4
+        nbytes = csr.nnz * (4 + es) + sell_idx + width * n * es + width * m * es
+        t_bytes = nbytes / peak_bw * 1e3
+        t_ops = 2 * csr.nnz * width / peak_flops * 1e3
+        bound = max(t_bytes, t_ops)
+        ms = time_ms(run, 20, SWEEP_WARMUP_S)
+        lib_ms = time_ms(lib_call, 10, SWEEP_WARMUP_S)
+        dense_ms = time_ms(lambda: X @ w_dt, 20, SWEEP_WARMUP_S)
+        print(f"  {what} {name}: kernel {ms:.4f} ms, bound {bound:.4f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}) -> {bound / ms:.1%} of "
+              f"bound; library sparse_csr @ {lib_ms:.4f} ms, dense X @ W {dense_ms:.4f} ms; "
+              f"plan: {plan}", flush=True)
 
 
 def planted_fault(vals, plain_of, y_p, scale, what, dtype_name):
@@ -4665,6 +4820,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts_f, _ = phase_mg(torch, np, prob, A, b, cg_dia)
     lap("path (f)")
+    device_readings(torch, np, weights)  # after path (f), whose profiler runs first
+    lap("SpMM times on the device")
     torch.cuda.empty_cache()
     counts_g = phase_dist(torch, np, prob, A, b, cg_dia, peak_bw)
     lap("path (g)")
@@ -4778,5 +4935,45 @@ def profile_training() -> int:
     return 0
 
 
+def spmm_phase(argv) -> int:
+    """``python3 chip_smoke.py --spmm-phase [TREE]``: the build and the SpMM
+    kernel phase alone (``phase_spmm_kernels``: every SpMM kernel at both
+    minitron-8b MLP weights, f32 and bf16, T = 1 and 256), run by the
+    ``chip_smoke.py`` of TREE (default: this checkout) on its own ``src/``
+    and its own build directory, then this script's times on the device
+    of TREE's kernels (``device_readings``). Two trees read in turns
+    (A, B, B, A), each in a process of its own, compare on one card. Not
+    part of the default run."""
+    import importlib.util
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke --spmm-phase: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    tree = os.path.abspath(argv[0]) if argv else HERE
+    sys.path.insert(0, os.path.join(tree, "src"))
+    spec = importlib.util.spec_from_file_location("chip_smoke_of_tree",
+                                                  os.path.join(tree, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    import numpy as np
+    from repro_torch import env
+    env.apply("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    kind = torch.cuda.get_device_name(0)
+    _, (peak_bw, peak_flops) = mod.peaks_for(kind)
+    print(f"== SpMM kernel phase of {tree} [{smi}]", flush=True)
+    mod.phase_build()
+    weights = mod.make_weights(np)
+    t0 = time.perf_counter()
+    mod.phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops)
+    print(f"== SpMM kernel phase of {tree}: {time.perf_counter() - t0:.1f} s")
+    device_readings(torch, np, weights)
+    print(smi)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--spmm-phase"]:
+        sys.exit(spmm_phase(sys.argv[2:]))
     sys.exit(profile_training() if sys.argv[1:] == ["--profile-train"] else main())

@@ -16,6 +16,42 @@
 // plus perm and the slice pointers), operations at T = 256 (2 flops per live
 // entry and token; the slices' padding, 1% of the slots at the serving
 // shapes, costs its share too). The design:
+//   * the slice schedule (sell_spmm for Kb <= 8, sell_spmm_t at xt = 0, T
+//     below 64 on the default route; tiles of TT = 1, 2, 4 or 8 rhs
+//     columns; one token is sell_spmm's Kb = 1, since X (1, N) is B (N, 1)):
+//     a block of 512 threads (1024 for C > 512, or where the staged tile
+//     leaves room for one block an SM) takes one slice at a time; thread
+//     (r, g) takes lane r and plane group g of G = threads / C, so with C =
+//     32 each warp reads whole planes (one coalesced load of indices and
+//     one of values), and all of a block's warps read one slice. The
+//     launch is decided by the wrapper from the shapes, the SM count and
+//     the opt-in shared-memory limit (kernels/sell_spmm.py::slice_plan) and
+//     passed in: threads, stage, split and slices a block;
+//   * the rhs tile is staged in shared memory (stage_x, 16-byte cp.async
+//     copies) wherever it fits the opt-in limit and its copies cost no more
+//     bytes than the weight the blocks stream: X's TT rows (contiguous in
+//     X) for sell_spmm_t, B (N, Kb) as it lies for sell_spmm, T = 1 and Kb
+//     = 1 included. On a magnitude-pruned weight a plane's 32 columns are
+//     unrelated: gathered through L1 they touched ~29 cache lines a plane
+//     (the old schedule read 51-55% of the bytes bound, PERF.md); from
+//     shared memory they cost a few bank-conflict ways. A B of exactly TT
+//     columns is read a row a lane in one vector (load_row): TT scalar
+//     gathers would conflict TT ways. A tile that does not fit (the down
+//     weight's 16384-wide X at 4 and 8 tokens in f32) is read through L1
+//     on the same kernel (B's rows still one vector a lane where aligned);
+//   * slices too few to fill the card (fewer than the SMs: the down weight
+//     has 128 for 132) are split over a thread-block cluster of 2 or 4
+//     blocks: rank q sums the q-th contiguous range of the slice's planes,
+//     and rank 0 adds the cluster's sums through distributed shared memory
+//     in rank order;
+//   * each thread walks its planes kUnroll at a time, the kUnroll (column,
+//     value) loads issued before the first multiply-add, so a 512-thread
+//     block keeps 16 KB of the weight in flight;
+//   * the G partial sums of each (lane, token) meet in shared memory and
+//     are added in group order by one thread each, then the ranks' in rank
+//     order: no atomics, and the result is bitwise the same from run to run
+//     (the order depends on the plan, which depends only on the shapes and
+//     the card);
 //   * sell_spmm_t, xt = 32/64/128 (prefill widths, T >= 32): the token-major
 //     schedule of csr_spmm.cu and ell_spmm.cu (spmm_common.cuh::
 //     tokens_spmm_t over SellRows): X transposed once a call into scratch
@@ -33,25 +69,6 @@
 //     walked as CSR's are. Ghost lanes are empty rows; each sum is stored to
 //     Y[t, perm[q]] (a scatter: every row once, no zero fill). Positions
 //     are int32 (capacity below 2^31 - 64);
-//   * the slice kernel (sell_spmm_t at xt = 0, and sell_spmm for Kb <= 8):
-//     a block of 1024 threads owns one slice at a time: thread (r, g) takes
-//     lane r of the slice and every G-th plane from plane g (G = 1024 / C
-//     plane groups), so with C = 32 each warp reads whole planes (one coalesced
-//     load of indices and one of values) and a slice of a pruned weight
-//     (rows of ~1024 to ~4096 entries) is read by 32 warps at once, not by
-//     one thread a row (which left the card nearly idle at the minitron-8b
-//     shapes: 16384 or 4096 rows are too few threads). Any C up to 1024
-//     works, only less regularly;
-//   * the G partial sums of each (lane, token) meet in shared memory and
-//     are added in group order by one thread each: no atomics, and the
-//     result is bitwise the same from run to run;
-//   * each slot, loaded once, feeds TT multiply-adds (8 tokens at
-//     prefill; Kb sums for sell_spmm, read from one short row of B); for
-//     sell_spmm_t with TT > 1 the block's tile of X (TT rows, contiguous in
-//     X) is copied into shared memory wherever it fits the card's opt-in
-//     limit (stage_x), which measured faster than gathering through L1
-//     (these blocks hold 1024 threads anyway); a tile too large (the down
-//     weight's 16384-wide X at 8 tokens) is gathered through L1;
 //   * sell_spmm for Kb > 8, xt = tc = 0 (sell_spmm_kw): KW lanes own one
 //     sorted row and walk its slice's planes, lying along B's columns as
 //     csr_spmm.cu does: each slot is a broadcast, each B row segment a
@@ -76,150 +93,302 @@
 //   * f32 sums, one rounding to the output type; columns clamp into [0, n),
 //     as the reference's jnp.take(mode="clip") does; offsets are int64.
 
+#include <cooperative_groups.h>
+
 #include "spmm_common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using spmm::from_f32;
 using spmm::to_f32;
 
-// Copy rows [t0, t0 + TT) of X (t rows of n) into `sx`; rows past t are
-// zero. The rows are one contiguous run of X: 16-byte copies where the
-// run is aligned, element copies otherwise.
+constexpr int kSellMaxBlock = 1024;  // threads a block of the slice kernel, at most
+// Planes a thread has in flight: 4, and 8 for bf16 at one rhs column,
+// where a plane is 192 bytes instead of 256 and the kernel has the
+// registers. On an H100 at the minitron-8b weights (PERF.md) 8 took bf16 at
+// width 1 from 0.059 to 0.044 ms, and cost 1-3% in f32 and 10-14% at
+// width 2, where 4 stays.
 template <typename T, int TT>
-__device__ void stage_x(T* sx, const T* __restrict__ X, int64_t t0, int64_t t, int32_t n) {
-  const int64_t valid = min(static_cast<int64_t>(TT), t - t0) * n;
-  const int64_t total = static_cast<int64_t>(TT) * n;
-  const T* src = X + t0 * n;
+constexpr int kUnroll = TT == 1 && sizeof(T) == 2 ? 8 : 4;
+constexpr int kMaxSplit = 4;         // blocks of a cluster that share a slice
+
+__host__ __device__ inline size_t round16(size_t b) { return (b + 15) & ~static_cast<size_t>(15); }
+
+// Shared memory of the slice kernel, in this order: the groups' partial
+// sums [TT][groups][c] (f32), the block's sums [TT][c] (f32, read by the
+// cluster's rank 0), then the staged rhs (rhs_elems elements). Each area
+// starts 16-byte aligned. kernels/sell_spmm.py::slice_plan computes the same.
+__host__ __device__ inline size_t partial_bytes(int threads, int32_t c, int tt) {
+  return round16(static_cast<size_t>(threads / c) * c * tt * sizeof(float));
+}
+__host__ __device__ inline size_t sums_bytes(int32_t c, int tt) {
+  return round16(static_cast<size_t>(c) * tt * sizeof(float));
+}
+
+// Copy `count` elements from `src` to `dst` (16-byte aligned) with every
+// thread of the block: 16-byte cp.async copies where `src` is aligned,
+// element copies for the rest. The caller waits (cp_async_wait<0>) and
+// synchronises.
+template <typename T>
+__device__ void stage_x(T* dst, const T* __restrict__ src, int64_t count) {
   constexpr int kVec = 16 / sizeof(T);
   int64_t done = 0;
   if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int64_t nvec = valid / kVec;
-    const uint4* s4 = reinterpret_cast<const uint4*>(src);
-    uint4* d4 = reinterpret_cast<uint4*>(sx);
-    for (int64_t i = threadIdx.x; i < nvec; i += blockDim.x) d4[i] = s4[i];
+    const int64_t nvec = count / kVec;
+    for (int64_t i = threadIdx.x; i < nvec; i += blockDim.x)
+      spmm::cp_async16(dst + i * kVec, src + i * kVec);
+    spmm::cp_async_commit();
     done = nvec * kVec;
   }
-  for (int64_t i = done + threadIdx.x; i < total; i += blockDim.x)
-    sx[i] = i < valid ? src[i] : from_f32<T>(0.f);
+  for (int64_t i = done + threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
 }
 
-// Token tt of rhs row c. TRANS (X (t, n)): X[t0 + tt, c] from the block's
-// tile, the staged copy (rows past T are zero) or X itself (tokens past T
-// read the tile's last row; their sums are never stored). Otherwise (B (n,
-// kb), one tile): B[c, tt], columns past kb read column kb - 1 and are never
-// stored.
-template <typename T, bool STAGED, bool TRANS>
+// Rhs column tt of matrix column col, tt clamped to `last` (the tile's
+// last valid token or column: the sums past it are never stored). TRANS:
+// base is the tile's first row of X (n wide), staged or in place;
+// otherwise base is B (n, kb) row-major, staged or in place.
+template <typename T, bool TRANS>
 __device__ __forceinline__ float load_rhs(const T* base, int tt, int last, int32_t n,
-                                          int64_t kb, int32_t c) {
-  if (!TRANS) return to_f32(base[static_cast<int64_t>(c) * kb + min(tt, last)]);
-  const int r = STAGED ? tt : min(tt, last);
-  return to_f32(base[static_cast<int64_t>(r) * n + c]);
+                                          int64_t kb, int32_t col) {
+  const int r = min(tt, last);
+  return to_f32(TRANS ? base[static_cast<int64_t>(r) * n + col]
+                      : base[static_cast<int64_t>(col) * kb + r]);
 }
 
-constexpr int kSellBlock = 1024;  // threads per block: 1024 / C plane groups
+// Element j of a 32-bit word of T values, as f32 (a bf16 is the high half
+// of an f32).
+template <typename T>
+__device__ __forceinline__ float word_elem(uint32_t w, int j) {
+  if constexpr (sizeof(T) == 4) return __uint_as_float(w);
+  else return __uint_as_float(j ? w & 0xffff0000u : w << 16);
+}
 
-// Bytes of the partial-sum area (G * C * TT floats), rounded up to 16 so
-// the X tile behind it stays aligned.
-__host__ __device__ inline size_t partial_bytes(int32_t c, int tt) {
-  const size_t b = static_cast<size_t>(kSellBlock / c) * c * tt * sizeof(float);
-  return (b + 15) & ~static_cast<size_t>(15);
+// Row `row` of a B of exactly TT columns (TT * sizeof(T) bytes, aligned to
+// that or to 16) into out, in 4- to 16-byte loads: one vector a lane
+// instead of TT scalar loads. Staged, the scalar gathers' banks (col * TT +
+// tt) % 32 would take only 32 / TT values and conflict TT ways; in place,
+// each would be a request of its own. The words are unpacked in registers.
+template <typename T, int TT>
+__device__ __forceinline__ void load_row(const T* row, float (&out)[TT]) {
+  constexpr int kBytes = TT * static_cast<int>(sizeof(T));
+  if constexpr (kBytes < 4) {
+    out[0] = to_f32(row[0]);
+  } else {
+    constexpr int kWords = kBytes / 4;
+    constexpr int kPer = 4 / static_cast<int>(sizeof(T));
+    uint32_t w[kWords];
+    if constexpr (kWords >= 4) {
+#pragma unroll
+      for (int i = 0; i < kWords / 4; ++i) {
+        const uint4 v = reinterpret_cast<const uint4*>(row)[i];
+        w[4 * i] = v.x;
+        w[4 * i + 1] = v.y;
+        w[4 * i + 2] = v.z;
+        w[4 * i + 3] = v.w;
+      }
+    } else if constexpr (kWords == 2) {
+      const uint2 v = *reinterpret_cast<const uint2*>(row);
+      w[0] = v.x;
+      w[1] = v.y;
+    } else {
+      w[0] = *reinterpret_cast<const uint32_t*>(row);
+    }
+#pragma unroll
+    for (int i = 0; i < TT; ++i) out[i] = word_elem<T>(w[i / kPer], i % kPer);
+  }
+}
+
+// acc[tt] += v * (rhs column tt of matrix column col) for every tt. `rows`:
+// B has exactly TT columns and is staged or aligned (load_row); otherwise
+// load_rhs.
+template <typename T, int TT, bool TRANS>
+__device__ __forceinline__ void fma_rhs(float (&acc)[TT], float v, const T* base, int last,
+                                        int32_t n, int64_t kb, int32_t col, bool rows) {
+  if (!TRANS && rows) {
+    float r[TT];
+    load_row<T, TT>(base + static_cast<int64_t>(col) * TT, r);
+#pragma unroll
+    for (int tt = 0; tt < TT; ++tt) acc[tt] += v * r[tt];
+    return;
+  }
+#pragma unroll
+  for (int tt = 0; tt < TT; ++tt) acc[tt] += v * load_rhs<T, TRANS>(base, tt, last, n, kb, col);
 }
 
 // The slice kernel. TRANS: Y (t, m) = X @ A^T over token tiles of TT.
-// Otherwise Y (m, t) = A @ B for B (n, t) with t <= TT (one tile).
+// Otherwise Y (m, t) = A @ B for B (n, t) with t <= TT (one tile). Block b
+// is rank b % split of its cluster and takes unit b / split: token tile
+// unit % t_tiles (fastest, so the blocks that run together share their
+// slices in L2) of slices [run * per, (run + 1) * per), run = unit /
+// t_tiles; rank q sums planes [q * w / split, (q + 1) * w / split) of each
+// w-plane slice.
 template <typename T, int TT, bool STAGED, bool TRANS>
-__global__ void __launch_bounds__(kSellBlock)
+__global__ void __launch_bounds__(kSellMaxBlock)
 sell_slices(const int32_t* __restrict__ ptrs, const int32_t* __restrict__ cols,
             const T* __restrict__ data, const int32_t* __restrict__ perm,
             const T* __restrict__ X, T* __restrict__ Y, int64_t nslices, int32_t c, int64_t m,
-            int32_t n, int64_t t, int64_t t_tiles, int64_t slices_per_split) {
+            int32_t n, int64_t t, int64_t t_tiles, int64_t per, int split) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int groups = kSellBlock / c;
+  const int threads = blockDim.x;
+  const int groups = threads / c;
   float* part = reinterpret_cast<float*>(smem_raw);  // [TT][groups][c]
-  const int64_t t0 = (blockIdx.x % t_tiles) * TT;
-  const int64_t split = blockIdx.x / t_tiles;
+  float* sums = reinterpret_cast<float*>(smem_raw + partial_bytes(threads, c, TT));  // [TT][c]
+  const int rank = static_cast<int>(blockIdx.x % split);
+  const int64_t unit = blockIdx.x / split;
+  const int64_t t0 = (unit % t_tiles) * TT;
+  const int64_t run = unit / t_tiles;
   const int last = static_cast<int>(min(static_cast<int64_t>(TT), t - t0)) - 1;
-  const T* base;
+  const T* base = TRANS ? X + t0 * n : X;
   if (STAGED) {
-    T* sx = reinterpret_cast<T*>(smem_raw + partial_bytes(c, TT));
-    stage_x<T, TT>(sx, X, t0, t, n);
+    T* sx = reinterpret_cast<T*>(smem_raw + partial_bytes(threads, c, TT) + sums_bytes(c, TT));
+    stage_x(sx, base, (TRANS ? last + 1 : t) * static_cast<int64_t>(n));
+    spmm::cp_async_wait<0>();
     __syncthreads();
     base = sx;
-  } else {
-    base = TRANS ? X + t0 * n : X;
   }
+  // B of exactly TT columns, staged or aligned in place: a row a load
+  constexpr int kRowBytes = TT * sizeof(T) < 16 ? TT * sizeof(T) : 16;
+  const bool rows = !TRANS && t == TT &&
+                    (STAGED || reinterpret_cast<uintptr_t>(X) % kRowBytes == 0);
   const int r = threadIdx.x % c;
   const int g = threadIdx.x / c;
-  const int64_t s_end = min(nslices, (split + 1) * slices_per_split);
-  for (int64_t s = split * slices_per_split; s < s_end; ++s) {
+  const int64_t s_end = min(nslices, (run + 1) * per);
+  for (int64_t s = run * per; s < s_end; ++s) {
     if (g < groups) {
       float acc[TT];
 #pragma unroll
       for (int tt = 0; tt < TT; ++tt) acc[tt] = 0.f;
       const int64_t begin = ptrs[s];
       const int64_t width = (ptrs[s + 1] - begin) / c;
-      for (int64_t j = g; j < width; j += groups) {
-        const int64_t p = begin + j * c + r;
-        const int32_t col = min(max(cols[p], 0), n - 1);
-        const float v = to_f32(data[p]);
+      const int64_t j1 = width * (rank + 1) / split;
+      const int32_t* lane_cols = cols + begin + r;
+      const T* lane_data = data + begin + r;
+      int64_t j = width * rank / split + g;
+      // kUnroll planes a trip, their loads issued before the first use
+      constexpr int kU = kUnroll<T, TT>;
+      for (; j + (kU - 1) * groups < j1; j += kU * groups) {
+        int32_t col[kU];
+        T val[kU];
 #pragma unroll
-        for (int tt = 0; tt < TT; ++tt)
-          acc[tt] += v * load_rhs<T, STAGED, TRANS>(base, tt, last, n, t, col);
+        for (int u = 0; u < kU; ++u) {
+          const int64_t p = (j + u * groups) * c;
+          col[u] = lane_cols[p];
+          val[u] = lane_data[p];
+        }
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          fma_rhs<T, TT, TRANS>(acc, to_f32(val[u]), base, last, n, t,
+                                min(max(col[u], 0), n - 1), rows);
+        }
+      }
+      for (; j < j1; j += groups) {
+        const int64_t p = j * c;
+        fma_rhs<T, TT, TRANS>(acc, to_f32(lane_data[p]), base, last, n, t,
+                              min(max(lane_cols[p], 0), n - 1), rows);
       }
 #pragma unroll
       for (int tt = 0; tt < TT; ++tt) part[(tt * groups + g) * c + r] = acc[tt];
     }
     __syncthreads();
-    for (int o = threadIdx.x; o < c * TT; o += kSellBlock) {
+    for (int o = threadIdx.x; o < c * TT; o += threads) {
       const int lane = o % c;
       const int tt = o / c;
       float sum = 0.f;
       for (int q = 0; q < groups; ++q) sum += part[(tt * groups + q) * c + lane];
+      if (split > 1) {
+        sums[o] = sum;
+        continue;
+      }
       const int32_t row = perm[s * c + lane];
       if (tt <= last && row >= 0 && row < m)
         Y[TRANS ? (t0 + tt) * m + row : row * t + tt] = from_f32<T>(sum);
     }
-    __syncthreads();  // the partials are consumed before the next slice
+    if (split > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();  // every rank's sums are in its shared memory
+      if (rank == 0) {
+        for (int o = threadIdx.x; o < c * TT; o += threads) {
+          const int lane = o % c;
+          const int tt = o / c;
+          float sum = sums[o];
+          for (int q = 1; q < split; ++q) sum += cluster.map_shared_rank(sums, q)[o];
+          const int32_t row = perm[s * c + lane];
+          if (tt <= last && row >= 0 && row < m)
+            Y[TRANS ? (t0 + tt) * m + row : row * t + tt] = from_f32<T>(sum);
+        }
+      }
+      cluster.sync();  // rank 0 has read them: the ranks may go on or exit
+    } else {
+      __syncthreads();  // the partials are consumed before the next slice
+    }
   }
 }
+
+// The launch a plan (kernels/sell_spmm.py::slice_plan) decided: `threads`
+// a block (512 or 1024), the rhs tile staged or not, `split` blocks a
+// cluster (1, 2 or 4) and `per` slices a block (1 where split > 1).
+struct SlicePlan {
+  int threads;
+  int stage;
+  int split;
+  int64_t per;
+};
 
 template <typename T, int TT, bool STAGED, bool TRANS>
 cudaError_t launch_slices(const void* ptrs, const void* cols, const void* data,
                           const void* perm, const void* X, void* Y, int64_t nslices, int32_t c,
-                          int64_t m, int32_t n, int64_t t, int device, cudaStream_t stream) {
+                          int64_t m, int32_t n, int64_t t, SlicePlan plan, cudaStream_t stream) {
   auto kernel = sell_slices<T, TT, STAGED, TRANS>;
-  const size_t smem = partial_bytes(c, TT) + (STAGED ? static_cast<size_t>(TT) * n * sizeof(T) : 0);
-  int resident = 0;
-  cudaError_t err = spmm::resident_blocks(kernel, kSellBlock, smem, device, &resident);
-  if (err != cudaSuccess) return err;
-  const int64_t t_tiles = (t + TT - 1) / TT;
-  int64_t sps = 0, nblocks = 0;
-  spmm::split_rows(nslices, t_tiles, resident, 1, &sps, &nblocks);
+  const int64_t rhs_rows = TRANS ? TT : t;  // staged elements: rhs_rows * n
+  const size_t smem = partial_bytes(plan.threads, c, TT) + sums_bytes(c, TT) +
+                      (STAGED ? static_cast<size_t>(rhs_rows) * n * sizeof(T) : 0);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int64_t t_tiles = TRANS ? (t + TT - 1) / TT : 1;
+  const int64_t nblocks = (nslices + plan.per - 1) / plan.per * t_tiles * plan.split;
   if (nblocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  kernel<<<static_cast<unsigned>(nblocks), kSellBlock, smem, stream>>>(
-      static_cast<const int32_t*>(ptrs), static_cast<const int32_t*>(cols),
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(nblocks));
+  cfg.blockDim = dim3(static_cast<unsigned>(plan.threads));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(plan.split);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = plan.split > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const int32_t*>(ptrs), static_cast<const int32_t*>(cols),
       static_cast<const T*>(data), static_cast<const int32_t*>(perm),
-      static_cast<const T*>(X), static_cast<T*>(Y), nslices, c, m, n, t, t_tiles, sps);
-  return cudaGetLastError();
+      static_cast<const T*>(X), static_cast<T*>(Y), nslices, c, m, n, t, t_tiles, plan.per,
+      plan.split);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// Token tiles of TT: staged for TT > 1 where the tile and the partial sums
-// fit the card's opt-in shared memory per block.
-template <typename T, int TT>
-cudaError_t launch_tile(const void* ptrs, const void* cols, const void* data, const void* perm,
+template <typename T, int TT, bool TRANS>
+cudaError_t launch_plan(const void* ptrs, const void* cols, const void* data, const void* perm,
                         const void* X, void* Y, int64_t nslices, int32_t c, int64_t m,
-                        int32_t n, int64_t t, int device, cudaStream_t s) {
-  int optin = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  const size_t bytes = partial_bytes(c, TT) + static_cast<size_t>(TT) * n * sizeof(T);
-  if (TT > 1 && bytes <= static_cast<size_t>(optin))
-    return launch_slices<T, TT, true, true>(ptrs, cols, data, perm, X, Y, nslices, c, m, n, t,
-                                            device, s);
-  return launch_slices<T, TT, false, true>(ptrs, cols, data, perm, X, Y, nslices, c, m, n, t,
-                                           device, s);
+                        int32_t n, int64_t t, SlicePlan plan, cudaStream_t s) {
+  if (plan.stage)
+    return launch_slices<T, TT, true, TRANS>(ptrs, cols, data, perm, X, Y, nslices, c, m, n,
+                                             t, plan, s);
+  return launch_slices<T, TT, false, TRANS>(ptrs, cols, data, perm, X, Y, nslices, c, m, n, t,
+                                            plan, s);
+}
+
+// A plan the kernel can run: a block holds a slice (threads a multiple of
+// 32, at most 1024, >= c), a cluster of 1, 2 or 4 blocks, per >= 1 and 1
+// where the slices are split.
+bool plan_ok(const SlicePlan& p, int32_t c) {
+  return p.threads >= c && p.threads <= kSellMaxBlock && p.threads % 32 == 0 &&
+         (p.split == 1 || p.split == 2 || p.split == kMaxSplit) && p.per >= 1 &&
+         (p.split == 1 || p.per == 1);
 }
 
 // Y[perm[q], :] = sum over sorted row q's slots of data[p] * B[cols[p], :]
@@ -277,30 +446,28 @@ cudaError_t launch_kw(const void* ptrs, const void* cols, const void* data, cons
   return cudaGetLastError();
 }
 
-// Y (m, k) = A @ B: the slice kernel with Kb sums a lane for k <= 8, else
-// KW lanes along the columns, the smallest power of two >= k up to 32,
-// each taking up to 8 columns past 32 (the grid's y axis covers the rest).
+// Y (m, k) = A @ B: the slice kernel with Kb sums a lane for k <= 8 (on
+// `plan`), else KW lanes along the columns, the smallest power of two >= k
+// up to 32, each taking up to 8 columns past 32 (the grid's y axis covers
+// the rest).
 template <typename T>
 int mm(const void* ptrs, const void* cols, const void* data, const void* perm, const void* B,
-       void* Y, int64_t lanes, int32_t c, int64_t m, int32_t n, int64_t k, int device,
-       void* stream) {
+       void* Y, int64_t lanes, int32_t c, int64_t m, int32_t n, int64_t k, SlicePlan plan,
+       int device, void* stream) {
   if (lanes == 0 || m == 0 || n == 0 || k == 0) return 0;
-  if (c <= 0 || c > kSellBlock) return static_cast<int>(cudaErrorInvalidValue);
+  if (c <= 0 || c > kSellMaxBlock) return static_cast<int>(cudaErrorInvalidValue);
+  if (k <= 8 && !plan_ok(plan, c)) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t nslices = lanes / c;
   return spmm::on_device(device, [&]() -> cudaError_t {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (k <= 1)
-      return launch_slices<T, 1, false, false>(ptrs, cols, data, perm, B, Y, nslices, c, m, n,
-                                               k, device, s);
+      return launch_plan<T, 1, false>(ptrs, cols, data, perm, B, Y, nslices, c, m, n, k, plan, s);
     if (k <= 2)
-      return launch_slices<T, 2, false, false>(ptrs, cols, data, perm, B, Y, nslices, c, m, n,
-                                               k, device, s);
+      return launch_plan<T, 2, false>(ptrs, cols, data, perm, B, Y, nslices, c, m, n, k, plan, s);
     if (k <= 4)
-      return launch_slices<T, 4, false, false>(ptrs, cols, data, perm, B, Y, nslices, c, m, n,
-                                               k, device, s);
+      return launch_plan<T, 4, false>(ptrs, cols, data, perm, B, Y, nslices, c, m, n, k, plan, s);
     if (k <= 8)
-      return launch_slices<T, 8, false, false>(ptrs, cols, data, perm, B, Y, nslices, c, m, n,
-                                               k, device, s);
+      return launch_plan<T, 8, false>(ptrs, cols, data, perm, B, Y, nslices, c, m, n, k, plan, s);
     if (k <= 16) return launch_kw<T, 16, 1>(ptrs, cols, data, perm, B, Y, lanes, c, m, n, k, s);
     if (k <= 32) return launch_kw<T, 32, 1>(ptrs, cols, data, perm, B, Y, lanes, c, m, n, k, s);
     if (k <= 64) return launch_kw<T, 32, 2>(ptrs, cols, data, perm, B, Y, lanes, c, m, n, k, s);
@@ -312,17 +479,21 @@ int mm(const void* ptrs, const void* cols, const void* data, const void* perm, c
 template <typename T>
 int mm_t(const void* ptrs, const void* cols, const void* data, const void* perm,
          const void* X, void* Y, int64_t lanes, int32_t c, int64_t m, int32_t n, int64_t t,
-         int tt, int device, void* stream) {
+         int tt, SlicePlan plan, int device, void* stream) {
   if (lanes == 0 || m == 0 || n == 0 || t == 0) return 0;
-  if (c <= 0 || c > kSellBlock) return static_cast<int>(cudaErrorInvalidValue);
+  if (c <= 0 || c > kSellMaxBlock || !plan_ok(plan, c))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t nslices = lanes / c;
   return spmm::on_device(device, [&]() -> cudaError_t {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (t == 1)  // X (1, n) is B (n, 1), and Y (1, m) is Y (m, 1): sell_spmm's Kb = 1
+      return launch_plan<T, 1, false>(ptrs, cols, data, perm, X, Y, nslices, c, m, n, 1, plan,
+                                      s);
     switch (tt) {
-      case 1: return launch_tile<T, 1>(ptrs, cols, data, perm, X, Y, nslices, c, m, n, t, device, s);
-      case 2: return launch_tile<T, 2>(ptrs, cols, data, perm, X, Y, nslices, c, m, n, t, device, s);
-      case 4: return launch_tile<T, 4>(ptrs, cols, data, perm, X, Y, nslices, c, m, n, t, device, s);
-      case 8: return launch_tile<T, 8>(ptrs, cols, data, perm, X, Y, nslices, c, m, n, t, device, s);
+      case 1: return launch_plan<T, 1, true>(ptrs, cols, data, perm, X, Y, nslices, c, m, n, t, plan, s);
+      case 2: return launch_plan<T, 2, true>(ptrs, cols, data, perm, X, Y, nslices, c, m, n, t, plan, s);
+      case 4: return launch_plan<T, 4, true>(ptrs, cols, data, perm, X, Y, nslices, c, m, n, t, plan, s);
+      case 8: return launch_plan<T, 8, true>(ptrs, cols, data, perm, X, Y, nslices, c, m, n, t, plan, s);
       default: return cudaErrorInvalidValue;
     }
   });
@@ -418,7 +589,7 @@ int mm_rows(const void* ptrs, const void* cols, const void* data, const void* pe
             int64_t lanes, int32_t c, int64_t m, int32_t n, int64_t t, int knob, int device,
             void* stream) {
   if (lanes == 0 || m == 0 || n == 0 || t == 0) return 0;
-  if (c <= 0 || c > kSellBlock) return static_cast<int>(cudaErrorInvalidValue);
+  if (c <= 0 || c > kSellMaxBlock) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t nslices = lanes / c;
   if (nslices > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int err = repack<T>(ptrs, cols, data, pc, pd, nslices, c, device, stream);
@@ -439,31 +610,53 @@ extern "C" {
 // Each entry point launches on `stream` without synchronising and returns
 // cudaGetLastError() (0 on success). `lanes` = nslices * c = len(perm)
 // (c at most 1024).
-// sell_spmm: B is (n, k) row-major, Y (m, k).
+// sell_spmm: B is (n, k) row-major, Y (m, k). For k <= 8 the slice
+// kernel runs the plan kernels/sell_spmm.py::slice_plan made: `threads` a
+// block, `stage` (0 or 1) the rhs staged in shared memory, `split` blocks a
+// cluster a slice, `per` slices a block; unread for k > 8.
 int sell_spmm_f32(const void* ptrs, const void* cols, const void* data, const void* perm,
                   const void* B, void* Y, int64_t lanes, int32_t c, int64_t m, int32_t n,
-                  int64_t k, int device, void* stream) {
-  return mm<float>(ptrs, cols, data, perm, B, Y, lanes, c, m, n, k, device, stream);
+                  int64_t k, int threads, int stage, int split, int64_t per, int device,
+                  void* stream) {
+  return mm<float>(ptrs, cols, data, perm, B, Y, lanes, c, m, n, k,
+                   SlicePlan{threads, stage, split, per}, device, stream);
 }
 
 int sell_spmm_bf16(const void* ptrs, const void* cols, const void* data, const void* perm,
                    const void* B, void* Y, int64_t lanes, int32_t c, int64_t m, int32_t n,
-                   int64_t k, int device, void* stream) {
-  return mm<__nv_bfloat16>(ptrs, cols, data, perm, B, Y, lanes, c, m, n, k, device, stream);
+                   int64_t k, int threads, int stage, int split, int64_t per, int device,
+                   void* stream) {
+  return mm<__nv_bfloat16>(ptrs, cols, data, perm, B, Y, lanes, c, m, n, k,
+                           SlicePlan{threads, stage, split, per}, device, stream);
 }
 
-// sell_spmm_t: X is (t, n), Y (t, m); token tiles of `tt` (1, 2, 4 or 8).
+// sell_spmm_t: X is (t, n), Y (t, m); token tiles of `tt` (1, 2, 4 or 8),
+// the slice kernel on a plan as for sell_spmm.
 int sell_spmm_t_f32(const void* ptrs, const void* cols, const void* data, const void* perm,
                     const void* X, void* Y, int64_t lanes, int32_t c, int64_t m, int32_t n,
-                    int64_t t, int tt, int device, void* stream) {
-  return mm_t<float>(ptrs, cols, data, perm, X, Y, lanes, c, m, n, t, tt, device, stream);
+                    int64_t t, int tt, int threads, int stage, int split, int64_t per,
+                    int device, void* stream) {
+  return mm_t<float>(ptrs, cols, data, perm, X, Y, lanes, c, m, n, t, tt,
+                     SlicePlan{threads, stage, split, per}, device, stream);
 }
 
 int sell_spmm_t_bf16(const void* ptrs, const void* cols, const void* data, const void* perm,
                      const void* X, void* Y, int64_t lanes, int32_t c, int64_t m, int32_t n,
-                     int64_t t, int tt, int device, void* stream) {
-  return mm_t<__nv_bfloat16>(ptrs, cols, data, perm, X, Y, lanes, c, m, n, t, tt, device,
-                             stream);
+                     int64_t t, int tt, int threads, int stage, int split, int64_t per,
+                     int device, void* stream) {
+  return mm_t<__nv_bfloat16>(ptrs, cols, data, perm, X, Y, lanes, c, m, n, t, tt,
+                             SlicePlan{threads, stage, split, per}, device, stream);
+}
+
+// What slice_plan reads of the card: out[0] its SMs, out[1] the opt-in
+// shared memory a block, out[2] the shared memory an SM.
+int sell_spmm_limits(int device, int* out) {
+  cudaError_t err = cudaDeviceGetAttribute(out, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(out + 1, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(out + 2, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+  return static_cast<int>(err);
 }
 
 // sell_spmm_t on the token-major schedule: token tiles of `xt` (32, 64 or

@@ -707,6 +707,13 @@ def _xt_sell(rng, layout, n, c, sigma, dt, dev, m=301):
     lens = rng.integers(0, 80, m)
     lens[::7] = 0
     lens[5], lens[11] = 2 * n + 3, 33
+    return _sell_of_lens(rng, lens, layout, n, c, sigma, dt, dev), m
+
+
+def _sell_of_lens(rng, lens, layout, n, c, sigma, dt, dev):
+    """SELL-C-sigma of rows of ``lens`` entries each in ``layout`` column
+    order, as ``_xt_sell`` describes; returns (ptrs, cols, data, perm)."""
+    m = len(lens)
     rows = [(_row_cols(rng, layout, int(ln), n).astype(np.int32),
              rng.standard_normal(int(ln)).astype(np.float32)) for ln in lens]
     nslices = -(-m // c)
@@ -727,7 +734,7 @@ def _xt_sell(rng, layout, n, c, sigma, dt, dev, m=301):
         else:
             vals[ptrs[s] + lane:ptrs[s + 1]:c] = np.nan
     return [torch.from_numpy(ptrs).to(dev), torch.from_numpy(cols).to(dev),
-            torch.from_numpy(vals).to(dev, dt), torch.from_numpy(perm).to(dev)], m
+            torch.from_numpy(vals).to(dev, dt), torch.from_numpy(perm).to(dev)]
 
 
 @pytest.mark.parametrize("dtype_name", sorted(DTYPES))
@@ -1037,6 +1044,61 @@ def test_sell_spmm_kernel_matches_plain(card, dtype_name, c, sigma):
         y2 = ksm.sell_spmm(*args, B, m, c)
         assert ksm.launches == before + 2
         _same(y1, y2, sell_spmm_ref(*args, B, m, c), dtype_name)
+
+
+# The slice schedule (sell_spmm for Kb <= 8, sell_spmm_t at xt = 0) on each
+# kind of plan (kernels/sell_spmm.py::slice_plan): a slice-starved matrix of
+# long rows (3 slices: split over a cluster of 4), a rhs too wide to stage
+# at any width (gathered through L1), and ragged slices of C in {32, 8, 5}
+# (staged). Columns run past both edges (clamped), ghost lanes hold NaN,
+# every seventh row is empty.
+SLICE_WIDTHS = (1, 2, 3, 8, 20)
+# name: (m, n, row lengths [lo, hi), c, sigma, (the plan's stage at width 1,
+# its split at every width)); wider tiles of the small cases are not staged
+# where the blocks' copies would outweigh the weight.
+SLICE_CASES = {
+    "starved": (90, 6000, (2000, 5000), 32, 96, (True, 4)),
+    "wide": (301, 131072, (0, 200), 32, 256, (False, None)),
+    "c32": (301, 900, (0, 600), 32, 256, (True, None)),
+    "c8": (301, 900, (0, 600), 8, 16, (True, None)),
+    "c5": (301, 900, (0, 600), 5, 5, (True, None)),
+}
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(SLICE_CASES))
+def test_slice_schedule_matches_plain_on_every_plan(card, dtype_name, case):
+    m, n, (lo, hi), c, sigma, (stage, split) = SLICE_CASES[case]
+    rng = np.random.default_rng(61)
+    dt = DTYPES[dtype_name]
+    lens = rng.integers(lo, hi, m)
+    lens[::7] = 0
+    args = _sell_of_lens(rng, lens, "unsorted", n, c, sigma, dt, card)
+    assert int(args[3].max()) == m  # the case has ghost lanes
+    absargs = (args[0], args[1], args[2].abs(), args[3])
+    for w in SLICE_WIDTHS:
+        X = _rand(rng, (w, n), dt, card)
+        B = X.T.contiguous()
+        for fn, ref, rhs, count in ((ksm.sell_spmm_t, sell_spmm_t_ref, X, "launches_t"),
+                                    (ksm.sell_spmm, sell_spmm_ref, B, "launches")):
+            slice_kernel = fn is ksm.sell_spmm_t or w <= ksm.SLICE_MAX_TOKENS
+            ksm.last_plan = None
+            before = getattr(ksm, count)
+            y1, y2 = fn(*args, rhs, m, c), fn(*args, rhs, m, c)
+            torch.cuda.synchronize()
+            assert getattr(ksm, count) == before + 2
+            plan = ksm.last_plan
+            assert (plan is not None) == slice_kernel, (w, fn)
+            if slice_kernel:
+                assert w > 1 or plan.stage == stage, plan
+                assert split is None or plan.split == split, (w, plan)
+            y_p = ref(*args, rhs, m, c)
+            scale = ref(*absargs, rhs.abs(), m, c)
+            assert y1.shape == y_p.shape and y1.dtype == dt and bool(torch.isfinite(y1).all())
+            assert _spmm_reading(y1, y_p, scale, dtype_name) <= 1.0, (w, fn)
+            assert torch.equal(y1, y2)  # one summation order: bitwise stable
+            rows = y1[::7] if fn is ksm.sell_spmm else y1[:, ::7]
+            assert not bool(rows.any())  # empty rows write zeros
 
 
 @pytest.mark.parametrize("dtype_name", sorted(DTYPES))

@@ -886,11 +886,13 @@ _SIGNATURES = {
     ("sell_spmm", "sell_spmm_f32", "_fn"): [
         "const void* ptrs", "const void* cols", "const void* data", "const void* perm",
         "const void* b", "void* y", "int64_t lanes", "int32_t c", "int64_t m", "int32_t n",
-        "int64_t k", "int device", "void* stream"],
+        "int64_t k", "int threads", "int stage", "int split", "int64_t per", "int device",
+        "void* stream"],
     ("sell_spmm", "sell_spmm_t_f32", "_fn_t"): [
         "const void* ptrs", "const void* cols", "const void* data", "const void* perm",
         "const void* x", "void* y", "int64_t lanes", "int32_t c", "int64_t m", "int32_t n",
-        "int64_t t", "int tt", "int device", "void* stream"],
+        "int64_t t", "int tt", "int threads", "int stage", "int split", "int64_t per",
+        "int device", "void* stream"],
     ("sell_spmm", "sell_spmm_xt_f32", "_fn_xt"): [
         "const void* ptrs", "const void* cols", "const void* data", "const void* perm",
         "const void* x", "void* xt_scratch", "void* pcols", "void* pdata", "void* y",
