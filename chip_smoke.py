@@ -55,7 +55,14 @@ Phases, in order (any failure exits nonzero and prints no result line):
    switches, {16, 32, 64}, on the up weight; bfloat16 {64, 128, 256} for
    tc) and the tile, and
    for csr_spmm and sell_spmm a density sweep at width 256 (the up weight
-   pruned on the card to 0.05 and 0.01, checked and timed in turns);
+   pruned on the card to 0.05 and 0.01, checked and timed in turns); then
+   solver_vec, the solvers' loop kernels (dot, update, direction, finish)
+   on 104^3-long vectors against their plain versions in f32 and f64
+   (SV_REL * sum|terms|) and in bf16 against an f64 evaluation of the same
+   formula (SV_BF16_REL), an inactive iteration writing nothing, 20 reruns
+   bitwise, and one CG iteration's vector work timed in a captured graph
+   with L2 flushed before each replay, beside its HBM bound and the plain
+   sequence;
 3. reference check: the port's solve at 16^3 on the card (CUDA kernels)
    against the same solve on the CPU (plain torch path), in every format,
    MG-PCG (uniform CSR levels, and the ml picks) and the distributed solve
@@ -63,12 +70,23 @@ Phases, in order (any failure exits nonzero and prints no result line):
 4. main paths at HPCG's default 104^3 grid, each driven with the launch
    counts set to 0 just before and read just after:
    a. generate_problem -> to_coo on the card -> DynamicMatrix.auto(A, "ml")
-      (must pick DIA) -> cg(operator(A)); then activate(CSR) -> cg;
+      (must pick DIA) -> cg(operator(A)); then activate(CSR) -> cg; after
+      the counted run, the host syncs of a solve under
+      set_sync_debug_mode("warn") (ceil(iters / K), none in
+      cg_fixed_iters) and ms an iteration of the captured block by the
+      host clock, device-queued and by the profiler (solver_vec's share
+      of it too);
    b. FormatPolicy("profile") over DEFAULT_CANDIDATES (every candidate
       timed through its kernel), the ml pick beside it, cg in the pick;
    c. cg in ELL, SELL, HYB (k=18) and BSR (block_size=8), then one SpMV of
       SELL, HYB and BSR under ``torch.cuda.set_sync_debug_mode("error")``.
-   Each solve's kernel launches must equal the SpMVs it issued.
+   Each solve's kernel launches must equal the SpMVs the device ran. The
+   solvers capture their loop (K iterations a block, the first block
+   eager) and add a captured graph's launches to the kernels' counts at
+   each replay; a counting closure runs in the eager block and once at
+   capture, and ``loop_counts`` checks the counts against the device's
+   calls (every replay runs the captured calls), with at most K - 1 masked
+   iterations past convergence counted apart.
    d. sparse-weight serving at minitron-8b MLP width: LinearSparse.from_dense
       with the ml pick and with the profile pick at ncols 1 and 256 (every
       candidate's time printed), layer(x) and down(up(x)) at T = 1 and 256
@@ -100,8 +118,9 @@ Phases, in order (any failure exits nonzero and prints no result line):
       card (the solve without float32 rounding); Jacobi-PCG for scale; ms per V-cycle by the host
       clock, by CUDA events around the run, and by CUDA events with the
       launches queued behind a spin kernel (the host's share), with the
-      profiler's kernel sum; one V-cycle under
-      ``set_sync_debug_mode("error")`` and bitwise equal to the one before;
+      profiler's kernel sum; the captured MG-PCG block's ms an iteration;
+      one V-cycle under ``set_sync_debug_mode("error")`` and bitwise equal
+      to the one before;
       the CSR, SELL and DIA kernels on the hierarchies' color blocks
       (padding rows, x longer than the block) against their plain versions.
       The card's float32 crossings of 1e-3 ... 1e-7, and the float64 solve's,
@@ -127,7 +146,8 @@ Phases, in order (any failure exits nonzero and prints no result line):
       level's color blocks 0 and 7, the P = 8 boundary parts of shards 0
       and 4) against their bounds, the library call and each other, the
       plain COO SpMV three ways (atomic adds, a sort a call, the kept row
-      order), the build's phases.
+      order), the build's phases; the captured blocks' ms an iteration of
+      P = 8 uniform CG and P = 4 MG-PCG.
    h. observability (``repro_torch.obs``) at 104^3, after path (e) and on
       its store: (h1) under tracing("full") with the ledger on, the ml pick
       (DIA), CG with backend='auto', a P = 8 Multi-Format build and a
@@ -254,12 +274,17 @@ pass over one training step each of (k1) and (k4) (``profile_training``).
 ``python3 chip_smoke.py --spmm-phase [TREE]`` runs only the build and the
 SpMM kernel phase, of this checkout or of the checkout at TREE (its own
 ``chip_smoke.py`` and ``src/``), so that two trees are read in turns on one
-card (``spmm_phase``).
+card (``spmm_phase``). ``python3 chip_smoke.py --solver-phase [TREE]``
+runs only paths (a), (f) and (g)'s solves at 104^3 with TREE's
+``repro_torch``, ms an iteration by the host clock (and the captured
+block's readings where TREE's solvers capture), for turns of two trees
+(``solver_phase``).
 
 The last three lines of standard output are the kernels' JSON record (all
-eleven kernels, launches summed over paths (a)-(l), and each kernel's
-launches on its token-major and dense-tile schedules), the ``nvidia-smi``
-name/power-limit line, and ``{"ok": true, "device": ...}``.
+eleven kernels and solver_vec, launches summed over paths (a)-(l), and
+each kernel's launches on its token-major and dense-tile schedules; a
+launch captured into a CUDA graph counts at each replay), the
+``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
@@ -328,6 +353,7 @@ def peaks_for(name: str):
     raise SmokeFailure(f"no data-sheet peaks for card {name!r}")
 
 
+SMI = [""]  # the nvidia-smi name and power-limit line, once main() has read it
 WARMUP_S = 0.2  # launch-and-sync this long before timing, so clocks settle
 
 
@@ -925,10 +951,11 @@ def true_residual(torch, A, b, x) -> float:
 
 def solve_counted(torch, M, b, A, label, kernels):
     """cg(operator(M)) with every SpMV counted; each of the format's kernels
-    must launch once per SpMV issued. The true residual b - A x is taken in
-    float64 from the COO matrix ``A``."""
+    must launch once per SpMV the device ran (loop_counts). The true
+    residual b - A x is taken in float64 from the COO matrix ``A``."""
     from repro_torch.core.solvers import cg, operator
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import solver_vec as sv
 
     apply_A = operator(M)
     nspmv = 0
@@ -938,7 +965,7 @@ def solve_counted(torch, M, b, A, label, kernels):
         nspmv += 1
         return apply_A(v)
 
-    before = kops.launch_counts()
+    before, sv_before = kops.launch_counts(), sum(sv.launches.values())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = cg(counted, b, tol=CG_TOL, maxiter=CG_MAXITER)
@@ -946,6 +973,7 @@ def solve_counted(torch, M, b, A, label, kernels):
     dt = time.perf_counter() - t0
     after = kops.launch_counts()
     launched = {k: after[k] - before[k] for k in kernels}
+    sv_launched = sum(sv.launches.values()) - sv_before
     err = float((res.x - 1.0).abs().max())
     rel = float(res.resnorm) / float(b.norm())
     rel_true = true_residual(torch, A, b, res.x)
@@ -960,8 +988,10 @@ def solve_counted(torch, M, b, A, label, kernels):
     check(res.iters < CG_MAXITER and rel <= CG_TOL * (1 + 1e-5),
           f"{label}: converged to tol={CG_TOL}")
     check(err < X_TOL, f"{label}: max|x-1| < {X_TOL}")
+    device, _ = loop_counts(label, {"SpMVs": nspmv}, {"SpMVs": 1}, sv_launched)
     for k in kernels:
-        check(launched[k] == nspmv and nspmv > 0, f"{label}: {k} launches == SpMVs issued")
+        check(launched[k] == device["SpMVs"] and nspmv > 0,
+              f"{label}: {k} launches {launched[k]} == the SpMVs the device ran")
     return res, dt
 
 
@@ -969,23 +999,30 @@ def read_path(torch, label, expect):
     """Launch counts of one path (set to 0 before it); every kernel the path
     runs must have launched."""
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import solver_vec as sv
     counts = kops.launch_counts()
     scheds = kops.schedule_counts()
-    print(f"  launches over path {label}: {counts}; by schedule {scheds}; peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    svc = sv.launch_counts()
+    print(f"  launches over path {label}: {counts}; by schedule {scheds}; solver_vec {svc} "
+          f"(a captured graph's launches count at each replay); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     for name in expect:
-        check(counts[name] > 0, f"{name} launched on path {label} ({counts[name]})")
-    return dict(counts, **scheds)
+        got = sum(svc.values()) if name == "solver_vec" else counts[name]
+        check(got > 0, f"{name} launched on path {label} ({got})")
+    return dict(counts, **scheds, solver_vec=sum(svc.values()))
 
 
 def start_path(torch):
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import solver_vec as sv
     kops.reset_launches()
+    sv.reset_launches()
     torch.cuda.reset_peak_memory_stats()
 
 
 def phase_main(torch, prob, t_gen):
     from repro_torch.core import hpcg
+    from repro_torch.core import solvers
     from repro_torch.core.dynamic import DynamicMatrix
     from repro_torch.core.formats import Format
     from repro_torch.core.solvers import cg, cg_fixed_iters, operator
@@ -1005,8 +1042,8 @@ def phase_main(torch, prob, t_gen):
           f"to_coo+rhs {t_coo:.2f} s, ml pick + plan + convert {t_auto:.2f} s")
     check(M.active == Format.DIA, f"ml pick is {M.active.name} (DIA expected)")
     res, dt = solve_counted(torch, M, b, A, "cg DIA", KERNELS_OF["DIA"])
-    # the spread of the host-clocked solve, then the same iterations
-    # without the per-iteration convergence sync, each three times
+    # the spread of the host-clocked solve, then the same iterations with
+    # no convergence test (no flag read), each three times
     for name, solve in (("cg", lambda: cg(operator(M), b, tol=CG_TOL, maxiter=CG_MAXITER)),
                         ("cg_fixed_iters", lambda: cg_fixed_iters(operator(M), b,
                                                                   iters=res.iters))):
@@ -1019,14 +1056,31 @@ def phase_main(torch, prob, t_gen):
             per_iter.append((time.perf_counter() - t0) * 1e3 / max(res.iters, 1))
         print(f"  {name} DIA repeated ({res.iters} iters): "
               f"{', '.join(f'{t:.4f}' for t in per_iter)} ms/iter", flush=True)
-    del M
     t0 = time.perf_counter()
     C = DynamicMatrix(A).activate(Format.CSR)
     torch.cuda.synchronize()
     print(f"  activate(CSR) {time.perf_counter() - t0:.2f} s")
     solve_counted(torch, C, b, A, "cg CSR", KERNELS_OF["CSR"])
     del C
-    counts = read_path(torch, "(a)", ("dia_spmv", "csr_spmv"))
+    counts = read_path(torch, "(a)", ("dia_spmv", "csr_spmv", "solver_vec"))
+    # outside the counted run: host syncs a solve, ms an iteration
+    res_s, where = _sync_count(torch, lambda: cg(operator(M), b, tol=CG_TOL,
+                                                 maxiter=CG_MAXITER))
+    loop = solvers.last_loop
+    want = -(-res.iters // loop.k_block)
+    _, where_fixed = _sync_count(torch, lambda: cg_fixed_iters(operator(M), b, iters=res.iters))
+    nsync, nsync_fixed = sum(where.values()), sum(where_fixed.values())
+    print(f"  host syncs under set_sync_debug_mode('warn'): cg DIA {nsync} a solve "
+          f"({res_s.iters} iterations, K = {loop.k_block}: ceil(iters / K) = {want}; "
+          f"{loop}; by line {dict(where)}), cg_fixed_iters {nsync_fixed} "
+          f"{dict(where_fixed)}", flush=True)
+    k_block = loop.k_block
+    check(want <= nsync <= want + 2 and res_s.iters == res.iters,
+          f"cg DIA syncs with the host {nsync} times: once a block of {k_block} "
+          f"iterations ({want}) and at most 2 before the loop")
+    check(nsync_fixed == 0, "cg_fixed_iters never syncs with the host")
+    SV_IN_PATH.update(loop_readings(torch, "path (a) cg DIA", operator(M), b))
+    del M
     return A, b, counts, (res.iters, dt)
 
 
@@ -1096,6 +1150,383 @@ def phase_new_formats(torch, A, b):
 
 
 # ---------------------------------------------------------------------------
+# The solvers' loop on the card: solver_vec's kernels and the captured block
+# ---------------------------------------------------------------------------
+
+SV_N = GRID[0] * GRID[1] * GRID[2]  # path (a)'s vector length
+# f32 and f64, kernel vs plain: |got - want| <= SV_REL[dtype] * sum|terms|
+# of each output (the products of a dot; |x| + |alpha p| of an update): the
+# two sum or round in other orders (FMA against a multiply then an add).
+SV_REL = {"float32": 1e-5, "float64": 1e-12}
+# bf16, kernel vs an f64 evaluation of the same formula (alpha and beta as
+# f32 scalars, the vectors in f64): a vector output may differ from the
+# exact value by the one rounding to bf16 that the formula allows,
+# |bf16(exact) - exact|, and beyond that by at most SV_BF16_REL * sum|terms|;
+# a sum (f32 in the kernel) by SV_REL["float32"] * sum|terms|. The plain
+# version, which rounds to bf16 after each op, is read against the same
+# evaluation and not held to it.
+SV_BF16_REL = 2.0 ** -8
+SV_RERUNS = 20  # reruns of the kernel sequence that must be bitwise the first
+SV_DTYPES = ("float32", "bfloat16", "float64")
+LOOP_REPLAYS = 20  # replays a per-iteration reading
+L2_FLUSH_BYTES = 256 << 20  # read before each cold call: 5x an H100's 50 MB of L2
+# csrc/solver_vec.cu's kernels, by the profiler's names (an anonymous namespace)
+SV_KERNEL_NAMES = tuple(f"{pre}{k}_kernel{post}" for k in ("dot", "update", "direction", "finish")
+                        for pre, post in (("namespace)::", "<"), ("", "I")))  # or mangled
+SV_IN_PATH = {}  # path (a)'s loop_readings: solver_vec's kernels an iteration, in the path
+
+
+def _sv_inputs(torch, dtype):
+    """CG-like vectors of length SV_N (p . Ap > 0) and loop state."""
+    from repro_torch.kernels import solver_vec as sv
+    g = torch.Generator("cuda").manual_seed(SEED)
+    x, r, p, noise, z = (torch.randn(SV_N, generator=g, device="cuda", dtype=torch.float64)
+                         for _ in range(5))
+    ap = 2.0 * p + 0.5 * noise
+    z = 0.5 * r + 0.1 * z
+    acc = sv.acc_dtype(dtype)
+    sc = torch.tensor([float(r @ r), float(r @ z), 1e-12], dtype=acc, device="cuda")
+    st = torch.tensor([3, 1], dtype=torch.int64, device="cuda")
+    return [t.to(dtype) for t in (x, r, p, ap, z)], sc, st
+
+
+def _bits(t):
+    """``t`` as integers of its width: torch.equal on these is bitwise (NaN too)."""
+    if not t.is_floating_point():
+        return t
+    import torch
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def _sv_reading(torch, got, want, terms, dname):
+    """max |got - want| / (SV_REL * terms): at most 1 passes."""
+    lim = SV_REL[dname] * terms.double()
+    return float(((got.double() - want.double()).abs() / lim.clamp_min(1e-300)).max())
+
+
+def _sv_exact(torch, ins, sc, r_new):
+    """The f64 evaluation of one PCG iteration's vector work on ``ins`` = (x,
+    r, p, Ap, z) and the scalars ``sc``, with alpha and beta rounded to f32
+    as the kernels hold them; rr and r . z are summed over ``r_new``, the
+    r that is being checked. name -> (exact value, sum|terms|, whether the
+    output is rounded to the vectors' dtype)."""
+    def f32(v):
+        return float(torch.tensor(float(v), dtype=torch.float32))
+    x, r, p, ap, z = (t.double() for t in ins)
+    rn = r_new.double()
+    pap, rr, rz = float(p @ ap), float(rn @ rn), float(rn @ z)
+    alpha = f32(f32(sc[1]) / f32(pap))
+    beta = f32(f32(rz) / f32(sc[1]))
+    one = torch.ones((), dtype=torch.float64, device=x.device)
+    return {"dot p.Ap": (pap * one, (p * ap).abs().sum(), False),
+            "update x": (x + alpha * p, x.abs() + abs(alpha) * p.abs(), True),
+            "update r": (r - alpha * ap, r.abs() + abs(alpha) * ap.abs(), True),
+            "direction p": (z + beta * p, z.abs() + abs(beta) * p.abs(), True),
+            "finish rr": (rr * one, (rn * rn).sum(), False),
+            "finish rz": (rz * one, (rn * z).abs().sum(), False),
+            "finish history": (math.sqrt(f32(rr)) * one, math.sqrt(rr) * one, True)}
+
+
+def _sv_bf16_reading(torch, got, exact, terms, rounded):
+    """Against the f64 evaluation: max of (|got - exact| - |bf16(exact) -
+    exact|) / (SV_BF16_REL * terms) for an output rounded to bf16, of |got -
+    exact| / (SV_REL f32 * terms) for an f32 sum. At most 1 passes."""
+    err = (got.double() - exact).abs()
+    if rounded:
+        err = err - (exact.to(torch.bfloat16).double() - exact).abs()
+    lim = (SV_BF16_REL if rounded else SV_REL["float32"]) * terms.double()
+    return float((err / lim.clamp_min(1e-300)).max())
+
+
+def cold_ms(torch, fn, iters: int):
+    """``fn`` with the L2 cache flushed before each call (a read of
+    L2_FLUSH_BYTES): (the median ms of ``iters`` calls by CUDA events, the
+    flush queued ahead of the start event so that the device is busy while
+    the host queues the call; the ms a call of solver_vec's kernels take on
+    the device, by the profiler, the flush's kernel left out)."""
+    buf = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
+    for _ in range(3):
+        fn()
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(iters)]
+    for s, e in ev:
+        buf.sum()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    _, dev = device_ms(torch, lambda: (buf.sum(), fn()), match=SV_KERNEL_NAMES)
+    return statistics.median(s.elapsed_time(e) for s, e in ev), dev
+
+
+def phase_solver_vec(torch, np, peak_bw):
+    """solver_vec's kernels (dot, update, direction, finish) against their
+    plain versions on SV_N-long vectors in f32 and f64 (SV_REL), and in bf16
+    against an f64 evaluation of the same formula (SV_BF16_REL), the plain
+    version read beside them; an inactive iteration leaving every state
+    tensor's bits, SV_RERUNS reruns bitwise; then the f32 times of one CG
+    iteration's vector work (the four kernels captured in a graph as the
+    solver replays them) with the L2 cache flushed before each replay
+    (cold_ms), beside its HBM bound, the same replays with the vectors left
+    in L2, and the plain sequence. Returns the JSON record."""
+    from repro_torch.core.solvers import _capture
+    from repro_torch.kernels import solver_vec as sv
+
+    print(f"== solver_vec kernels on {SV_N}-long vectors (104^3), f32 / bf16 / f64", flush=True)
+    worst, reading = {}, {}
+    for dname in SV_DTYPES:
+        dtype = getattr(torch, dname)
+        ins, sc, st = _sv_inputs(torch, dtype)
+        x, r, p, ap, z = ins
+        hist0 = torch.full((11,), math.nan, dtype=dtype, device="cuda")
+
+        def seq(kernel):
+            """One PCG iteration's vector work on copies: kernel or plain."""
+            xs, rs, ps, scs, sts, hs = x.clone(), r.clone(), p.clone(), sc.clone(), st.clone(), \
+                hist0.clone()
+            if kernel:
+                pap = sv.dot(ps, ap)
+                rr = sv.update(xs, rs, ps, ap, pap, scs, sts)
+                rz = sv.dot(rs, z)
+                sv.direction(ps, z, rz, scs, sts)
+                sv.finish(rr, rz, scs, sts, hs, 10)
+            else:
+                pap = sv.dot_plain(ps, ap)
+                rr = sv.update_plain(xs, rs, ps, ap, pap, scs, sts)
+                rz = sv.dot_plain(rs, z)
+                sv.direction_plain(ps, z, rz, scs, sts)
+                sv.finish_plain(rr, rz, scs, sts, hs, 10, False)
+            return pap, xs, rs, ps, scs, sts, hs
+
+        def outputs(out):
+            return {"dot p.Ap": out[0].double().sum(), "update x": out[1], "update r": out[2],
+                    "direction p": out[3], "finish rr": out[4][0], "finish rz": out[4][1],
+                    "finish history": out[6][4]}
+
+        k_out, p_out = seq(True), seq(False)
+        if dname == "bfloat16":
+            ex = _sv_exact(torch, ins, sc, k_out[2])
+            ex_p = _sv_exact(torch, ins, sc, p_out[2])
+            readings = {k: _sv_bf16_reading(torch, v, *ex[k]) for k, v in outputs(k_out).items()}
+            plain = {k: _sv_bf16_reading(torch, v, *ex_p[k]) for k, v in outputs(p_out).items()}
+            what = (f"beyond one rounding to bf16, of the limit {SV_BF16_REL:.3g} * sum|terms| "
+                    f"({SV_REL['float32']:.3g} for the f32 sums), against an f64 evaluation")
+        else:
+            a64 = [t.double() for t in ins]
+            pap_p = p_out[0].sum()
+            alpha = float(sc[1]) / float(pap_p)
+            beta = float(p_out[4][1]) / float(sc[1])
+            rr_terms = p_out[2].double().pow(2).sum()
+            terms = {"dot p.Ap": (a64[2] * a64[3]).abs().sum(),
+                     "update x": a64[0].abs() + abs(alpha) * a64[2].abs(),
+                     "update r": a64[1].abs() + abs(alpha) * a64[3].abs(),
+                     "direction p": a64[4].abs() + abs(beta) * a64[2].abs(),
+                     "finish rr": rr_terms,
+                     "finish rz": (p_out[2].double() * a64[4]).abs().sum(),
+                     "finish history": rr_terms.sqrt()}
+            want = outputs(p_out)
+            readings = {k: _sv_reading(torch, v, want[k], terms[k], dname)
+                        for k, v in outputs(k_out).items()}
+            plain = None
+            what = f"of the limit {SV_REL[dname]:.3g} * sum|terms|, against the plain versions"
+        if plain is None:  # |kernel - plain|
+            pairs = list(zip(k_out[1:4], p_out[1:4])) + [(k_out[4][:2], p_out[4][:2])]
+            worst[dname] = max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+        else:  # |kernel - the f64 evaluation|
+            worst[dname] = max(float((v.double() - ex[k][0]).abs().max())
+                               for k, v in outputs(k_out).items())
+        reading[dname] = max(readings.values())
+        print(f"  {dname}: readings ({what}): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in readings.items()), flush=True)
+        if plain is not None:
+            print(f"  {dname}: the plain versions' readings against the same evaluation (not "
+                  f"checked): " + ", ".join(f"{k} {v:.3e}" for k, v in plain.items()),
+                  flush=True)
+        check(all(v <= 1.0 for v in readings.values()) and all(
+            bool(torch.isfinite(t).all()) for t in k_out[1:4]),
+            f"solver_vec {dname}: dot, update, direction, finish within their limits ({what})")
+        check(torch.equal(k_out[5], p_out[5]) and k_out[5].tolist() == [4, 1],
+              f"solver_vec {dname}: finish's k and flag {k_out[5].tolist()} == plain's")
+        reruns = [seq(True) for _ in range(SV_RERUNS)]
+        check(all(all(torch.equal(_bits(a), _bits(b)) for a, b in zip(run, k_out))
+                  for run in reruns),
+              f"solver_vec {dname}: {SV_RERUNS} reruns bitwise the first")
+        # the flag off: nothing is written
+        xs, rs, ps, scs, hs = x.clone(), r.clone(), p.clone(), sc.clone(), hist0.clone()
+        off = torch.tensor([3, 0], dtype=torch.int64, device="cuda")
+        rr = sv.update(xs, rs, ps, ap, sv.dot(ps, ap), scs, off)
+        sv.direction(ps, z, sv.dot(rs, z), scs, off)
+        sv.finish(rr, sv.dot(rs, z), scs, off, hs, 10)
+        check(all(torch.equal(_bits(a), _bits(b))
+                  for a, b in ((xs, x), (rs, r), (ps, p), (scs, sc), (hs, hist0)))
+              and off.tolist() == [3, 0], f"solver_vec {dname}: an inactive iteration leaves "
+                                          f"x, r, p, the scalars, k and history bit for bit")
+
+    # f32 times: one CG iteration's vector work (z = r), as the solver runs it.
+    # Cold: on the main path the SpMV between two iterations (~120 MB at
+    # 104^3) evicts these 4.5 MB vectors from L2, so the replays are timed
+    # with L2 flushed; the warm reading (vectors left in L2) beside it.
+    (x, r, p, ap, _), sc, st = _sv_inputs(torch, torch.float32)
+    sc[1] = sc[0]
+    kmax = 1 << 20  # more iterations than the timing runs: the flag stays on
+    hist = torch.full((kmax + 1,), math.nan, device="cuda")
+
+    def cg_vec():
+        rr = sv.update(x, r, p, ap, sv.dot(p, ap), sc, st)
+        sv.direction(p, r, rr, sc, st)
+        sv.finish(rr, None, sc, st, hist, kmax, True)
+
+    def cg_vec_plain():
+        rr = sv.update_plain(x, r, p, ap, sv.dot_plain(p, ap), sc, st)
+        sv.direction_plain(p, r, rr, sc, st)
+        sv.finish_plain(rr, None, sc, st, hist, kmax, True)
+
+    pap = sv.dot(p, ap)
+    one = {"dot": lambda: sv.dot(p, ap), "update": lambda: sv.update(x, r, p, ap, pap, sc, st),
+           "direction": lambda: sv.direction(p, r, pap, sc, st),
+           "finish": lambda: sv.finish(pap, None, sc, st, hist, kmax, True)}
+    es, G = 4, sv.grid(SV_N)
+    nbytes = {"dot": 2 * SV_N * es, "update": 6 * SV_N * es, "direction": 3 * SV_N * es,
+              "finish": 2 * G * 4}
+    line = []
+    for kname, fn in one.items():
+        ms, dev = cold_ms(torch, fn, 100)
+        bound = nbytes[kname] / peak_bw * 1e3
+        line.append(f"{kname} {ms:.4f} events, {dev:.4f} device (bound {bound:.4f}, "
+                    f"{bound / dev if dev else math.nan:.1%})")
+    print("  f32 kernels alone, L2 flushed before each call, ms (CUDA events, median of 100; "
+          "device: profiler): " + "; ".join(line), flush=True)
+    cg_vec()
+    graph = _capture(cg_vec, torch.device("cuda"))
+    ms, cold_dev = cold_ms(torch, graph.replay, 100)
+    warm = time_ms(graph.replay, 100)
+    dev = device_ms(torch, graph.replay)
+    plain_ms = time_ms(cg_vec_plain, 20)
+    lib_ms = time_ms(lambda: torch.dot(p, ap), 100)
+    nb = sum(nbytes.values())
+    bound = nb / peak_bw * 1e3
+    print(f"  one CG iteration's vector work (dot, update, direction, finish; 4 launches) in a "
+          f"captured graph: {ms:.4f} ms with L2 flushed before each replay (CUDA events, median "
+          f"of 100) -> {bound / ms:.1%} of bound, {cold_dev:.4f} ms of kernels (profiler) -> "
+          f"{bound / cold_dev if cold_dev else math.nan:.1%}; bound {bound:.4f} ms ({nb / 1e6:.1f} MB at "
+          f"{peak_bw / 1e12:.2f} TB/s); with the vectors left in L2 (not held to the HBM bound) "
+          f"{warm:.4f} ms events, {dev if dev is None else round(dev, 4)} ms of kernels "
+          f"(profiler); plain sequence {plain_ms:.4f} ms; torch.dot(p, Ap) alone {lib_ms:.4f} ms",
+          flush=True)
+    del graph
+    return {"name": "solver_vec", "route": "cuda", "source": "src/repro_torch/csrc/solver_vec.cu",
+            "replaces": "src/repro/core/solvers.py:96", "launches": 0,
+            "max_abs_err": worst["float32"], "max_abs_err_bf16": worst["bfloat16"],
+            "max_abs_err_f64": worst["float64"], "readings_of_limit": reading,
+            "ms": ms, "device_ms": cold_dev, "warm_ms": warm, "warm_device_ms": dev,
+            "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+
+
+def _sync_count(torch, fn):
+    """fn() under set_sync_debug_mode("warn"): (result, the synchronizing
+    operations it warned of, counted by the source line that made them)."""
+    import collections
+    import warnings
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, collections.Counter(f"{os.path.relpath(m.filename, HERE)}:{m.lineno}"
+                                    for m in w if "synchronizing" in str(m.message)
+                                    and "prototype" not in str(m.message))  # torch's notice
+
+
+def loop_readings(torch, label, apply_A, b, apply_M=None):
+    """ms an iteration of the solver's captured block (never stopping:
+    fixed iterations), the block replayed LOOP_REPLAYS times: by the host
+    clock with the flag read after each replay as cg does, and on the
+    device with the replays queued behind a spin (CUDA events), and the
+    profiler's kernel time a replay."""
+    from repro_torch.core.solvers import _capture, _Loop, block_iters
+    k = block_iters(apply_M is not None)
+    loop = _Loop(apply_A, apply_M, b, None, 0.0, k * (4 * LOOP_REPLAYS + 16), fixed=True)
+
+    def block():
+        for _ in range(k):
+            loop.iteration()
+    block()
+    graph = _capture(block, b.device)
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LOOP_REPLAYS):
+        graph.replay()
+        loop.st.tolist()
+    host = (time.perf_counter() - t0) * 1e3 / (LOOP_REPLAYS * k)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6 * 2.0))
+    e0.record()
+    for _ in range(LOOP_REPLAYS):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    queued = e0.elapsed_time(e1) / (LOOP_REPLAYS * k)
+    dev, vec = device_ms(torch, graph.replay, match=SV_KERNEL_NAMES)
+    dev_s = "not measured (no device events)" if dev is None else \
+        f"{dev / k:.4f}, of them solver_vec's {vec / k:.4f}"
+    print(f"  {label}: ms an iteration of the captured block (K = {k}): host clock "
+          f"{host:.4f} (a flag read a replay), device-queued {queued:.4f} (events), kernels "
+          f"{dev_s} (profiler) [{SMI[0]}]", flush=True)
+    del graph
+    return {"host": host, "queued": queued, "kernels": None if dev is None else dev / k,
+            "solver_vec": None if dev is None else vec / k}
+
+
+def device_calls(setup: int) -> int:
+    """Calls of an ``apply_A`` (or ``apply_M``) closure that the device ran
+    in the last solve: ``setup`` before the loop, then one an iteration
+    issued (``solvers.last_loop``: every block, eager or replayed)."""
+    from repro_torch.core import solvers
+    L = solvers.last_loop
+    return setup + L.k_block * (L.eager + L.replays)
+
+
+def loop_counts(label, py_calls: dict, setup: dict, sv_launched: int):
+    """The counting closures' Python calls -> the device's calls, from
+    ``solvers.last_loop``: a closure runs in Python in the eager block and
+    once at capture, and the device runs the captured calls at every
+    replay. Checks that every block issued K calls of each, that at most
+    K - 1 iterations past convergence ran masked, and that solver_vec's
+    launch count over the solve (``sv_launched``; the solver adds a
+    captured graph's launches at each replay) is what the device ran: a
+    dot a preconditioned residual before the loop (rr; PCG also r . z),
+    then 4 kernels an iteration issued (PCG 5). Returns (device calls by
+    closure, masked iterations)."""
+    from repro_torch.core import solvers
+    L = solvers.last_loop
+    blocks_py = L.eager + int(L.captured)
+    issued = L.k_block * (L.eager + L.replays)
+    masked = issued - L.iters
+    device = {}
+    for name, n in py_calls.items():
+        per_block = (n - setup[name]) / blocks_py
+        check(per_block == L.k_block, f"{label}: {name} runs {L.k_block} times a block "
+                                      f"({n} Python calls, {setup[name]} before the loop)")
+        device[name] = setup[name] + issued
+    check(0 <= masked < L.k_block or (L.iters == 0 and masked == L.k_block),
+          f"{label}: {masked} masked iterations past convergence (< K = {L.k_block})")
+    precond = "M" in py_calls
+    sv_want = (2 if precond else 1) + (5 if precond else 4) * issued
+    check(sv_launched == sv_want, f"{label}: solver_vec launched {sv_launched} kernels == "
+                                  f"{sv_want} the device ran ({issued} iterations issued)")
+    print(f"  {label}: loop of {L.eager} eager block(s) + "
+          f"{'a capture' if L.captured else 'no capture'} replayed {L.replays} times, K = "
+          f"{L.k_block}, {L.syncs} flag reads; on the device: {device} calls "
+          f"({L.iters} iterations active, {masked} masked, whose calls are counted in)",
+          flush=True)
+    return device, masked
+
+
+# ---------------------------------------------------------------------------
 # Path (f): MG-PCG, the multigrid preconditioner on the card
 # ---------------------------------------------------------------------------
 
@@ -1153,9 +1584,11 @@ def print_levels(hier, label, dt):
 def mg_solve_counted(torch, M, b, A, hier, label, cg_iters):
     """pcg(operator(M), apply_M=V-cycle) with every operator SpMV and every
     V-cycle counted; each kernel must launch exactly as often as the
-    hierarchy says those calls issue. Returns (result, seconds)."""
+    hierarchy says those calls issue on the device (loop_counts). Returns
+    (result, seconds)."""
     from repro_torch.core.solvers import operator, pcg
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import solver_vec as sv
 
     apply_A, apply_M = operator(M), hier.apply_M()
     calls = {"A": 0, "M": 0}
@@ -1168,7 +1601,7 @@ def mg_solve_counted(torch, M, b, A, hier, label, cg_iters):
         calls["M"] += 1
         return apply_M(r)
 
-    before = kops.launch_counts()
+    before, sv_before = kops.launch_counts(), sum(sv.launches.values())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = pcg(counted_A, b, tol=CG_TOL, maxiter=CG_MAXITER, apply_M=counted_M)
@@ -1176,13 +1609,8 @@ def mg_solve_counted(torch, M, b, A, hier, label, cg_iters):
     dt = time.perf_counter() - t0
     after = kops.launch_counts()
     launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-    want = {}
-    for name in KERNELS_OF[M.active.name]:
-        want[name] = want.get(name, 0) + calls["A"]
+    sv_launched = sum(sv.launches.values()) - sv_before
     per_cycle = cycle_spmvs(hier)
-    for name, k in per_cycle.items():
-        if name != "total":
-            want[name] = want.get(name, 0) + k * calls["M"]
     err = float((res.x - 1.0).abs().max())
     rel = float(res.resnorm) / float(b.norm())
     rel_true = true_residual(torch, A, b, res.x)
@@ -1196,9 +1624,15 @@ def mg_solve_counted(torch, M, b, A, hier, label, cg_iters):
     check(res.iters < CG_MAXITER and rel <= CG_TOL * (1 + 1e-5),
           f"{label}: converged to tol={CG_TOL}")
     check(err < X_TOL, f"{label}: max|x-1| < {X_TOL}")
-    check(calls["A"] == calls["M"] == res.iters + 1,
-          f"{label}: one operator SpMV and one V-cycle per iteration, plus the first")
-    check(launched == want, f"{label}: launches {launched} == SpMVs issued {want}")
+    device, masked = loop_counts(label, calls, {"A": 1, "M": 1}, sv_launched)
+    check(device["A"] == device["M"] == res.iters + 1 + masked,
+          f"{label}: one operator SpMV and one V-cycle per iteration issued, plus the first")
+    want = dict.fromkeys(KERNELS_OF[M.active.name], device["A"])
+    for name, k in per_cycle.items():
+        if name != "total":
+            want[name] = want.get(name, 0) + k * device["M"]
+    check(launched == want, f"{label}: launches {launched} == the SpMVs the device ran {want} "
+                            f"(calls x launches a call)")
     return res, dt
 
 
@@ -1322,10 +1756,12 @@ def phase_mg(torch, np, prob, A, b, cg_dia):
           f"({res.iters}, {dt * 1e3 / res.iters:.4f} ms/iter); MG-PCG ml {dt_ml * 1e3:.2f} ms "
           f"({res_ml.iters}, {dt_ml * 1e3 / res_ml.iters:.4f} ms/iter); Jacobi-PCG "
           f"{dt_jac * 1e3:.2f} ms ({jac.iters})", flush=True)
-    counts = read_path(torch, "(f)", ("dia_spmv", "csr_spmv"))
+    counts = read_path(torch, "(f)", ("dia_spmv", "csr_spmv", "solver_vec"))
 
-    # the witness without float32 rounding: the same solve in float64
-    # through the plain versions (outside the counted run; no kernel)
+    # the witness without float32 rounding: the same solve in float64, its
+    # SpMVs and V-cycle through the plain versions (outside the counted run;
+    # no SpMV kernel); its loop runs solver_vec's float64 kernels, which
+    # phase_solver_vec holds against their plain versions
     t0 = time.perf_counter()
     A64 = hpcg.to_coo(prob, dtype=torch.float64, device="cuda")
     hier64 = build_hierarchy(prob, fmt=Format.CSR, backend="ref", A=A64)
@@ -1347,7 +1783,10 @@ def phase_mg(torch, np, prob, A, b, cg_dia):
           f"both float32 hierarchies and the float64 solve cross {MG_CROSS} (the last: their "
           f"iteration counts) within one iteration of the JAX package's float64 solve")
 
-    # outside the counted run: the cycle's time, no sync, bitwise reruns
+    # outside the counted run: the loop's and the cycle's time, no sync,
+    # bitwise reruns
+    loop_readings(torch, "path (f) MG-PCG, CSR hierarchy", operator(M), b,
+                  apply_M=hier.apply_M())
     r = b.clone()
     apply_M = hier.apply_M()
     cyc = time_v_cycle(torch, apply_M, r, "V-cycle, CSR")
@@ -1441,9 +1880,10 @@ def print_dist(A, label, dt):
 
 def dist_solve_counted(torch, D, b, A, label, cg_iters):
     """cg(operator(D)) over a DistSparseMatrix with every SpMV counted: each
-    kernel must launch as often as the dist_spmv calls issue it."""
+    kernel must launch as often as the device's dist_spmv calls issue it."""
     from repro_torch.core.solvers import cg, operator
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import solver_vec as sv
 
     apply_A = operator(D)
     calls = [0]
@@ -1452,7 +1892,7 @@ def dist_solve_counted(torch, D, b, A, label, cg_iters):
         calls[0] += 1
         return apply_A(v)
 
-    before = kops.launch_counts()
+    before, sv_before = kops.launch_counts(), sum(sv.launches.values())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = cg(counted, b, tol=CG_TOL, maxiter=CG_MAXITER)
@@ -1460,7 +1900,9 @@ def dist_solve_counted(torch, D, b, A, label, cg_iters):
     dt = time.perf_counter() - t0
     after = kops.launch_counts()
     launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-    want = _times(dist_launches(D), calls[0])
+    device, _ = loop_counts(label, {"dist_spmv": calls[0]}, {"dist_spmv": 1},
+                            sum(sv.launches.values()) - sv_before)
+    want = _times(dist_launches(D), device["dist_spmv"])
     err = float((res.x - 1.0).abs().max())
     rel = float(res.resnorm) / float(b.norm())
     print(f"  {label}: {res.iters} iters (path (a) DIA: {cg_iters}), {dt * 1e3:.2f} ms "
@@ -1473,7 +1915,7 @@ def dist_solve_counted(torch, D, b, A, label, cg_iters):
     check(err < X_TOL, f"{label}: max|x-1| < {X_TOL}")
     check(abs(res.iters - cg_iters) <= DIST_CG_SLACK,
           f"{label}: iterations within {DIST_CG_SLACK} of path (a)'s DIA count {cg_iters}")
-    check(launched == want, f"{label}: launches {launched} == SpMVs issued {want}")
+    check(launched == want, f"{label}: launches {launched} == the SpMVs the device ran {want}")
     return res, dt, want
 
 
@@ -1711,6 +2153,7 @@ def phase_dist(torch, np, prob, A, b, cg_dia, peak_bw):
     from repro_torch.core.ops import spmv
     from repro_torch.core.solvers import operator, pcg
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import solver_vec as sv
     from repro_torch.mg import build_dist_hierarchy
 
     cg_iters, cg_s = cg_dia
@@ -1789,7 +2232,7 @@ def phase_dist(torch, np, prob, A, b, cg_dia, peak_bw):
         calls["M"] += 1
         return apply_M(r)
 
-    before = kops.launch_counts()
+    before, sv_before = kops.launch_counts(), sum(sv.launches.values())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     mg = pcg(counted_A, b, tol=CG_TOL, maxiter=CG_MAXITER, apply_M=counted_M)
@@ -1797,8 +2240,10 @@ def phase_dist(torch, np, prob, A, b, cg_dia, peak_bw):
     dt_mg = time.perf_counter() - t0
     after = kops.launch_counts()
     launched = _merge({k: after[k] - before[k] for k in after})
+    device, masked = loop_counts("dist MG-PCG", calls, {"A": 1, "M": 1},
+                                 sum(sv.launches.values()) - sv_before)
     per_cycle = dist_cycle_launches(hier)
-    want_mg = _merge(_times(dist_launches(A0), calls["A"]), _times(per_cycle, calls["M"]))
+    want_mg = _merge(_times(dist_launches(A0), device["A"]), _times(per_cycle, device["M"]))
     want.append(want_mg)
     err = float((mg.x - 1).abs().max())
     print(f"  dist MG-PCG P={DIST_MG_SHARDS}: {mg.iters} iters (cg {cg_iters}), {dt_mg * 1e3:.2f} ms "
@@ -1807,13 +2252,16 @@ def phase_dist(torch, np, prob, A, b, cg_dia, peak_bw):
           f"{per_cycle}; launches={launched}", flush=True)
     check(mg.iters < cg_iters and err < X_TOL and bool(torch.isfinite(mg.x).all()),
           f"dist MG-PCG converges (max|x-1| < {X_TOL}) in fewer iterations than CG's {cg_iters}")
-    check(calls["A"] == calls["M"] == mg.iters + 1 and launched == want_mg,
-          f"dist MG-PCG: launches {launched} == SpMVs issued {want_mg}")
-    counts = read_path(torch, "(g)", sorted(_merge(*want)))
+    check(device["A"] == device["M"] == mg.iters + 1 + masked and launched == want_mg,
+          f"dist MG-PCG: launches {launched} == the SpMVs the device ran {want_mg}")
+    counts = read_path(torch, "(g)", sorted(_merge(*want)) + ["solver_vec"])
     check({k: counts[k] for k in kops.LAUNCH_COUNTERS if counts[k]} == _merge(*want),
           f"path (g): every launch is an SpMV the path issued ({_merge(*want)})")
 
-    # outside the counted run: the plain versions, kernels on the parts, times
+    # outside the counted run: the plain versions, kernels on the parts,
+    # times. The solve through the plain SpMVs and V-cycle still runs its
+    # loop through solver_vec's kernels (held against their plain versions
+    # in phase_solver_vec)
     t0 = time.perf_counter()
     hier_ref = dataclasses.replace(hier, backend="ref")
     ref = pcg(operator(A0, backend="ref"), b, tol=CG_TOL, maxiter=CG_MAXITER,
@@ -1844,6 +2292,9 @@ def phase_dist(torch, np, prob, A, b, cg_dia, peak_bw):
     # (g4) times
     cyc = time_v_cycle(torch, apply_M, r, f"dist V-cycle, P={DIST_MG_SHARDS} ml")
     Du, Dml = mats["uniform DIA/COO"][0], mats["multiformat ml"][0]
+    loop_readings(torch, f"path (g) dist CG P={P} uniform DIA/COO", operator(Du), b)
+    loop_readings(torch, f"path (g) dist MG-PCG P={DIST_MG_SHARDS} ml", operator(A0), b,
+                  apply_M=apply_M)
     spmv_ms = {}
     for name, fn in (("dia", lambda: spmv(dia, x)), ("uniform", lambda: dist_spmv(Du, x)),
                      ("ml", lambda: dist_spmv(Dml, x)), ("ml ", lambda: dist_spmv(Dml, x)),
@@ -2221,12 +2672,13 @@ def phase_spmm_kernels(torch, np, weights, peak_bw, peak_flops):
 DEVICE_CALLS = 20  # calls device_ms reads
 
 
-def device_ms(torch, fn):
+def device_ms(torch, fn, match=None):
     """Milliseconds a call of ``fn`` keeps the card busy: the durations of
     every kernel that DEVICE_CALLS calls launch (torch.profiler's CUDA
     events), summed, over DEVICE_CALLS; without the gaps the host leaves
     between launches, which a CUDA-event median of a ~50 us call can
-    include. None where the profiler sees no kernel."""
+    include. None where the profiler sees no kernel. With ``match`` (names'
+    substrings) also the part of kernels whose name holds one: a pair."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -2234,8 +2686,12 @@ def device_ms(torch, fn):
         for _ in range(DEVICE_CALLS):
             fn()
         torch.cuda.synchronize()
-    durs = [e.time_range.elapsed_us() for e in prof.events() if e.device_type.name == "CUDA"]
-    return sum(durs) / 1e3 / DEVICE_CALLS if durs else None
+    evs = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    total = sum(e.time_range.elapsed_us() for e in evs) / 1e3 / DEVICE_CALLS if evs else None
+    if match is None:
+        return total
+    part = sum(e.time_range.elapsed_us() for e in evs if any(m in e.name for m in match))
+    return total, part / 1e3 / DEVICE_CALLS
 
 
 def device_readings(torch, np, weights):
@@ -3118,8 +3574,9 @@ def obs_traced_solve(torch, A, b, prob, tmp):
     check(len(routes) <= 1, f"kernel.route records ({len(routes)}) do not exceed the "
                             f"distinct containers routed (1: the DIA matrix)")
     route = routes[0]["route"] if routes else None
-    want = {"dia_spmv": nspmv} if route == "cuda" else {}
-    check(launched == want, f"traced auto CG: route {route}, launches {launched} == {want}")
+    want = {"dia_spmv": device_calls(1)} if route == "cuda" else {}
+    check(launched == want, f"traced auto CG: route {route}, launches {launched} == {want} "
+                            f"(the SpMVs the device ran; {nspmv} calls in Python)")
     phases = {report.phase_of(e["name"]) for e in evs}
     check(PHASES_EXPECTED <= phases, f"the trace's phases {sorted(phases)} hold "
                                      f"{sorted(PHASES_EXPECTED)}")
@@ -3190,8 +3647,8 @@ def obs_overhead(torch, A, b, M, D, prob):
                 torch.cuda.synchronize()
                 times[(mode, led)][key].append((time.perf_counter() - t0) * 1e3 / res.iters)
                 launched = _launched(kops, before).get("dia_spmv", 0)
-                check(launched == nspmv, f"{_mode_name(mode, led)}: {key} launches "
-                                         f"{launched} == SpMVs {nspmv}")
+                check(launched == device_calls(1), f"{_mode_name(mode, led)}: {key} launches "
+                      f"{launched} == the SpMVs the device ran ({nspmv} calls in Python)")
             before = kops.launch_counts()["csr_spmv"]
             host, dev = _host_and_queued_ms(torch, apply_M, r, OBS_CYCLES)
             got = kops.launch_counts()["csr_spmv"] - before
@@ -4783,6 +5240,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
+    SMI[0] = smi
     kind = torch.cuda.get_device_name(0)
     card, (peak_bw, peak_flops) = peaks_for(kind)
     print(f"== device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
@@ -4812,6 +5270,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_token_major(torch, np, weights, records)
     lap("token-major")
+    records["solver_vec"] = phase_solver_vec(torch, np, peak_bw)
+    lap("solver_vec")
     phase_reference(torch)
     A, b, counts_a, cg_dia = phase_main(torch, prob, t_gen)
     counts_b, _ = phase_profile(torch, A, b)
@@ -4855,14 +5315,17 @@ def main() -> int:
     paths = (counts_a, counts_b, counts_c, counts_d, counts_e, counts_f, counts_g, counts_h,
              counts_i, counts_j, counts_k, counts_l)
     for name, rec in records.items():
-        rec["launches"] = sum(c[name] for c in paths)
+        rec["launches"] = sum(c.get(name, 0) for c in paths)
     records["csr_spmv"]["readings"] = CSR_READINGS
+    # solver_vec's four kernels an iteration inside path (a)'s captured block,
+    # where the SpMV between iterations leaves L2 cold (profiler)
+    records["solver_vec"]["in_path_ms"] = SV_IN_PATH.get("solver_vec")
     from repro_torch.kernels import ops as kops
     for sched in kops.SCHEDULE_COUNTERS:  # "kernel:schedule"
         kname, knob = sched.split(":")
         if kname in records:
             records[kname][f"launches_{knob}"] = sum(c[sched] for c in paths)
-    missing = [k for k in kops.LAUNCH_COUNTERS
+    missing = [k for k in (*kops.LAUNCH_COUNTERS, "solver_vec")
                if k not in records or records[k]["launches"] <= 0]
     check(not missing, f"every kernel has a record with launches > 0 (missing: {missing})")
     idle = [f"{k}:{s}" for k in TC_KERNELS for s in ("xt", "tc")
@@ -4973,7 +5436,74 @@ def spmm_phase(argv) -> int:
     return 0
 
 
+def solver_phase(argv) -> int:
+    """``python3 chip_smoke.py --solver-phase [TREE]``: ms an iteration of
+    paths (a) (CG, DIA), (f) (MG-PCG, CSR hierarchy) and (g) (CG, P = 8
+    uniform DIA/COO) at 104^3 by the host clock (whole solves, after a
+    warm one), with TREE's ``repro_torch`` (default: this checkout), so
+    that two trees are read in turns on one card, each in a process of its
+    own; where TREE's solvers capture their loop, also the captured block's
+    device-queued ms an iteration (``loop_readings``). Builds into
+    ``$REPRO_TORCH_BUILD_DIR`` when set (trees with equal sources share a
+    build). Not part of the default run."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke --solver-phase: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    tree = os.path.abspath(argv[0]) if argv else HERE
+    sys.path.insert(0, os.path.join(tree, "src"))
+    import numpy as np
+    from repro_torch import env
+    env.apply("cuda")
+    from repro_torch.core import hpcg, solvers
+    from repro_torch.core.distributed import build_dist_matrix
+    from repro_torch.core.dynamic import DynamicMatrix
+    from repro_torch.core.formats import Format
+    from repro_torch.kernels import _build
+    from repro_torch.mg import build_hierarchy
+    SMI[0] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                             "--format=csv,noheader"], capture_output=True, text=True,
+                            check=True).stdout.strip()
+    captured = hasattr(solvers, "_Loop")
+    t0 = time.perf_counter()
+    _build.build_all([n for n in ("dia_spmv", "csr_spmv", "solver_vec") if n in _build.sources()])
+    print(f"== solver phase of {tree} (loop {'captured' if captured else 'eager'}); build "
+          f"{time.perf_counter() - t0:.1f} s [{SMI[0]}]", flush=True)
+    prob = hpcg.generate_problem(*GRID)
+    A = hpcg.to_coo(prob, device="cuda")
+    b = torch.from_numpy(hpcg.rhs_for_ones(prob)).cuda()
+    M = DynamicMatrix(A).activate(Format.DIA)
+    hier = build_hierarchy(prob, fmt=Format.CSR, A=A)
+    D = build_dist_matrix(prob.row, prob.col, prob.val, prob.shape, DIST_SHARDS, device="cuda",
+                          plan=hpcg.slab_plan(prob, DIST_SHARDS), check_plan=False,
+                          local_format=Format.DIA, remote_format=Format.COO)
+    cases = (("(a) cg DIA", solvers.operator(M), None, 3),
+             ("(f) MG-PCG CSR", solvers.operator(M), hier.apply_M(), 2),
+             (f"(g) cg P={DIST_SHARDS} uniform DIA/COO", solvers.operator(D), None, 2))
+    for label, apply_A, apply_M, reps in cases:
+        def solve():
+            if apply_M is None:
+                return solvers.cg(apply_A, b, tol=CG_TOL, maxiter=CG_MAXITER)
+            return solvers.pcg(apply_A, b, tol=CG_TOL, maxiter=CG_MAXITER, apply_M=apply_M)
+        solve()
+        per_iter = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = solve()
+            torch.cuda.synchronize()
+            per_iter.append((time.perf_counter() - t0) * 1e3 / res.iters)
+        print(f"  {label}: {res.iters} iterations, {', '.join(f'{t:.4f}' for t in per_iter)} "
+              f"ms an iteration (host clock, whole solves) [{SMI[0]}]", flush=True)
+        if captured:
+            loop_readings(torch, label, apply_A, b, apply_M=apply_M)
+    print(SMI[0])
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--spmm-phase"]:
         sys.exit(spmm_phase(sys.argv[2:]))
+    if sys.argv[1:2] == ["--solver-phase"]:
+        sys.exit(solver_phase(sys.argv[2:]))
     sys.exit(profile_training() if sys.argv[1:] == ["--profile-train"] else main())

@@ -119,8 +119,21 @@ def _spmv_coo(A: COO, x):
     return torch.segment_reduce(data * x.index_select(0, cols), "sum", offsets=offsets)
 
 
+# csr_row_ids of each CSR container, made at its first SpMV or SpMM (the
+# searchsorted was most of a reference V-cycle's time); the entry goes with
+# the container, which is immutable, as _COO_ORDER's does.
+_CSR_ROWS: "weakref.WeakKeyDictionary[CSR, torch.Tensor]" = weakref.WeakKeyDictionary()
+
+
+def _csr_rows(A: CSR) -> torch.Tensor:
+    rows = _CSR_ROWS.get(A)
+    if rows is None:
+        rows = _CSR_ROWS[A] = csr_row_ids(A.indptr, A.capacity, A.shape[0])
+    return rows
+
+
 def _spmv_csr(A: CSR, x):
-    rows = csr_row_ids(A.indptr, A.capacity, A.shape[0])
+    rows = _csr_rows(A)
     contrib = A.data * take_clip(x, A.indices)
     return segment_sum(contrib, rows, A.shape[0])
 
@@ -383,7 +396,7 @@ def _spmm_coo(A: COO, B):
 
 
 def _spmm_csr(A: CSR, B):
-    rows = csr_row_ids(A.indptr, A.capacity, A.shape[0])
+    rows = _csr_rows(A)
 
     def part(Bc):
         contrib = A.data[:, None] * take_clip(Bc, A.indices)

@@ -16,6 +16,7 @@ import repro_torch.core.formats as tf
 from repro.core import Format as JFormat
 from torch_parity import (DEV, PATTERNS, assert_same_container, coo_pair, jconv,
                           port_from_jax, tconv)
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 TARGETS = ["COO", "CSR", "DIA", "ELL", "HYB", "SELL", "DENSE", "BSR"]
 PARITY_PATTERNS = ["stencil", "random", "powerlaw"]

@@ -26,6 +26,7 @@ from repro_torch.core.formats import Format, random_coo
 from repro_torch.tuning import (DEFAULT_TREE_PATH, DecisionTree, PatternFeatures,
                                 analytic_select, calibrate_gather_penalty, corpus, engines,
                                 predicted_bytes)
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 BITWISE = ("stencil27", "stencil7", "banded", "powerlaw", "block")
 

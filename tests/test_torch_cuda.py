@@ -1855,3 +1855,170 @@ def test_env_apply_turns_tf32_off_on_the_card(card, monkeypatch):
     assert got["tf32"] == {"matmul": False, "cudnn": False}
     assert got["backend"] == "cuda" and got["cuda_initialized_before"]
     assert env.describe() == got
+
+
+# ---------------------------------------------------------------------------
+# The solvers' loop on the card: captured blocks and solver_vec's kernels
+# ---------------------------------------------------------------------------
+
+
+def _bits(t):
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("n,offset", [(1, 0), (1000, 0), (1000, 1), (600_001, 0)])
+def test_solver_vec_kernels_match_plain(card, dtype_name, n, offset):
+    """dot, update, direction and finish at a length of one, a ragged one,
+    one on an unaligned view (scalar loads) and one above MAX_PARTS blocks.
+    f32 and f64: each output within REL * sum|terms| of the plain version's
+    (chip_smoke.py's SV_REL). bf16: against an f64 evaluation of the same
+    formula (alpha and beta as f32 scalars), a vector output within 2^-8 *
+    sum|terms| beyond the one rounding to bf16 the formula allows, an f32
+    sum within 1e-5 * sum|terms| (chip_smoke.py's SV_BF16_REL). The flag
+    and k equal the plain version's; reruns bitwise."""
+    from repro_torch.kernels import solver_vec as sv
+    dt = getattr(torch, dtype_name)
+    rel = {"float32": 1e-5, "float64": 1e-12}.get(dtype_name)
+    rng = np.random.default_rng(n + offset)
+    x, r, p, noise, z = (torch.from_numpy(rng.standard_normal(n + offset))[offset:].to(card, dt)
+                         for _ in range(5))
+    ap = (p.double() * (2 + 0.1 * noise.double())).to(dt)  # p . Ap > 0
+    z = (0.5 * r.double() + 0.1 * z.double()).to(dt)  # r . z > 0, as an SPD M^-1 gives
+    sc = torch.tensor([float(r.double() @ r.double()), float(r.double() @ z.double()), 1e-12],
+                      dtype=sv.acc_dtype(dt), device=card)
+
+    def run(kernel):
+        xs, rs, ps, scs = x.clone(), r.clone(), p.clone(), sc.clone()
+        st = torch.tensor([0, 1], dtype=torch.int64, device=card)
+        hist = torch.full((4,), float("nan"), dtype=dt, device=card)
+        if kernel:
+            rr = sv.update(xs, rs, ps, ap, sv.dot(ps, ap), scs, st)
+            rz = sv.dot(rs, z)
+            sv.direction(ps, z, rz, scs, st)
+            sv.finish(rr, rz, scs, st, hist, 3)
+        else:
+            rr = sv.update_plain(xs, rs, ps, ap, sv.dot_plain(ps, ap), scs, st)
+            rz = sv.dot_plain(rs, z)
+            sv.direction_plain(ps, z, rz, scs, st)
+            sv.finish_plain(rr, rz, scs, st, hist, 3, False)
+        return xs, rs, ps, scs, st, hist
+
+    got, want = run(True), run(False)
+    torch.cuda.synchronize()
+    d = [t.double() for t in (x, r, p, ap, z)]
+    if rel is None:  # bf16: the f64 evaluation
+        def f32(v):
+            return float(torch.tensor(float(v), dtype=torch.float32))
+        rn = got[1].double()
+        alpha = f32(f32(sc[1]) / f32(d[2] @ d[3]))
+        beta = f32(f32(rn @ d[4]) / f32(sc[1]))
+        for a, ex, t in ((got[0], d[0] + alpha * d[2], d[0].abs() + abs(alpha) * d[2].abs()),
+                         (got[1], d[1] - alpha * d[3], d[1].abs() + abs(alpha) * d[3].abs()),
+                         (got[2], d[4] + beta * d[2], d[4].abs() + abs(beta) * d[2].abs())):
+            excess = (a.double() - ex).abs() - (ex.to(torch.bfloat16).double() - ex).abs()
+            assert bool((excess <= 2.0 ** -8 * t).all())
+        for a, ex, t in ((got[3][0], rn @ rn, (rn * rn).sum()),
+                         (got[3][1], rn @ d[4], (rn * d[4]).abs().sum())):
+            assert abs(float(a) - float(ex)) <= 1e-5 * float(t)
+    else:
+        alpha = float(sc[1]) / float(d[2] @ d[3])
+        beta = float(want[3][1]) / float(sc[1])
+        r_new = want[1].double()
+        terms = (d[0].abs() + abs(alpha) * d[2].abs(), d[1].abs() + abs(alpha) * d[3].abs(),
+                 d[4].abs() + abs(beta) * d[2].abs(), (r_new * r_new).sum(),
+                 (r_new * d[4]).abs().sum())
+        outs = list(zip(got[:3], want[:3])) + [(got[3][0], want[3][0]), (got[3][1], want[3][1])]
+        for (a, b), t in zip(outs, terms):
+            assert bool(((a.double() - b.double()).abs() <= rel * t).all())
+    assert got[4].tolist() == want[4].tolist() == [1, 1]
+    again = run(True)
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(again, got))
+
+
+def _loop_system(fmt, dev, grid=16):
+    prob = hpcg.generate_problem(grid, grid, grid)
+    A = convert(hpcg.to_coo(prob, device=dev), Format[fmt])
+    return prob, A, torch.from_numpy(hpcg.rhs_for_ones(prob)).to(dev)
+
+
+@pytest.mark.parametrize("fmt", ["DIA", "CSR"])
+def test_graph_solve_is_bitwise_and_the_cpu_loop(card, fmt):
+    """Two captured solves are bitwise equal; they take the CPU loop's
+    iterations (through the plain versions) and agree with its x and
+    history within the f32 tolerance; the tolerance lands convergence
+    inside a block."""
+    from repro_torch.core import solvers
+    _, A, b = _loop_system(fmt, card)
+    _, Ac, bc = _loop_system(fmt, "cpu")
+    K = solvers.BLOCK_ITERS
+    k_conv = 2 * K + 3
+    h = solvers.cg(solvers.operator(Ac), bc, tol=1e-12, maxiter=4 * K).history.double()
+    tol = float((h[k_conv - 1] * h[k_conv]).sqrt() / h[0])  # first passes at k_conv
+    rc = solvers.cg(solvers.operator(Ac), bc, tol=tol, maxiter=4 * K)
+    r1 = solvers.cg(solvers.operator(A), b, tol=tol, maxiter=4 * K)
+    loop = solvers.last_loop
+    r2 = solvers.cg(solvers.operator(A), b, tol=tol, maxiter=4 * K)
+    assert rc.iters == r1.iters == r2.iters == k_conv and k_conv % K
+    assert loop.captured and loop.eager == 1 and loop.syncs == 1 + loop.replays == 3
+    assert torch.equal(r1.x, r2.x) and torch.equal(_bits(r1.history), _bits(r2.history))
+    torch.testing.assert_close(r1.x.cpu(), rc.x, rtol=1e-4, atol=1e-4)
+    hg, hc = r1.history.cpu(), rc.history
+    assert torch.equal(hg.isnan(), hc.isnan())
+    torch.testing.assert_close(hg[~hg.isnan()], hc[~hc.isnan()], rtol=1e-4,
+                               atol=1e-6 * float(hc[0]))
+
+
+def test_graph_solve_counts_the_launches_the_device_ran(card):
+    """Over a captured solve the kernels' launch counts are the device's:
+    the capture's launches are taken back out and each replay adds them."""
+    from repro_torch.core import solvers
+    from repro_torch.kernels import solver_vec as sv
+    _, A, b = _loop_system("DIA", card)
+    kops.reset_launches()
+    sv.reset_launches()
+    solvers.cg(solvers.operator(A), b, tol=1e-7, maxiter=100)
+    loop = solvers.last_loop
+    issued = loop.k_block * (loop.eager + loop.replays)
+    assert loop.captured and loop.replays >= 1
+    assert {k: v for k, v in kops.launch_counts().items() if v} == {"dia_spmv": 1 + issued}
+    assert sv.launches == {"dot": 1 + issued, "update": issued, "direction": issued,
+                           "finish": issued}
+
+
+def test_graph_mg_pcg_takes_the_cpu_iterations(card):
+    from repro_torch.core import solvers
+    from repro_torch.mg import build_hierarchy
+    prob, A, b = _loop_system("CSR", card)
+    _, Ac, bc = _loop_system("CSR", "cpu")
+    res = solvers.pcg(solvers.operator(A), b, tol=1e-7, maxiter=100,
+                      apply_M=build_hierarchy(prob, device=card).apply_M())
+    loop = solvers.last_loop
+    ref = solvers.pcg(solvers.operator(Ac), bc, tol=1e-7, maxiter=100,
+                      apply_M=build_hierarchy(prob, device="cpu").apply_M())
+    # f32 sums in another order on the card: the reference check's one iteration
+    assert ref.iters == 11 and abs(res.iters - ref.iters) <= 1 and loop.captured
+    assert loop.k_block == solvers.BLOCK_ITERS_PRECOND
+    torch.testing.assert_close(res.x.cpu(), ref.x, rtol=1e-4, atol=1e-4)
+
+
+def test_cg_fixed_iters_never_syncs_and_a_syncing_apply_a_raises(card):
+    from repro_torch.core import solvers
+    _, A, b = _loop_system("DIA", card)
+    op = solvers.operator(A)
+    solvers.cg_fixed_iters(op, b, iters=3)  # the first use builds and loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = solvers.cg_fixed_iters(op, b, iters=20)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert res.iters == 20 and solvers.last_loop.replays == 2
+
+    def syncing(v):
+        return op(v) * float(v.abs().sum() > 0)  # a device->host read
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        solvers.cg(syncing, b, tol=1e-7, maxiter=100)
+    assert solvers.cg(op, b, tol=1e-7, maxiter=100).iters > solvers.BLOCK_ITERS

@@ -33,6 +33,7 @@ from repro_torch.obs import metrics
 from repro_torch.tuning import FormatPolicy
 from repro_torch.tuning.cache import SelectionCache
 from torch_parity import DEV, jax_fields, jconv, tconv
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 ALL_FORMATS = (Format.COO, Format.CSR, Format.DIA, Format.ELL, Format.SELL, Format.HYB,
                Format.BSR)

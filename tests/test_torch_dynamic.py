@@ -19,6 +19,7 @@ from repro_torch.core.dynamic import (DEFAULT_CANDIDATES, DynamicMatrix,
                                       SwitchDynamicMatrix)
 from repro_torch.core.formats import Format
 from torch_parity import PATTERNS, assert_same_container, coo_pair, tol
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -28,6 +28,7 @@ from repro_torch.models.spec import tree_leaves
 from torch_families import (ALL_ARCHS, B, DEV, DTYPES, S, batch_to_torch, cfg_pair,
                             check_decode_chain, check_decode_matches_forward, check_forward,
                             compute_refs, make_batch)
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ["deepseek_moe_16b", "llama4_scout_17b_a16e", "internvl2_26b", "hubert_xlarge"]
 DECODE_ARCHS = ARCHS[:-1]

@@ -19,6 +19,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import build_model
 from repro_torch.models import weights
 from torch_families import ALL_ARCHS, DEV, cfg_pair
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ["deepseek_moe_16b", "llama4_scout_17b_a16e", "internvl2_26b"]
 

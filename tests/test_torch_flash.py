@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import repro.models.flash as jflash
 from repro_torch.models import flash as tflash
 from torch_parity import tol
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 

@@ -19,6 +19,7 @@ from repro.core import Format as JFormat
 from repro_torch.device import resolve_device
 from torch_parity import (DEV, PATTERNS, assert_same_container, coo_pair,
                           jax_fields, jconv, port_from_jax)
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 ALL_FORMATS = ["COO", "CSR", "DIA", "ELL", "HYB", "SELL", "DENSE", "BSR"]
 

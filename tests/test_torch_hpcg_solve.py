@@ -22,6 +22,7 @@ from repro.core.formats import Format as JFormat
 from repro.tuning import FormatPolicy as JPolicy
 from repro_torch import hpcg_solve
 from torch_parity import jconv
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GRID = ["16", "16", "16"]

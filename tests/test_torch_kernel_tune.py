@@ -33,6 +33,7 @@ from repro_torch.obs import metrics
 from repro_torch.tuning import (CACHE_PATH_ENV, FormatPolicy, KernelRecord, PatternFeatures,
                                 SelectionCache, cache as tcache, kernel_tune as kt)
 from torch_parity import PATTERNS, coo_pair, tconv
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 H100 = "NVIDIA H100 80GB HBM3"
 SHAPES = [(1000, 1000, 27000), (1024, 1024, 27648), (16384, 4096, 16777219),

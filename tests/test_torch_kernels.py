@@ -26,6 +26,7 @@ from repro_torch.kernels import dia_spmv as kd
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import csr_spmv_ref, dia_spmv_ref
 from torch_parity import CAP, DEV, PATTERNS, tconv, tol
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -46,6 +47,10 @@ REPLACES = {"dia_spmv": ("dia_spmv.py::dia_spmv",), "csr_spmv": ("csr_spmv.py::c
             "csr_spmm": ("csr_spmm.py::csr_spmm", "csr_spmm.py::csr_spmm_t"),
             "ell_spmm": ("ell_spmv.py::ell_spmm", "ell_spmv.py::ell_spmm_t"),
             "sell_spmm": ("sell_spmv.py::sell_spmm", "sell_spmv.py::sell_spmm_t")}
+# Sources of the port's own kernels (no Pallas kernel) -> the JAX code they
+# stand for: the CG loop's vector algebra, fused by XLA inside the solvers'
+# while_loop.
+PORT_OWN = {"solver_vec": "repro/core/solvers.py"}
 # CSR row lengths: empty first/middle/last rows, one long row.
 CSR_LENS = [[0, 3, 0, 0, 70, 1, 27, 0, 64, 0], [5], [0, 0, 2]]
 
@@ -191,12 +196,15 @@ def test_default_config_follows_row_length():
 
 def test_sources_name_the_tpu_kernel_they_replace():
     srcs = _build.sources()
-    assert set(srcs) == set(REPLACES) == set(kops.KERNELS)
+    assert set(srcs) == set(REPLACES) | set(PORT_OWN)
+    assert set(REPLACES) == set(kops.KERNELS)
     assert set(kops.LAUNCH_COUNTERS) == set(ALL_KERNELS)
     for name, path in srcs.items():
         text = path.read_text()
-        for pallas in REPLACES[name]:
+        for pallas in REPLACES.get(name, ()):
             assert f"repro/kernels/{pallas}" in text
+        if name in PORT_OWN:
+            assert "Replaces no Pallas kernel" in text and PORT_OWN[name] in text
         assert "What bounds it on an H100: bytes" in text
         # no sum uses atomics; the one atomic is csr_spmv's per-row arrival
         # counter, which orders its long-row chunks and adds no value
@@ -222,7 +230,7 @@ def test_build_runs_one_compiler_per_source(tmp_path, monkeypatch):
     monkeypatch.setenv(_build.BUILD_ENV, str(tmp_path / "out"))
     assert _build.nvcc_path() == str(nvcc)
     logs = _build.build_all()
-    assert set(logs) == set(REPLACES)
+    assert set(logs) == set(REPLACES) | set(PORT_OWN)
     assert all("Used 32 registers" in log for log in logs.values())
     for name in logs:
         lib = _build._lib_path(name)

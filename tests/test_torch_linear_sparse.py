@@ -24,6 +24,7 @@ from repro_torch.models import WEIGHT_CANDIDATES, LinearSparse, prune_magnitude
 from repro_torch.models import linear_sparse as tls
 from repro_torch.obs import metrics
 from torch_parity import assert_same_container, jax_fields, static_of, tol
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 RNG = np.random.default_rng(0)
 DEV = "cpu"

@@ -35,6 +35,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import sell_spmv as ks
 from repro_torch.kernels.ref import bsr_spmm_ref, ell_spmv_ref, sell_spmv_ref
 from torch_parity import DEV, jax_fields, jconv, port_from_jax, static_of, tol
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -26,6 +26,7 @@ from repro_torch.core.ops import spmv
 from repro_torch.tuning import FormatPolicy, PatternFeatures, SelectionCache
 from repro_torch.tuning.features import batch_features
 from torch_parity import DEV, assert_same_container, jax_fields
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 BLOCK_DIMS = [(4, 4, 4), (5, 3, 4), (8, 8, 2)]  # even, uneven (padded lanes), flat
 

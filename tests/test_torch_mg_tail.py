@@ -22,6 +22,7 @@ from repro_torch.core.convert import convert
 from repro_torch.core.formats import Format
 from repro_torch.core.solvers import operator, pcg
 from torch_parity import DEV, jconv
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_mg_pcg_residual_curve_matches_jax_above_the_f32_floor():

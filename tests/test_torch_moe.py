@@ -27,6 +27,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.models import moe as tmoe
 from repro_torch.models import weights
 from torch_parity import tol
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 DEV = "cpu"
 ARCHS = ["deepseek_moe_16b", "llama4_scout_17b_a16e"]

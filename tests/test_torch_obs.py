@@ -25,6 +25,7 @@ from repro.obs import report as jreport
 from repro.obs import trace as jtrace
 from repro_torch.obs import metrics, regress, report, trace
 from repro_torch.obs.provenance import env_info
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASELINE = os.path.join(REPO, "results", "baseline.json")

@@ -39,6 +39,7 @@ from repro_torch.obs import explain, ledger, metrics, report, trace
 from repro_torch.tuning import HBM_BW, SelectionCache
 from repro_torch.tuning.policy import FormatPolicy
 from torch_parity import CAP, PATTERNS, coo_pair, jconv, tconv
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 SQUARE = ("stencil", "banded", "powerlaw")  # the 64 x 64 patterns
 WASTE = ("ell.padding_waste", "hyb.padding_waste", "sell.padding_waste")

@@ -20,6 +20,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.obs import metrics
 from repro.core import Format as JFormat
 from torch_parity import CAP, PATTERNS, jconv, port_from_jax, tol
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 SPMV_FORMATS = ["COO", "CSR", "DIA", "ELL", "BSR", "DENSE", "HYB", "SELL"]
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

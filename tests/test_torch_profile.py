@@ -25,6 +25,7 @@ from repro_torch.core.dynamic import DEFAULT_CANDIDATES, DynamicMatrix, SwitchDy
 from repro_torch.core.formats import Format
 from repro_torch.tuning import FormatPolicy, engines, profile_select, time_fn
 from torch_parity import PATTERNS, coo_pair
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 # One table of fake seconds per test case; each makes another format win.
 FAKE_TIMES = {

@@ -15,6 +15,7 @@ from repro_torch.models import build_model
 from repro_torch.models import weights
 from torch_families import (DEV, DTYPES, cfg_pair, check_decode_chain,
                             check_decode_matches_forward, check_forward, compute_refs)
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ["mamba2_2_7b", "zamba2_2_7b"]
 

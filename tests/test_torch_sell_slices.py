@@ -26,6 +26,7 @@ import repro_torch.core  # noqa: F401  (before the kernels: they import the core
 from repro_torch.kernels import sell_spmm as ksm
 from repro_torch.kernels.ref import sell_spmm_ref, sell_spmm_t_ref
 from torch_parity import coo_pair, jconv, port_from_jax, tol
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 # An H100 SXM: SMs, opt-in shared memory a block, shared memory an SM
 # (cudaDevAttrMultiProcessorCount, ...PerBlockOptin, ...PerMultiprocessor).

@@ -29,6 +29,7 @@ from repro_torch.models import build_model
 from repro_torch.models import weights
 from repro_torch.obs import ledger as tledger
 from repro_torch.obs import metrics as tmetrics
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 DEV = "cpu"
 SERVE_METRICS = ["serve.requests", "serve.tokens", "serve.latency_us", "serve.queue_us",

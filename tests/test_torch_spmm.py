@@ -33,6 +33,7 @@ from repro_torch.kernels import sell_spmm as ksm
 from repro_torch.kernels.ref import (csr_spmm_ref, csr_spmm_t_ref, ell_spmm_ref,
                                      ell_spmm_t_ref, sell_spmm_ref, sell_spmm_t_ref)
 from torch_parity import PATTERNS, coo_pair, jconv, port_from_jax, tconv, tol
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -34,6 +34,7 @@ from repro_torch.models import build_model
 from repro_torch.models import mamba2 as tm2
 from repro_torch.models import weights
 from torch_parity import tol
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 DEV = "cpu"
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}

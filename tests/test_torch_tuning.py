@@ -23,6 +23,7 @@ from repro_torch.tuning import (DEFAULT_TREE_PATH, DecisionTree, FormatPolicy,
                                 PatternFeatures, PatternStats, analytic_select,
                                 load_default_tree, predicted_bytes)
 from torch_parity import PATTERNS, coo_pair
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 PATTERN_NAMES = sorted(PATTERNS)
 

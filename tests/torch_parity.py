@@ -13,6 +13,8 @@ import importlib
 from typing import Optional
 
 import numpy as np
+import pytest
+import torch
 
 import repro.core.formats as jf
 import repro.core.hpcg as jhpcg
@@ -24,6 +26,29 @@ jconv = importlib.import_module("repro.core.convert")
 tconv = importlib.import_module("repro_torch.core.convert")
 
 DEV = "cpu"  # the tests run the port's CPU path; entry points default to cuda
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Each test module that imports this runs torch on one intra-op thread
+    (restored after it): the tier-1 run has several workers on the host's
+    cores, where every worker's full thread pool oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def jax_dist_depth_rule(dims, nshards: int, nlevels: Optional[int] = None) -> int:
+    """Levels by ``repro/mg/dist.py::build_dist_hierarchy``'s stopping rule."""
+    from repro.mg.cycle import MIN_COARSE_ROWS
+    n = 1
+    while True:
+        nx, ny, nz = dims
+        if ((nlevels is not None and n >= nlevels) or any(d % 2 for d in dims)
+                or (nz // 2) % nshards or (nx * ny * nz) // 8 < MIN_COARSE_ROWS):
+            return n
+        dims, n = (nx // 2, ny // 2, nz // 2), n + 1
 
 
 def tol(dtype_name: str) -> dict:

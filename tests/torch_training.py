@@ -9,7 +9,6 @@ import dataclasses
 import functools
 
 import numpy as np
-import pytest
 import torch
 
 import jax
@@ -23,23 +22,13 @@ from repro_torch.models import build_model
 from repro_torch.models import model as tmodel
 from repro_torch.models import weights
 from repro_torch.models.spec import tree_leaves
+from torch_parity import one_torch_thread  # noqa: F401  (re-exported: autouse where imported)
 
 DEV = "cpu"
 B = 2
 LOSS_REL = 1e-5  # |loss_port - loss_jax| <= LOSS_REL * |loss_jax|
 GRAD_REL = 2e-5  # every leaf: max|g_port - g_jax| <= GRAD_REL * max|g_jax| (worst seen: 8.1e-6, zamba2)
 CHUNKS = dict(q_chunk=8, kv_chunk=8)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Each test module that imports this runs torch on one intra-op thread
-    (restored after it): the tier-1 run has several workers on the host's
-    cores, where every worker's full thread pool oversubscribes them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def cfg_pair(arch, **kw):
