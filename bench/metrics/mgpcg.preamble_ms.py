@@ -1,0 +1,9 @@
+"""Host milliseconds of an MG-PCG set before its first block
+(``LoopStats.preamble_ms``: the first residual, the preamble's V-cycle,
+the dots, the state's buffers); the mean over the window's untraced
+solves, from the port's record of each solve."""
+from harness.loops import mean
+
+
+def read(ctx):
+    return mean(ctx, "preamble_ms")

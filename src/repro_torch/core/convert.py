@@ -823,8 +823,9 @@ def convert(A, fmt: Format, plan: Optional[SwitchPlan] = None, **kwargs):
 # ---------------------------------------------------------------------------
 # Observability: plan/execute spans and padding-waste histograms
 # ---------------------------------------------------------------------------
-# The spans wrap host-side symbolic work (plan_switch) or the enqueue of the
-# numeric phase: they time the host, not the device (see obs.trace). The
+# The plan spans time host-side symbolic work (plan_switch); the execute
+# span waits for the converted container in summary and full mode, so it
+# times the numeric phase on the device (see obs.trace). The
 # padding-waste histograms cost two divisions of host ints: every input
 # (shape, nnz, plan fields) is host metadata, never device data.
 
@@ -860,27 +861,32 @@ def _traced_plan(fn, name: str):
     @functools.wraps(fn)
     def wrapper(A, fmt, **kwargs):
         fmt = Format(fmt)
-        if _trace.mode() == "off":
+        with _trace.span(name, fmt=fmt.name) as sp:
             plan = fn(A, fmt, **kwargs)
-        else:
-            with _trace.span(name, fmt=fmt.name) as sp:
-                plan = fn(A, fmt, **kwargs)
-                if plan.ell_k is not None:
-                    sp.set(ell_k=plan.ell_k)
-                if plan.dia_offsets is not None:
-                    sp.set(n_offsets=len(plan.dia_offsets))
+            if plan.ell_k is not None:
+                sp.set(ell_k=plan.ell_k)
+            if plan.dia_offsets is not None:
+                sp.set(n_offsets=len(plan.dia_offsets))
         _observe_plan_waste(A, plan)
         return plan
     return wrapper
 
 
+def _container_tensors(C):
+    """Every tensor of a container, nested containers (HYB's) opened."""
+    for v in C.tensors().values():
+        yield from (_container_tensors(v) if hasattr(v, "tensors") else (v,))
+
+
 def _traced_execute(fn):
     @functools.wraps(fn)
     def wrapper(A, plan: SwitchPlan):
-        if _trace.mode() == "off":
-            return fn(A, plan)
-        with _trace.span("convert.execute", target=Format(plan.target).name):
-            return fn(A, plan)
+        # the span waits for the converted container, so it times the
+        # conversion's execution, not its enqueue (no wait in off mode)
+        with _trace.span("convert.execute", target=Format(plan.target).name) as sp:
+            out = fn(A, plan)
+            sp.sync(*_container_tensors(out))
+        return out
     return wrapper
 
 

@@ -29,17 +29,32 @@ kernels' launch counts (``kernels.ops.launch_counts``,
 ``solver_vec.launches``) count what the device ran: the launches recorded
 into the capture are taken back out of them, and each replay adds them
 again. On the CPU every block runs eagerly through the plain versions.
+
+Every call of :func:`cg`, :func:`pcg` or :func:`cg_fixed_iters` that
+returns appends one :class:`LoopStats` to :data:`loops`: its blocks, and
+its host time split into five phases that partition it from the call to
+the return (the preamble, the eager blocks, the capture, the replays with
+the graph's release, and the waits in the flag reads), with the caching
+allocator's ``cudaMalloc`` and ``cudaFree`` calls on the card. The same
+phases open the trace spans ``solver.preamble``, ``solver.eager_block``,
+``solver.capture``, ``solver.replay`` and ``solver.wait``
+(:mod:`repro_torch.obs.trace`; on the profiler's timeline whenever it
+records). The record is always on: a few clock reads, three reads of the
+allocator's counters on the card, one tuple a solve.
 """
 from __future__ import annotations
 
+import collections
 import math
-from typing import Callable, NamedTuple, Optional
+import time
+from typing import Callable, Deque, List, NamedTuple, Optional
 
 import torch
 
 from repro_torch.core import ops as _ops
 from repro_torch.kernels import ops as _kops
 from repro_torch.kernels import solver_vec as _sv
+from repro_torch.obs import trace as _trace
 
 # Iterations a block. A block costs up to K - 1 masked iterations past
 # convergence and saves K - 1 host syncs: a CG (or Jacobi-PCG) iteration is
@@ -60,20 +75,75 @@ class CGResult(NamedTuple):
 
 
 class LoopStats(NamedTuple):
-    """How the last solve ran its blocks: ``k_block`` iterations a block,
+    """How a solve ran its blocks: ``k_block`` iterations a block,
     ``eager`` blocks run eagerly, ``captured`` whether a block was captured
     into a CUDA graph, ``replays`` how often it was replayed, ``syncs`` the
     host's reads of the loop flag. Iterations issued = ``k_block * (eager +
-    replays)``, of which ``iters`` were active."""
+    replays)``, of which ``iters`` were active.
+
+    The host's milliseconds from the call to the return, in five phases
+    that sum to it: ``preamble_ms`` (the first residual, ``pcg``'s first
+    ``apply_M``, the dots, the state's buffers), ``eager_ms`` (the blocks
+    run eagerly, their flag reads left out), ``capture_ms`` (the capture),
+    ``replay_ms`` (the replays, the graph's release and the result) and
+    ``wait_ms`` (the host blocked in the flag reads while the device runs
+    what was enqueued). ``device_allocs``: the caching allocator's
+    ``cudaMalloc`` and ``cudaFree`` calls (``num_device_alloc +
+    num_device_free``) over the solve; 0 on the CPU."""
     k_block: int
     eager: int
     captured: bool
     replays: int
     syncs: int
     iters: int
+    preamble_ms: float
+    eager_ms: float
+    capture_ms: float
+    replay_ms: float
+    wait_ms: float
+    device_allocs: int
 
 
+# one record a returned solve, oldest first; ``last_loop is loops[-1]``
+loops: Deque[LoopStats] = collections.deque(maxlen=16384)
 last_loop: Optional[LoopStats] = None
+
+# the phases of :class:`LoopStats`, in its order
+PREAMBLE, EAGER, CAPTURE, REPLAY, WAIT = range(5)
+
+
+def _device_allocs(dev: torch.device) -> int:
+    """The caching allocator's ``cudaMalloc`` and ``cudaFree`` calls on
+    ``dev`` so far."""
+    if dev.type != "cuda":
+        return 0
+    st = torch.cuda.memory_stats_as_nested_dict(dev)
+    return st.get("num_device_alloc", 0) + st.get("num_device_free", 0)
+
+
+class _Meter:
+    """How one solve runs, for its :class:`LoopStats`: the blocks, the
+    graph while it lives, the host time by phase (:meth:`lap` charges the
+    time since the previous lap to a phase, so the phases sum to the
+    solve's time with no overlap) and the allocator's ``cudaMalloc`` and
+    ``cudaFree`` calls since the start (:meth:`allocs`)."""
+
+    __slots__ = ("t", "ns", "dev", "allocs0", "eager", "replays", "syncs", "graph")
+
+    def __init__(self, dev: torch.device):
+        self.t = time.perf_counter_ns()
+        self.ns: List[int] = [0] * 5
+        self.dev, self.allocs0 = dev, _device_allocs(dev)
+        self.eager = self.replays = self.syncs = 0
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+
+    def lap(self, phase: int) -> None:
+        now = time.perf_counter_ns()
+        self.ns[phase] += now - self.t
+        self.t = now
+
+    def allocs(self) -> int:
+        return _device_allocs(self.dev) - self.allocs0
 
 
 def operator(A, backend: Optional[str] = None, cfg: Optional[dict] = None) -> Callable:
@@ -180,64 +250,97 @@ def _capture(block: Callable, dev: torch.device) -> "torch.cuda.CUDAGraph":
 def _run(loop: _Loop, k_block: int, nblocks: Optional[int] = None) -> int:
     """Run ``loop`` in blocks of ``k_block`` iterations: until the flag is
     off (``nblocks`` None), or exactly ``nblocks`` blocks with no read of
-    the flag. Returns the iterations done."""
-    global last_loop
-    dev = loop.x.device
-    graph, eager, replays, syncs, in_graph = None, 0, 0, 0, {}
+    the flag. Returns the iterations done; ``loop.meter`` says how, and
+    holds the captured graph until :func:`_solve` releases it."""
+    m = loop.meter
+    dev, in_graph = loop.x.device, {}
 
     def block():
         for _ in range(k_block):
             loop.iteration()
 
     def next_block():  # eager on the CPU and the first time; then replays
-        nonlocal graph, eager, replays, in_graph
-        if eager == 0 or dev.type != "cuda":
-            block()
-            eager += 1
+        nonlocal in_graph
+        if m.eager == 0 or dev.type != "cuda":
+            with _trace.span("solver.eager_block"):
+                block()
+            m.eager += 1
+            m.lap(EAGER)
             return
-        if graph is None:  # the launches recorded run at each replay, not now
-            before = _launch_counts()
-            try:
-                graph = _capture(block, dev)
-            finally:
-                in_graph = {k: v - before[k] for k, v in _launch_counts().items()
-                            if v != before[k]}
-                _add_launches(in_graph, -1)
-        graph.replay()
-        _add_launches(in_graph)
-        replays += 1
+        if m.graph is None:  # the launches recorded run at each replay, not now
+            with _trace.span("solver.capture") as sp:
+                before = _launch_counts()
+                try:
+                    m.graph = _capture(block, dev)
+                finally:
+                    in_graph = {k: v - before[k] for k, v in _launch_counts().items()
+                                if v != before[k]}
+                    _add_launches(in_graph, -1)
+                sp.set(device_allocs=m.allocs())
+            m.lap(CAPTURE)
+        with _trace.span("solver.replay"):
+            m.graph.replay()
+            _add_launches(in_graph)
+        m.replays += 1
+        m.lap(REPLAY)
+
+    def flag():
+        with _trace.span("solver.wait"):
+            out = loop.st.tolist()
+        m.syncs += 1
+        m.lap(WAIT)
+        return out
 
     if nblocks is not None:  # cg_fixed_iters: no flag to read
         for _ in range(nblocks):
             next_block()
-        iters = min(loop.maxiter, k_block * nblocks)
-    else:
+        return min(loop.maxiter, k_block * nblocks)
+    next_block()
+    iters, active = flag()
+    while active:
         next_block()
-        iters, active = loop.st.tolist()
-        syncs += 1
-        while active:
-            next_block()
-            iters, active = loop.st.tolist()
-            syncs += 1
-    last_loop = LoopStats(k_block, eager, graph is not None, replays, syncs, iters)
+        iters, active = flag()
     return iters
+
+
+def _solve(make_loop: Callable[[], _Loop], dev: torch.device, k_block: int,
+           nblocks: Optional[int] = None) -> CGResult:
+    """The loop that ``make_loop`` sets up, run by :func:`_run`; appends
+    the solve's :class:`LoopStats` to :data:`loops`."""
+    global last_loop
+    with _trace.span("solver.preamble"):
+        m = _Meter(dev)
+        loop = make_loop()
+    loop.meter = m
+    m.lap(PREAMBLE)
+    iters = _run(loop, k_block, nblocks)
+    captured = m.graph is not None
+    with _trace.span("solver.replay"):
+        m.graph = None  # the graph and its private pool go
+        allocs = m.allocs()
+        res = loop.result(iters)
+    m.lap(REPLAY)
+    last_loop = LoopStats(k_block, m.eager, captured, m.replays, m.syncs, iters,
+                          *(ns * 1e-6 for ns in m.ns), allocs)
+    loops.append(last_loop)
+    return res
 
 
 def cg(apply_A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
        tol: float = 1e-8, maxiter: int = 100) -> CGResult:
     """Unpreconditioned conjugate gradients (HPCG's optimized-phase solve):
     stops when ||r||^2 <= tol^2 * ||r_0||^2 or after ``maxiter`` steps."""
-    loop = _Loop(apply_A, None, b, x0, tol, maxiter, fixed=False)
-    return loop.result(_run(loop, block_iters(False)))
+    return _solve(lambda: _Loop(apply_A, None, b, x0, tol, maxiter, fixed=False),
+                  b.device, block_iters(False))
 
 
 def cg_fixed_iters(apply_A: Callable, b: torch.Tensor,
                    x0: Optional[torch.Tensor] = None, iters: int = 50) -> CGResult:
     """Fixed-iteration CG (no early exit, no host sync): the HPCG
     'optimized problem timing' loop shape, same step as :func:`cg`."""
-    loop = _Loop(apply_A, None, b, x0, 0.0, iters, fixed=True)
     k = block_iters(False)
-    return loop.result(_run(loop, k, nblocks=max(1, -(-iters // k))))
+    return _solve(lambda: _Loop(apply_A, None, b, x0, 0.0, iters, fixed=True),
+                  b.device, k, nblocks=max(1, -(-iters // k)))
 
 
 def pcg(apply_A: Callable, b: torch.Tensor,
@@ -247,13 +350,16 @@ def pcg(apply_A: Callable, b: torch.Tensor,
     """Preconditioned CG over ``z = M^{-1} r``: ``apply_M`` is any SPD
     linear map; without it, ``diag_A`` gives the Jacobi preconditioner
     M = diag(A). Convergence is tested on ||r||^2, as in :func:`cg`."""
+    if apply_M is None and diag_A is None:
+        raise ValueError("pcg needs apply_M= (e.g. an MG V-cycle) or "
+                         "diag_A= (Jacobi)")
     k = block_iters(apply_M is not None)
-    if apply_M is None:
-        if diag_A is None:
-            raise ValueError("pcg needs apply_M= (e.g. an MG V-cycle) or "
-                             "diag_A= (Jacobi)")
-        minv = torch.where(diag_A.abs() > 1e-30, 1.0 / diag_A,
-                           torch.zeros((), dtype=diag_A.dtype, device=diag_A.device))
-        apply_M = lambda r: minv * r  # noqa: E731
-    loop = _Loop(apply_A, apply_M, b, x0, tol, maxiter, fixed=False)
-    return loop.result(_run(loop, k))
+
+    def make_loop():
+        M = apply_M
+        if M is None:
+            minv = torch.where(diag_A.abs() > 1e-30, 1.0 / diag_A,
+                               torch.zeros((), dtype=diag_A.dtype, device=diag_A.device))
+            M = lambda r: minv * r  # noqa: E731
+        return _Loop(apply_A, M, b, x0, tol, maxiter, fixed=False)
+    return _solve(make_loop, b.device, k)

@@ -109,8 +109,6 @@ def _smooth(hier: MGHierarchy, lev: MGLevel, b, x, sweeps: int):
 
 def v_cycle(hier: MGHierarchy, r: torch.Tensor, level: int = 0) -> torch.Tensor:
     """One V-cycle on ``A_level z = r`` from a zero initial guess."""
-    if _trace.mode() == "off":
-        return _v_cycle(hier, r, level)
     with _trace.span("mg.vcycle", level=level):
         return _v_cycle(hier, r, level)
 

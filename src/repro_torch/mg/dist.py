@@ -300,8 +300,6 @@ def _dist_prolong(lev: DistMGLevel, xc: torch.Tensor) -> torch.Tensor:
 
 def v_cycle_dist(hier: DistMGHierarchy, r: torch.Tensor, level: int = 0) -> torch.Tensor:
     """One distributed V-cycle from a zero guess. No device->host sync."""
-    if _trace.mode() == "off":
-        return _v_cycle_dist(hier, r, level)
     with _trace.span("mg.vcycle_dist", level=level):
         return _v_cycle_dist(hier, r, level)
 

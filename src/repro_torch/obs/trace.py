@@ -7,16 +7,23 @@ kernel routing, distributed and multigrid builds) leaves a span or an event:
 * ``span("plan.switch", fmt="ELL")`` is a context manager that times a
   region and records it (name, host time, thread, parent span, attributes)
   into a bounded thread-safe ring buffer.
-* The ``REPRO_TRACE`` environment variable gates everything (the JAX
+* The ``REPRO_TRACE`` environment variable gates the recording (the JAX
   package's variable and modes):
 
     - ``off``      (default) ``span()`` returns a shared no-op object: the
-                   hot path costs one global load and one branch.
+                   hot path costs two global loads and a branch or two.
     - ``summary``  spans are timed and folded into per-name aggregates
                    (count/total/min/max); no per-event storage.
     - ``full``     aggregates *plus* the event ring buffer, exportable to
                    ``trace.json`` (``chrome://tracing`` or Perfetto's
                    ``ui.perfetto.dev``) with :func:`export_chrome`.
+
+* **On the profiler's clock.** While ``torch.profiler`` records, every
+  span also opens a ``torch.profiler.record_function`` range of its name,
+  whatever the mode: in off mode that range is all it does. A device trace
+  then places each span on the host timeline beside the kernels, and an
+  idle gap of the device is named by the span (or the op inside it) that
+  the host was in. ``event()`` stays trace-mode only.
 
 * **What a span measures.** The port runs eagerly and CUDA launches are
   asynchronous, so a span around ``y = spmv(A, x)`` measures the time the
@@ -29,20 +36,29 @@ kernel routing, distributed and multigrid builds) leaves a span or an event:
 
 * **Eager, not trace time.** The JAX package opens ``mg.vcycle`` or
   ``exchange.dist_spmv`` once per jit trace; the port opens them on every
-  call, and only while tracing is on.
+  Python call, which inside a solve is the eager block and the capture
+  (replays of the captured graph run no Python).
 
 The tracer imports nothing heavy: ``torch`` is imported inside the sync of
-an active span only.
+an active span only, and the profiler's flag is read from
+``torch.autograd.profiler`` once something else has loaded it.
 
 Span-name taxonomy (the first dotted component is the phase the report
 attributes time to; see ``repro_torch.obs.report``):
 
     select.*    FormatPolicy decisions (``select.policy``, ``select.batch``)
     plan.*      symbolic phases (``plan.switch``, ``plan.partition``, ...)
-    convert.*   numeric conversion phases
+    convert.*   numeric conversion phases (``convert.execute`` waits for
+                the converted container's device work)
     kernel.*    kernel routing decisions (``kernel.route`` events)
     exchange.*  halo exchange (``exchange.dist_spmv``, ``exchange.issue``)
-    solver.*    solve time (``solver.solve``)
+    solver.*    solve time: ``solver.solve`` (the CLI's call) and inside
+                every ``cg`` / ``pcg`` / ``cg_fixed_iters`` the phases
+                that partition its host time, as ``core.solvers.LoopStats``
+                counts them: ``solver.preamble``, ``solver.eager_block``,
+                ``solver.capture`` (attribute ``device_allocs``),
+                ``solver.replay`` (each replay, and the graph's release),
+                ``solver.wait`` (each read of the loop's flag)
     build.*     composite build phases (``build.dist``, ``build.mg_level``)
     mg.*        V-cycle structure (``mg.vcycle`` per level)
 """
@@ -51,6 +67,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import sys
 import threading
 import time
 import warnings
@@ -78,6 +95,10 @@ _DROPPED = 0
 _AGG: Dict[str, list] = {}
 
 _TLS = threading.local()         # .stack: list of open spans
+
+# torch.autograd.profiler once something has imported it: its
+# ``_is_profiler_enabled`` is the flag every profiler sets while recording
+_PROFILER = None
 
 
 def _resolve_mode() -> str:
@@ -126,6 +147,17 @@ class tracing:
         return False
 
 
+def _profiler():
+    """``torch.autograd.profiler`` while a profiler records, else None."""
+    global _PROFILER
+    p = _PROFILER
+    if p is None:
+        p = _PROFILER = sys.modules.get("torch.autograd.profiler")
+        if p is None:
+            return None
+    return p if p._is_profiler_enabled else None
+
+
 def _stack() -> list:
     s = getattr(_TLS, "stack", None)
     if s is None:
@@ -157,9 +189,9 @@ def _record(ev: dict) -> None:
 class _Span:
     """An active span. Use :func:`span`; not constructed directly."""
 
-    __slots__ = ("name", "attrs", "id", "parent", "tid", "_t0", "_sync")
+    __slots__ = ("name", "attrs", "id", "parent", "tid", "_t0", "_sync", "_range")
 
-    def __init__(self, name: str, attrs: dict):
+    def __init__(self, name: str, attrs: dict, prof=None):
         self.name = name
         self.attrs = attrs
         self.id = next(_IDS)
@@ -167,6 +199,7 @@ class _Span:
         self._sync: list = []
         self.parent = None
         self._t0 = 0
+        self._range = prof.record_function(name) if prof is not None else None
 
     def sync(self, *values) -> "_Span":
         """Register tensors whose device work the span must wait for at its
@@ -185,6 +218,8 @@ class _Span:
         st = _stack()
         self.parent = st[-1].id if st else None
         st.append(self)
+        if self._range is not None:
+            self._range.__enter__()
         self._t0 = time.perf_counter_ns()
         return self
 
@@ -196,6 +231,8 @@ class _Span:
 
                 torch.cuda.synchronize(dev)
         t1 = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(*exc)
         st = _stack()
         if st and st[-1] is self:
             st.pop()
@@ -232,14 +269,34 @@ class _NullSpan:
 _NULL = _NullSpan()
 
 
+class _Range(_NullSpan):
+    """The off-mode span while a profiler records: the profiler's range of
+    its name, and nothing recorded here."""
+
+    __slots__ = ("_range",)
+
+    def __init__(self, name: str, prof):
+        self._range = prof.record_function(name)
+
+    def __enter__(self):
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        return False
+
+
 def span(name: str, **attrs):
-    """Open a traced span. Off mode returns a shared no-op object."""
+    """Open a traced span. Off mode returns a shared no-op object, or,
+    while ``torch.profiler`` records, a range on the profiler's timeline."""
     m = _MODE
     if m is None:
         m = mode()
+    prof = _profiler()
     if m == "off":
-        return _NULL
-    return _Span(name, attrs)
+        return _NULL if prof is None else _Range(name, prof)
+    return _Span(name, attrs, prof)
 
 
 def event(name: str, **attrs) -> None:

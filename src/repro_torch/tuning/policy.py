@@ -87,13 +87,10 @@ class FormatPolicy:
         # detail is the ledger's workspace: the tiers fill in what they did
         # only when the ledger wants a record
         detail: Optional[dict] = {} if _ledger.enabled() else None
-        if _trace.mode() == "off":
+        with _trace.span("select.policy", mode=self.mode, op=op) as sp:
             rep = self._select(A, x, op, ncols, detail)
-        else:
-            with _trace.span("select.policy", mode=self.mode, op=op) as sp:
-                rep = self._select(A, x, op, ncols, detail)
-                sp.set(chosen=Format(rep.best).name, tier=rep.mode,
-                       backend=rep.backend or "auto")
+            sp.set(chosen=Format(rep.best).name, tier=rep.mode,
+                   backend=rep.backend or "auto")
         if detail is not None:
             _ledger.record("format.select", mode=self.mode, op=op, ncols=ncols,
                            chosen=Format(rep.best).name, tier=rep.mode,
@@ -165,10 +162,7 @@ class FormatPolicy:
         each part. One ``format.select_batch`` record counts the picks."""
         A = A.concrete if isinstance(A, DynamicMatrix) else A
         nparts = int(A.data.shape[0])
-        if _trace.mode() != "off":
-            with _trace.span("select.batch", mode=self.mode, parts=nparts):
-                ids = self._select_batch(A, x, nparts)
-        else:
+        with _trace.span("select.batch", mode=self.mode, parts=nparts):
             ids = self._select_batch(A, x, nparts)
         if _ledger.enabled():
             counts: dict = {}

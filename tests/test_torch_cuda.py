@@ -2022,3 +2022,75 @@ def test_cg_fixed_iters_never_syncs_and_a_syncing_apply_a_raises(card):
     with pytest.raises(RuntimeError, match="cannot be captured"):
         solvers.cg(syncing, b, tol=1e-7, maxiter=100)
     assert solvers.cg(op, b, tol=1e-7, maxiter=100).iters > solvers.BLOCK_ITERS
+
+
+SOLVER_PHASES = {"solver.preamble": "preamble_ms", "solver.eager_block": "eager_ms",
+                 "solver.capture": "capture_ms", "solver.replay": "replay_ms",
+                 "solver.wait": "wait_ms"}
+
+
+def test_graph_solve_records_capture_time_and_allocator_calls(card):
+    """Every capture gets a private pool of its own, which the allocator
+    fills with ``cudaMalloc``: a captured solve reads capture time and at least
+    one allocator call."""
+    from repro_torch.core import solvers
+    _, A, b = _loop_system("DIA", card)
+    solvers.cg(solvers.operator(A), b, tol=1e-7, maxiter=100)
+    first = solvers.last_loop
+    assert first is solvers.loops[-1] and first.captured
+    assert first.capture_ms > 0 and first.device_allocs >= 1
+    assert all(getattr(first, f) >= 0 for f in SOLVER_PHASES.values())
+
+
+def test_solver_phase_spans_partition_a_solve_in_summary_mode(card):
+    """The five ``solver.*`` spans of a captured solve: each nested in its
+    phase of the record (within 20 us an opening), the phases summing to
+    the call's wall time."""
+    import time
+
+    from repro_torch.core import solvers
+    from repro_torch.obs import trace
+    _, A, b = _loop_system("DIA", card)
+    op = solvers.operator(A)
+    solvers.cg(op, b, tol=1e-7, maxiter=100)  # kernels built and loaded
+    with trace.tracing("summary"):
+        trace.clear()
+        t0 = time.perf_counter_ns()
+        solvers.cg(op, b, tol=1e-7, maxiter=100)
+        wall_ms = (time.perf_counter_ns() - t0) * 1e-6
+        agg = trace.aggregate()
+    trace.clear()
+    L = solvers.last_loop
+    counts = {"solver.preamble": 1, "solver.eager_block": L.eager, "solver.capture": 1,
+              "solver.replay": L.replays + 1, "solver.wait": L.syncs}
+    assert L.captured and {k: agg[k]["count"] for k in counts} == counts
+    total = sum(getattr(L, f) for f in SOLVER_PHASES.values())
+    assert wall_ms - 0.2 <= total <= wall_ms
+    for name, field in SOLVER_PHASES.items():
+        ms, span_ms = getattr(L, field), agg[name]["total_us"] * 1e-3
+        assert span_ms <= ms <= span_ms + 0.02 * counts[name] + 0.01 * ms, name
+
+
+@pytest.mark.parametrize("mode", ["off", "summary"])
+def test_convert_execute_span_waits_for_the_container(card, mode, monkeypatch):
+    """In summary mode ``convert.execute`` synchronizes the converted
+    container's device once, at its close (HYB's nested parts too); off
+    mode never synchronizes."""
+    from repro_torch.obs import trace
+    real, calls = torch.cuda.synchronize, []
+
+    def counted(*a):
+        calls.append(a)
+        real(*a)
+    C = coo_from_dense_np(np.eye(512, dtype=np.float32), device=card)
+    monkeypatch.setattr(torch.cuda, "synchronize", counted)
+    with trace.tracing(mode):
+        trace.clear()
+        outs = [convert(C, fmt) for fmt in (Format.CSR, Format.HYB)]
+        agg = trace.aggregate()
+    trace.clear()
+    if mode == "off":
+        assert calls == [] and agg == {}
+    else:
+        assert agg["convert.execute"]["count"] == len(calls) >= 2
+        assert set(calls) == {(outs[0].device,)}

@@ -140,6 +140,40 @@ def test_span_syncs_registered_card_tensors_once_at_close(monkeypatch):
             assert len(calls) == 1
 
 
+def test_off_mode_spans_reach_the_profilers_timeline():
+    """With tracing off, a solve under ``torch.profiler`` shows the solver's
+    phases and the V-cycle among the profiler's host events, and the tracer
+    records nothing of its own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import hpcg, solvers
+    from repro_torch.core.convert import convert
+    from repro_torch.core.formats import Format
+    from repro_torch.mg import build_hierarchy
+
+    prob = hpcg.generate_problem(8, 8, 8)
+    A = solvers.operator(convert(hpcg.to_coo(prob, device="cpu"), Format.CSR))
+    b = torch.from_numpy(hpcg.rhs_for_ones(prob))
+    hier = build_hierarchy(prob, nlevels=2, smoother="jacobi", pre=2, post=2, device="cpu")
+    trace.set_mode("off")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert trace.span("solver.x") is not trace.span("solver.y")
+        solvers.cg(A, b, tol=1e-6, maxiter=40)
+        solvers.pcg(A, b, tol=1e-6, maxiter=40, apply_M=hier.apply_M())
+    names = {e.name for e in prof.events()}
+    assert {"solver.preamble", "solver.eager_block", "solver.wait", "mg.vcycle"} <= names
+    assert trace.aggregate() == {} and trace.events() == []
+
+
+def test_off_mode_without_a_profiler_returns_the_shared_no_op():
+    trace.set_mode("off")
+    sp = trace.span("solver.preamble", a=1)
+    assert sp is trace.span("mg.vcycle") is trace._NULL
+    with sp as inner:
+        inner.set(b=2).sync(torch.ones(2))
+    assert trace.aggregate() == {} and trace.events() == []
+
+
 def test_spans_nest_events_parent_and_summary_mode():
     with trace.tracing("full"):
         with trace.span("build.outer", kind="t") as outer:

@@ -205,3 +205,47 @@ def test_replay_bookkeeping_adds_and_takes_back_every_kernel_count():
     assert solvers._launch_counts() == {k: v + 3 for k, v in before.items()}
     solvers._add_launches(delta, -1)
     assert solvers._launch_counts() == before
+
+
+PHASES = ("preamble_ms", "eager_ms", "capture_ms", "replay_ms", "wait_ms")
+
+
+def test_loops_hold_one_record_a_solve_in_order(system):
+    """``solvers.loops`` gains one record a call of ``cg``, ``pcg`` and
+    ``cg_fixed_iters``, oldest first; ``last_loop`` is its newest. On the
+    CPU every block is eager: no capture, no replay, no allocator call."""
+    A, b = system["A"], torch.from_numpy(system["b"])
+    n0 = len(solvers.loops)
+    r_cg = solvers.cg(A, b, tol=1e-6, maxiter=4 * K)
+    r_pcg = solvers.pcg(A, b, ops.extract_diagonal(system["At"]), tol=1e-6, maxiter=4 * K)
+    r_fixed = solvers.cg_fixed_iters(A, b, iters=K + 5)
+    recs = list(solvers.loops)[-3:]
+    assert len(solvers.loops) == min(n0 + 3, solvers.loops.maxlen)
+    assert solvers.last_loop is solvers.loops[-1] is recs[-1]
+    assert [r.iters for r in recs] == [r_cg.iters, r_pcg.iters, r_fixed.iters]
+    assert [r.syncs for r in recs] == [recs[0].eager, recs[1].eager, 0]
+    for rec in recs:
+        assert all(getattr(rec, f) >= 0 for f in PHASES)
+        assert rec.capture_ms == 0 and rec.device_allocs == 0
+        assert not rec.captured and rec.replays == 0 and rec.eager >= 1
+        assert rec.preamble_ms > 0 and rec.eager_ms > 0
+    assert recs[2].wait_ms == 0  # no flag read
+
+
+def test_loops_are_bounded_at_their_maxlen(system, monkeypatch):
+    import collections
+
+    assert solvers.loops.maxlen == 16384
+    monkeypatch.setattr(solvers, "loops", collections.deque(maxlen=3))
+    A, b = system["A"], torch.from_numpy(system["b"])
+    for iters in range(1, 6):
+        solvers.cg_fixed_iters(A, b, iters=iters)
+    assert [r.iters for r in solvers.loops] == [3, 4, 5]
+    assert solvers.last_loop is solvers.loops[-1]
+
+
+def test_raising_solve_leaves_no_record(system):
+    n0, last = len(solvers.loops), solvers.last_loop
+    with pytest.raises(ValueError, match="apply_M"):
+        solvers.pcg(system["A"], torch.from_numpy(system["b"]))
+    assert len(solvers.loops) == n0 and solvers.last_loop is last
